@@ -1,0 +1,266 @@
+"""X3D video backbone (counterpart of ``change3d_tpu/models/x3d.py``).
+
+Same architecture: spatial-first stride-1 stem, stages of bottleneck
+res-blocks with stride 2 and a projection shortcut on block 0, SE on
+even-indexed blocks, the shortcut BN only where dims change. Activations
+are [B, T, H, W, C]. Stages are plain loops over ``block{j}`` (no scan).
+
+With ``fused_inference`` (the default here) every stride-1, dim-preserving
+block runs at eval as the fused CUDA kernel (``ops/fused_block.py``); there
+is no shared-memory gate, since the kernel tiles any spatial size. The
+Kinetics classifier head is not ported: no Change3D task runs it.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from change3d_tpu_torch.init import torch_conv_kernel_init
+from change3d_tpu_torch.ops.fused_block import fused_bottleneck_block
+from change3d_tpu_torch.ops.layers import (
+    conv3d,
+    depthwise_conv3d,
+    pointwise_conv3d,
+    squeeze_excite_3d,
+    swish,
+)
+from change3d_tpu_torch.ops.norm import BatchNorm
+
+
+def round_width(width, multiplier, min_width: int = 8, divisor: int = 8) -> int:
+    """Divisor-8 width rounding with the 0.9 guard (pytorchvideo semantics)."""
+    if not multiplier:
+        return width
+    width *= multiplier
+    min_width = min_width or divisor
+    width_out = max(min_width, int(width + divisor / 2) // divisor * divisor)
+    if width_out < 0.9 * width:
+        width_out += divisor
+    return int(width_out)
+
+
+def round_repeats(repeats: int, multiplier: float) -> int:
+    if not multiplier:
+        return repeats
+    return int(math.ceil(multiplier * repeats))
+
+
+@dataclass(frozen=True)
+class X3DConfig:
+    """Derived X3D architecture description."""
+
+    in_channels: int = 3
+    stem_dim_out: int = 24
+    stage_dims: Tuple[int, ...] = (24, 48, 96, 192)
+    stage_inner_dims: Tuple[int, ...] = (54, 108, 216, 432)
+    stage_depths: Tuple[int, ...] = (5, 10, 25, 15)
+    stage_spatial_stride: Tuple[int, ...] = (2, 2, 2, 2)
+    stage_temporal_stride: Tuple[int, ...] = (1, 1, 1, 1)
+    stem_conv_stride: Tuple[int, int, int] = (1, 1, 1)
+    se_ratio: float = 0.0625
+    bn_eps: float = 1e-5
+    # Run every stride-1, dim-preserving block at eval as the fused kernel.
+    fused_inference: bool = True
+
+    def se_reduced_dim(self, stage_idx: int) -> int:
+        return round_width(self.stage_inner_dims[stage_idx], self.se_ratio)
+
+
+def x3d_config(
+    width_factor: float = 2.0,
+    depth_factor: float = 2.2,
+    bottleneck_factor: float = 2.25,
+    stem_dim_in: int = 12,
+    base_depths: Tuple[int, ...] = (1, 2, 5, 3),
+    stem_conv_stride: Tuple[int, int, int] = (1, 1, 1),
+    **overrides,
+) -> X3DConfig:
+    """Generic X3D family builder: widths double per stage with divisor-8
+    rounding, depths are ``round_repeats`` of the base [1, 2, 5, 3]."""
+    dims, inners, depths = [], [], []
+    d = stem_dim_in
+    for i in range(4):
+        if i > 0:
+            d = round_width(d, 2.0, divisor=8)
+        dim_out = round_width(d, width_factor)
+        dims.append(dim_out)
+        inners.append(int(bottleneck_factor * dim_out))
+        depths.append(round_repeats(base_depths[i], depth_factor))
+    return X3DConfig(
+        stem_dim_out=round_width(stem_dim_in, width_factor),
+        stage_dims=tuple(dims),
+        stage_inner_dims=tuple(inners),
+        stage_depths=tuple(depths),
+        stem_conv_stride=stem_conv_stride,
+        **overrides,
+    )
+
+
+def x3d_l_config(**overrides) -> X3DConfig:
+    """X3D-L as Change3D instantiates it: width 2.0, depth 5.0, bottleneck
+    2.25, stem stride (1, 1, 1)."""
+    return x3d_config(width_factor=2.0, depth_factor=5.0, **overrides)
+
+
+class X3DStem(nn.Module):
+    """Spatial 1x3x3 conv -> depthwise temporal 5x1x1 conv -> BN -> ReLU."""
+
+    def __init__(self, cfg: X3DConfig, generator: torch.Generator):
+        super().__init__()
+        self.cfg = cfg
+        c, c_in = cfg.stem_dim_out, cfg.in_channels
+        self.conv_s = nn.Parameter(torch_conv_kernel_init(generator, (c, c_in, 1, 3, 3), c_in * 9))
+        self.conv_t = nn.Parameter(torch_conv_kernel_init(generator, (c, 1, 5, 1, 1), 5))
+        self.bn = BatchNorm(c, cfg.bn_eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        st, ss = self.cfg.stem_conv_stride[0], self.cfg.stem_conv_stride[1]
+        x = conv3d(x, self.conv_s, stride=(1, ss, ss), padding=(0, 1, 1))
+        x = depthwise_conv3d(x, self.conv_t, stride=(st, 1, 1), padding=(2, 0, 0))
+        return torch.relu(self.bn(x))
+
+
+class SqueezeExcite(nn.Module):
+    """pool -> fc reduce -> ReLU -> fc expand -> sigmoid -> scale; the two
+    fcs are [in, out] matrices with biases."""
+
+    def __init__(self, dim: int, reduced_dim: int, generator: torch.Generator):
+        super().__init__()
+        self.w_reduce = nn.Parameter(torch_conv_kernel_init(generator, (dim, reduced_dim), dim))
+        self.b_reduce = nn.Parameter(torch.zeros(reduced_dim))
+        self.w_expand = nn.Parameter(torch_conv_kernel_init(generator, (reduced_dim, dim), reduced_dim))
+        self.b_expand = nn.Parameter(torch.zeros(dim))
+
+    def weights(self) -> tuple:
+        return self.w_reduce, self.b_reduce, self.w_expand, self.b_expand
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return squeeze_excite_3d(x, *self.weights())
+
+
+class X3DBottleneck(nn.Module):
+    """conv_a 1x1x1 -> BN/ReLU -> conv_b depthwise 3x3x3 (stride) -> BN ->
+    [SE] -> swish -> conv_c 1x1x1 -> BN."""
+
+    def __init__(self, dim_in, dim_inner, dim_out, stride, se_reduced_dim, eps, generator):
+        super().__init__()
+        self.stride = tuple(stride)
+        self.conv_a = nn.Parameter(torch_conv_kernel_init(generator, (dim_in, dim_inner), dim_in))
+        self.bn_a = BatchNorm(dim_inner, eps)
+        self.conv_b = nn.Parameter(torch_conv_kernel_init(generator, (dim_inner, 1, 3, 3, 3), 27))
+        self.bn_b = BatchNorm(dim_inner, eps)
+        self.se: Optional[SqueezeExcite] = (
+            SqueezeExcite(dim_inner, se_reduced_dim, generator) if se_reduced_dim > 0 else None
+        )
+        self.conv_c = nn.Parameter(torch_conv_kernel_init(generator, (dim_inner, dim_out), dim_inner))
+        self.bn_c = BatchNorm(dim_out, eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = torch.relu(self.bn_a(pointwise_conv3d(x, self.conv_a)))
+        x = self.bn_b(depthwise_conv3d(x, self.conv_b, stride=self.stride, padding=(1, 1, 1)))
+        if self.se is not None:
+            x = self.se(x)
+        x = swish(x)
+        return self.bn_c(pointwise_conv3d(x, self.conv_c))
+
+    def fused_residual(self, x: torch.Tensor) -> torch.Tensor:
+        """relu(x + self(x)) as one fused block (eval, stride 1, dim-preserving)."""
+        a_a, b_a = self.bn_a.folded()
+        a_b, b_b = self.bn_b.folded()
+        a_c, b_c = self.bn_c.folded()
+        w_dw = self.conv_b[:, 0].permute(1, 2, 3, 0)  # [3, 3, 3, Ci]
+        se = None if self.se is None else self.se.weights()
+        return fused_bottleneck_block(
+            x, self.conv_a, a_a, b_a, w_dw, a_b, b_b, self.conv_c, a_c, b_c, se
+        )
+
+
+class X3DResBlock(nn.Module):
+    """relu(shortcut(x) + bottleneck(x)). The projection shortcut (strided
+    1x1x1 conv, an [in, out] matrix) exists when dims differ or the block
+    strides; its BN only when dims differ."""
+
+    def __init__(self, dim_in, dim_inner, dim_out, stride, se_reduced_dim, cfg: X3DConfig,
+                 generator):
+        super().__init__()
+        self.stride = tuple(stride)
+        self.fusable = (
+            cfg.fused_inference and self.stride == (1, 1, 1) and dim_in == dim_out
+        )
+        self.proj = self.proj_bn = None
+        if dim_in != dim_out or any(s > 1 for s in self.stride):
+            self.proj = nn.Parameter(torch_conv_kernel_init(generator, (dim_in, dim_out), dim_in))
+            if dim_in != dim_out:
+                self.proj_bn = BatchNorm(dim_out, cfg.bn_eps)
+        self.bottleneck = X3DBottleneck(
+            dim_in, dim_inner, dim_out, stride, se_reduced_dim, cfg.bn_eps, generator
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fusable and not self.training:
+            return self.bottleneck.fused_residual(x)
+        shortcut = x
+        if self.proj is not None:
+            st, sh, sw = self.stride
+            shortcut = pointwise_conv3d(x[:, ::st, ::sh, ::sw], self.proj)
+            if self.proj_bn is not None:
+                shortcut = self.proj_bn(shortcut)
+        return torch.relu(shortcut + self.bottleneck(x))
+
+
+class X3DStage(nn.Module):
+    """Res blocks ``block0 .. block{depth-1}``: stride and dim change on
+    block 0, SE on even-indexed blocks."""
+
+    def __init__(self, cfg: X3DConfig, stage_idx: int, dim_in: int, generator):
+        super().__init__()
+        i = stage_idx
+        dim_out, dim_inner = cfg.stage_dims[i], cfg.stage_inner_dims[i]
+        first_stride = (
+            cfg.stage_temporal_stride[i], cfg.stage_spatial_stride[i], cfg.stage_spatial_stride[i]
+        )
+        self.depth = cfg.stage_depths[i]
+        for b in range(self.depth):
+            self.add_module(f"block{b}", X3DResBlock(
+                dim_in if b == 0 else dim_out, dim_inner, dim_out,
+                first_stride if b == 0 else (1, 1, 1),
+                cfg.se_reduced_dim(i) if (b + 1) % 2 else 0,
+                cfg, generator,
+            ))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for b in range(self.depth):
+            x = getattr(self, f"block{b}")(x)
+        return x
+
+
+class X3D(nn.Module):
+    """Stem + the first ``num_stages`` stages, with per-block access
+    (``run_block``) for the Encoder's taps. Detection tasks build 3 stages."""
+
+    def __init__(self, cfg: Optional[X3DConfig] = None, *, num_stages: int = 4,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg or x3d_l_config()
+        generator = generator or torch.Generator().manual_seed(0)
+        self.stem = X3DStem(self.cfg, generator)
+        dims_in = (self.cfg.stem_dim_out,) + tuple(self.cfg.stage_dims[:-1])
+        self.num_stages = num_stages
+        for i in range(num_stages):
+            self.add_module(f"stage{i + 1}", X3DStage(self.cfg, i, dims_in[i], generator))
+
+    def run_block(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """Block i of [stem, stage1, ..., stage{num_stages}]."""
+        if i == 0:
+            return self.stem(x)
+        return getattr(self, f"stage{i}")(x)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.num_stages + 1):
+            x = self.run_block(i, x)
+        return x

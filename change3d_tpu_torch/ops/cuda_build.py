@@ -1,0 +1,105 @@
+"""Build and load the port's CUDA kernels (nvcc into a shared library with a
+plain C interface, bound with ctypes).
+
+Each ``csrc/*.cu`` compiles on its own for ``sm_90a`` into
+``change3d_tpu_torch/_build/<name>-<source hash>.so`` at first use; a
+library whose source is unchanged is reused. Build and load failures raise:
+there is no fallback on the CUDA path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Sequence
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-lineinfo",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_VP = ctypes.c_void_p
+_I = ctypes.c_int
+# C signatures of every exported function, by library name.
+SIGNATURES: Dict[str, Dict[str, tuple]] = {
+    "fused_block": {
+        "c3d_fused_block_fwd": (
+            [_I] + [_VP] * 12 + [_I] * 9 + [_VP], _I,
+        ),
+        "c3d_fused_block_se_sums": (
+            [_I] + [_VP] * 8 + [_I] * 9 + [_VP], _I,
+        ),
+        "c3d_error_string": ([_I], ctypes.c_char_p),
+    },
+}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(candidate):
+        return candidate
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin); the CUDA kernels cannot be built")
+
+
+def library_path(name: str) -> Path:
+    digest = hashlib.sha1((CSRC_DIR / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build(names: Sequence[str] = tuple(SIGNATURES)) -> Dict[str, str]:
+    """Compile every named source that has no current library, one nvcc per
+    source, all started together. Returns each source's ptxas report
+    (registers, shared memory, spills); raises with nvcc's output on failure."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        target = library_path(name)
+        if target.exists():
+            continue
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), tmp, target)
+    reports, failed = {}, []
+    for name, (proc, tmp, target) in procs.items():
+        out, _ = proc.communicate()
+        reports[name] = out
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{out}")
+            continue
+        os.replace(tmp, target)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return reports
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """The named kernel library, built first if needed, with every exported
+    function's argument and result types declared."""
+    build([name])
+    lib = ctypes.CDLL(str(library_path(name)))
+    for fn, (argtypes, restype) in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = restype
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error (refused launches never run,
+    and a later synchronize would not report them)."""
+    if err != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {err} ({lib.c3d_error_string(err).decode()})")

@@ -1,0 +1,226 @@
+"""Fused X3D bottleneck res-block (inference): CUDA kernels, their plain
+PyTorch versions, and the dispatching wrapper.
+
+Replaces the Pallas TPU kernels of ``change3d_tpu/ops/pallas/fused_block.py``
+(``fused_bottleneck_block``, ``_htiled``, ``_jtiled``), which compute one
+function:
+
+  xa = round(relu(dot(x, Wa) * a_a + b_a))            # fp32 accumulate
+  xb = dw3x3x3(xa) * a_b + b_b                        # fp32, zero padding
+  g  = sigmoid(relu(mean_thw(xb) @ Wse1 + bse1) @ Wse2 + bse2)   # SE blocks
+  xs = round(swish(xb * g))
+  y  = round(relu(dot(xs, Wc) * a_c + b_c + x))
+
+where round() is a cast to the activation dtype. Two kernels
+(``csrc/fused_block.cu``): ``fused_block_fwd`` computes y given the gate, and
+``fused_block_se_sums`` the per-(sample, tile) sums of xb that the gate
+needs. Each wrapper takes its plain version for a CPU tensor, launches its
+kernel for a CUDA tensor (or raises), and counts its launches in
+``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from change3d_tpu_torch.ops import cuda_build
+from change3d_tpu_torch.ops.layers import se_gate
+
+# Shared memory a block may take: two blocks fit one SM's 228 KB.
+SMEM_TARGET = 112 * 1024
+# The narrowest chunk of inner channels worth a pass over the tile.
+MIN_CHUNK = 16
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def plan_tiles(t: int, h: int, w: int, c: int, ci: int, itemsize: int):
+    """(tile, ck, smem_fwd, smem_sums, n_tiles) for one block shape.
+
+    The largest square tile in (8, 4, 2, 1) whose input tile, conv_c
+    accumulator and a chunk of at least MIN_CHUNK inner channels fit
+    SMEM_TARGET; Ci is then split into equal chunks. The byte counts follow
+    the shared-memory layout documented in csrc/fused_block.cu.
+    """
+    for tile in (8, 4, 2, 1):
+        halo, core = t * (tile + 2) ** 2, t * tile * tile
+        x_bytes, acc_bytes = halo * c * itemsize, core * c * 4
+        per_ck = (halo + core) * 4
+        ck_max = (SMEM_TARGET - x_bytes - acc_bytes) // per_ck
+        if ck_max >= min(ci, MIN_CHUNK):
+            n_chunks = -(-ci // min(ck_max, ci))
+            ck = -(-ci // n_chunks)
+            n_tiles = -(-h // tile) * -(-w // tile)
+            smem_sums = x_bytes + per_ck * ck
+            return tile, ck, smem_sums + acc_bytes, smem_sums, n_tiles
+    raise ValueError(f"no tile fits {SMEM_TARGET} B of shared memory for T={t} C={c} Ci={ci}")
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (the CPU path, and what the kernels are held against)
+# ---------------------------------------------------------------------------
+
+def _front_reference(x, w_a, a_a, b_a, w_dw, a_b, b_b) -> torch.Tensor:
+    """conv_a -> BN_a -> ReLU -> round -> 27 depthwise taps -> BN_b: fp32 xb."""
+    dt = x.dtype
+    xa = torch.matmul(x.float(), w_a.to(dt).float())
+    xa = torch.relu(xa * a_a.float() + b_a.float()).to(dt).float()
+    t, h, w = x.shape[1:4]
+    xp = F.pad(xa, (0, 0, 1, 1, 1, 1, 1, 1))  # zero-pad T, H, W
+    w_dw = w_dw.float()
+    acc = torch.zeros_like(xa)
+    for i in range(3):
+        for j in range(3):
+            for k in range(3):
+                acc = acc + xp[:, i:i + t, j:j + h, k:k + w] * w_dw[i, j, k]
+    return acc * a_b.float() + b_b.float()
+
+
+def _back_reference(x, xb, gate, w_c, a_c, b_c) -> torch.Tensor:
+    """(gate) -> swish -> round -> conv_c -> BN_c -> + x -> ReLU -> round."""
+    dt = x.dtype
+    if gate is not None:
+        xb = xb * gate.float()[:, None, None, None, :]
+    xs = (xb * torch.sigmoid(xb)).to(dt).float()
+    xc = torch.matmul(xs, w_c.to(dt).float()) * a_c.float() + b_c.float()
+    return torch.relu(xc + x.float()).to(dt)
+
+
+def fused_block_fwd_reference(x, w_a, a_a, b_a, w_dw, a_b, b_b, w_c, a_c, b_c, gate=None):
+    """Plain version of ``fused_block_fwd``: the block given its SE gate [B, Ci]."""
+    xb = _front_reference(x, w_a, a_a, b_a, w_dw, a_b, b_b)
+    return _back_reference(x, xb, gate, w_c, a_c, b_c)
+
+
+def se_sums_reference(x, w_a, a_a, b_a, w_dw, a_b, b_b) -> torch.Tensor:
+    """Plain version of ``fused_block_se_sums``: sums of xb over T and each
+    of the kernel's H x W tiles (``plan_tiles``, row-major), [B, n_tiles, Ci]
+    fp32."""
+    xb = _front_reference(x, w_a, a_a, b_a, w_dw, a_b, b_b)
+    b, t, h, w, ci = xb.shape
+    tile, _, _, _, _ = plan_tiles(t, h, w, x.shape[-1], ci, x.element_size())
+    nh, nw = -(-h // tile), -(-w // tile)
+    xb = F.pad(xb, (0, 0, 0, nw * tile - w, 0, nh * tile - h))
+    return xb.reshape(b, t, nh, tile, nw, tile, ci).sum(dim=(1, 3, 5)).reshape(b, nh * nw, ci)
+
+
+def fused_block_reference(
+    x, w_a, a_a, b_a, w_dw, a_b, b_b, w_c, a_c, b_c, se: Optional[tuple] = None
+) -> torch.Tensor:
+    """Plain version of the whole block, with the Pallas signature
+    (``fused_bottleneck_block(x, w_a, a_a, b_a, w_dw, a_b, b_b, w_c, a_c,
+    b_c, se)``), rounding at the kernel's three points."""
+    xb = _front_reference(x, w_a, a_a, b_a, w_dw, a_b, b_b)
+    gate = None
+    if se is not None:
+        gate = se_gate(xb.mean(dim=(1, 2, 3)), *se)
+    return _back_reference(x, xb, gate, w_c, a_c, b_c)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check_cuda_args(x: torch.Tensor, w_a: torch.Tensor) -> Tuple[int, ...]:
+    if x.device.type != "cuda":
+        raise ValueError(f"fused block kernels take CUDA or CPU tensors, got {x.device}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"fused block kernels take float32 or bfloat16, got {x.dtype}")
+    if x.dim() != 5 or w_a.dim() != 2 or w_a.shape[0] != x.shape[-1]:
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, w_a {tuple(w_a.shape)}")
+    return tuple(x.shape) + (w_a.shape[1],)
+
+
+def _f32(v: torch.Tensor, x: torch.Tensor, numel: int, what: str) -> torch.Tensor:
+    """v as a contiguous fp32 tensor on x's device, holding ``numel`` values
+    (the kernel reads exactly that many)."""
+    if v.numel() != numel:
+        raise ValueError(f"{what} holds {v.numel()} values, the kernel reads {numel}")
+    return v.to(device=x.device, dtype=torch.float32).contiguous()
+
+
+def _front_args(x, w_a, a_a, b_a, w_dw, a_b, b_b):
+    """Kernel operands of the shared front half, on x's device, contiguous:
+    conv weights in x's dtype, everything else fp32 (what the Pallas wrappers
+    pass)."""
+    ci = w_a.shape[1]
+    if tuple(w_dw.shape) != (3, 3, 3, ci):
+        raise ValueError(f"w_dw {tuple(w_dw.shape)} != {(3, 3, 3, ci)}")
+    return (
+        x.contiguous(), w_a.to(device=x.device, dtype=x.dtype).contiguous(),
+        _f32(a_a, x, ci, "a_a"), _f32(b_a, x, ci, "b_a"), _f32(w_dw, x, 27 * ci, "w_dw"),
+        _f32(a_b, x, ci, "a_b"), _f32(b_b, x, ci, "b_b"),
+    )
+
+
+def fused_block_se_sums(x, w_a, a_a, b_a, w_dw, a_b, b_b) -> torch.Tensor:
+    """Per-(sample, tile) sums of xb, [B, n_tiles, Ci] fp32."""
+    if x.device.type == "cpu":
+        return se_sums_reference(x, w_a, a_a, b_a, w_dw, a_b, b_b)
+    b, t, h, w, c, ci = _check_cuda_args(x, w_a)
+    args = _front_args(x, w_a, a_a, b_a, w_dw, a_b, b_b)
+    tile, ck, _, smem, n_tiles = plan_tiles(t, h, w, c, ci, x.element_size())
+    sums = torch.empty((b, n_tiles, ci), device=x.device, dtype=torch.float32)
+    lib = cuda_build.load("fused_block")
+    err = lib.c3d_fused_block_se_sums(
+        _DTYPES[x.dtype], args[0].data_ptr(), sums.data_ptr(),
+        *(a.data_ptr() for a in args[1:]),
+        b, t, h, w, c, ci, tile, ck, smem, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    cuda_build.check(lib, err, "fused_block_se_sums")
+    fused_block_se_sums.launches += 1
+    return sums
+
+
+fused_block_se_sums.launches = 0
+
+
+def fused_block_fwd(x, w_a, a_a, b_a, w_dw, a_b, b_b, w_c, a_c, b_c, gate=None) -> torch.Tensor:
+    """The block given its SE gate ([B, Ci] fp32, None for non-SE blocks)."""
+    if x.device.type == "cpu":
+        return fused_block_fwd_reference(x, w_a, a_a, b_a, w_dw, a_b, b_b, w_c, a_c, b_c, gate)
+    b, t, h, w, c, ci = _check_cuda_args(x, w_a)
+    if w_c.shape != (ci, c):
+        raise ValueError(f"w_c {tuple(w_c.shape)} != {(ci, c)}")
+    args = _front_args(x, w_a, a_a, b_a, w_dw, a_b, b_b)
+    back = (
+        w_c.to(device=x.device, dtype=x.dtype).contiguous(),
+        _f32(a_c, x, c, "a_c"), _f32(b_c, x, c, "b_c"),
+    )
+    if gate is not None:
+        if gate.shape != (b, ci):
+            raise ValueError(f"gate {tuple(gate.shape)} != {(b, ci)}")
+        gate = _f32(gate, x, b * ci, "gate")
+    tile, ck, smem, _, _ = plan_tiles(t, h, w, c, ci, x.element_size())
+    out = torch.empty_like(args[0])
+    lib = cuda_build.load("fused_block")
+    err = lib.c3d_fused_block_fwd(
+        _DTYPES[x.dtype], args[0].data_ptr(), out.data_ptr(),
+        *(a.data_ptr() for a in args[1:]),
+        None if gate is None else gate.data_ptr(),
+        *(a.data_ptr() for a in back),
+        b, t, h, w, c, ci, tile, ck, smem, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    cuda_build.check(lib, err, "fused_block_fwd")
+    fused_block_fwd.launches += 1
+    return out
+
+
+fused_block_fwd.launches = 0
+
+
+def fused_bottleneck_block(
+    x, w_a, a_a, b_a, w_dw, a_b, b_b, w_c, a_c, b_c, se: Optional[tuple] = None
+) -> torch.Tensor:
+    """x: [B,T,H,W,C]; w_a: [C,Ci]; w_dw: [3,3,3,Ci]; w_c: [Ci,C]; a_*/b_*
+    folded BN vectors; se: (w1 [Ci,Cr], b1, w2 [Cr,Ci], b2) or None.
+    Stride-1, dim-preserving blocks only. SE blocks launch both kernels,
+    the gate FCs run in plain torch between them."""
+    gate = None
+    if se is not None:
+        t, h, w = x.shape[1:4]
+        sums = fused_block_se_sums(x, w_a, a_a, b_a, w_dw, a_b, b_b)
+        gate = se_gate(sums.sum(dim=1) / (t * h * w), *se)
+    return fused_block_fwd(x, w_a, a_a, b_a, w_dw, a_b, b_b, w_c, a_c, b_c, gate)

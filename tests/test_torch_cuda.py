@@ -1,0 +1,116 @@
+"""The port's CUDA kernels on the card, against their plain PyTorch versions.
+
+Every test needs an NVIDIA GPU and skips without one. This file imports no
+JAX, so it also runs where only PyTorch is installed:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from change3d_tpu_torch.ops import fused_block as fb
+
+pytestmark = pytest.mark.cuda
+
+FP32_TOL = dict(rtol=1e-4, atol=1e-4)
+BF16_TOL = dict(rtol=2 ** -7, atol=2 ** -7)  # about two bf16 ulps at max(|ref|, 1)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    from change3d_tpu_torch.device import resolve_device
+
+    return resolve_device("cuda")
+
+
+def _operands(seed, dev, dtype, b, t, h, w, c, ci, cr, has_se):
+    """Operands at model scale: x >= 0 (a ReLU output), weights
+    U(+-1/sqrt(fan_in)) as torch initialises convs, BN folds near identity.
+    (Weights far above that scale blow the bf16 intermediates up until one
+    rounding flip, from another fp32 summation order, exceeds the output's
+    ulp.)"""
+    rng = np.random.RandomState(seed)
+    g = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    u = lambda fan, *s: g(rng.uniform(-1, 1, s) / np.sqrt(fan))
+    n = lambda base, *s: g(base + 0.1 * rng.randn(*s))
+    ops = [g(np.abs(rng.randn(b, t, h, w, c))).to(dtype), u(c, c, ci), n(1, ci), n(0, ci),
+           u(27, 3, 3, 3, ci), n(1, ci), n(0, ci), u(ci, ci, c), n(1, c), n(0, c)]
+    se = (u(ci, ci, cr), n(0, cr), u(cr, cr, ci), n(0, ci)) if has_se else None
+    return ops, se
+
+
+SHAPES = {
+    "ragged": (3, 3, 20, 12, 24, 54, 8),
+    "t5_wide": (1, 5, 8, 8, 96, 216, 16),
+    "stage4": (2, 3, 16, 16, 192, 432, 32),
+}
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+@pytest.mark.parametrize("has_se", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_block_matches_plain_version(cuda, shape, has_se, dtype):
+    ops, se = _operands(0, cuda, dtype, *SHAPES[shape], has_se)
+    before = (fb.fused_block_fwd.launches, fb.fused_block_se_sums.launches)
+    got = fb.fused_bottleneck_block(*ops, se)
+    torch.cuda.synchronize()
+    after = (fb.fused_block_fwd.launches, fb.fused_block_se_sums.launches)
+    assert after == (before[0] + 1, before[1] + int(has_se))
+    assert got.dtype == dtype and got.shape == ops[0].shape
+    want = fb.fused_block_reference(*ops, se)
+    tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_se_sums_tiles_add_up_to_the_plain_sums(cuda, dtype):
+    ops, _ = _operands(1, cuda, dtype, 2, 3, 20, 12, 24, 54, 8, False)
+    sums = fb.fused_block_se_sums(*ops[:7])
+    _, _, _, _, n_tiles = fb.plan_tiles(3, 20, 12, 24, 54, ops[0].element_size())
+    assert sums.shape == (2, n_tiles, 54)
+    want = fb.se_sums_reference(*ops[:7])
+    assert want.shape == sums.shape
+    tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(sums.sum(1) / (3 * 20 * 12), want.sum(1) / (3 * 20 * 12), **tol)
+    if dtype == torch.float32:  # tile by tile, in the kernel's row-major order
+        torch.testing.assert_close(sums, want, **FP32_TOL)
+    again = fb.fused_block_se_sums(*ops[:7])
+    assert torch.equal(sums, again)  # no atomics: bit-identical reruns
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    ops, _ = _operands(2, cuda, torch.float16, 1, 3, 8, 8, 8, 16, 8, False)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fb.fused_block_fwd(*ops)
+    ops[0] = ops[0].float()
+    with pytest.raises(ValueError, match="w_c"):
+        fb.fused_block_fwd(*ops[:7], ops[7].t(), *ops[8:])
+    with pytest.raises(ValueError, match="a_a holds 15 values"):
+        fb.fused_block_fwd(ops[0], ops[1], ops[2][:-1], *ops[3:])
+    with pytest.raises(ValueError, match="w_dw"):
+        fb.fused_block_se_sums(*ops[:4], ops[4].permute(3, 0, 1, 2), *ops[5:7])
+
+
+def test_tiny_bcd_model_fused_matches_plain_on_card(cuda):
+    from change3d_tpu_torch.models.trainer import Change3D, Task
+    from change3d_tpu_torch.models.x3d import X3DConfig
+
+    tiny = dict(stem_dim_out=8, stage_dims=(8, 16, 24, 32), stage_inner_dims=(18, 36, 54, 72),
+                stage_depths=(2, 3, 3, 2))
+    fused = Change3D(Task.BCD, in_height=32, in_width=32, backbone_cfg=X3DConfig(**tiny),
+                     device=cuda).eval()
+    plain = Change3D(Task.BCD, in_height=32, in_width=32,
+                     backbone_cfg=X3DConfig(**tiny, fused_inference=False), device=cuda).eval()
+    plain.load_state_dict(fused.state_dict())
+    rs = np.random.RandomState(3)
+    pre, post = (torch.from_numpy(rs.randn(2, 32, 32, 3).astype(np.float32)).to(cuda)
+                 for _ in range(2))
+    before = fb.fused_block_fwd.launches
+    with torch.no_grad():
+        got, want = fused(pre, post)["change"], plain(pre, post)["change"]
+    assert fb.fused_block_fwd.launches - before == 1 + 2 + 2
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

@@ -1,0 +1,113 @@
+#!/usr/bin/env python3
+"""Device-time breakdown of change3d_tpu_torch's BCD serving forward on one
+NVIDIA GPU (torch.profiler with CUDA activity).
+
+    python3 tools/profile_torch_bcd.py [--batch 8] [--iters 5] [--seed 0] [--plain]
+
+Builds the full-width X3D-L BCD Change3D from --seed, warms
+``Predictor.predict_u8_device`` up on random uint8 256^2 pairs already on the
+card, then profiles --iters forwards. Prints the device time per forward by
+kernel name, the share of the fused-block kernels, the device's busy share of
+the profiled window (the union of kernel intervals over the span from the
+first profiled event to the last kernel's end), and the card's name and power
+limit; writes the same to chiprun_out/profile_torch_bcd[_plain].json.
+--plain profiles the model with fused_inference=False. Exits non-zero
+when there is no card or the trace holds no device time.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+
+def busy_us(intervals):
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--plain", action="store_true", help="fused_inference=False")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_torch_bcd: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from change3d_tpu_torch.device import resolve_device
+    from change3d_tpu_torch.inference import Predictor
+    from change3d_tpu_torch.models.trainer import Change3D, Task
+    from change3d_tpu_torch.models.x3d import x3d_l_config
+
+    dev = resolve_device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[torch.cuda.current_device()]
+    cfg = x3d_l_config(fused_inference=not args.plain)
+    pred = Predictor(Change3D(Task.BCD, backbone_cfg=cfg, device=dev, seed=args.seed),
+                     compute_dtype=torch.bfloat16, device=dev)
+    rs = np.random.RandomState(args.seed)
+    pre, post = (torch.from_numpy(rs.randint(0, 256, (args.batch, 256, 256, 3)).astype(np.uint8))
+                 .to(dev) for _ in range(2))
+    for _ in range(3):
+        pred.predict_u8_device(pre, post)
+    torch.cuda.synchronize()
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(args.iters):
+            pred.predict_u8_device(pre, post)
+        torch.cuda.synchronize()
+
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise RuntimeError("the trace holds no device events")
+    by_name = {}
+    for e in kernels:
+        row = by_name.setdefault(e.name, [0.0, 0])
+        row[0] += e.time_range.elapsed_us()
+        row[1] += 1
+    start = min(e.time_range.start for e in events)
+    end = max(e.time_range.end for e in kernels)
+    busy = busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
+    device_ms = sum(v[0] for v in by_name.values()) / args.iters / 1e3
+    fused_ms = sum(v[0] for k, v in by_name.items() if "fused_block_kernel" in k) / args.iters / 1e3
+    rows = sorted(({"name": k, "ms_per_forward": v[0] / args.iters / 1e3,
+                    "launches_per_forward": v[1] / args.iters} for k, v in by_name.items()),
+                  key=lambda r: -r["ms_per_forward"])
+    summary = {"card": card, "fused_inference": not args.plain, "batch": args.batch,
+               "iters": args.iters,
+               "window_ms_per_forward": (end - start) / args.iters / 1e3,
+               "kernel_ms_per_forward": device_ms, "fused_block_ms_per_forward": fused_ms,
+               "busy_share": busy / (end - start), "kernels": rows}
+    for r in rows[:25]:
+        print(f"{r['ms_per_forward']:9.3f} ms {r['launches_per_forward']:6.1f}x  {r['name'][:110]}")
+    print(json.dumps({k: v for k, v in summary.items() if k != "kernels"}))
+    os.makedirs("chiprun_out", exist_ok=True)
+    out = f"profile_torch_bcd{'_plain' if args.plain else ''}.json"
+    with open(os.path.join("chiprun_out", out), "w") as f:
+        json.dump(summary, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
