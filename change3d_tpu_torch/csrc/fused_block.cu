@@ -12,59 +12,80 @@
 //                        squeeze of the SE blocks; the gate FCs run in plain
 //                        torch between the two launches (as the JAX code runs
 //                        them outside its kernel). No atomics: each block
-//                        writes its own row, so results are deterministic.
+//                        writes its own row in a fixed order, so reruns are
+//                        bit-identical.
 //
 // Grid: (spatial tile, sample). A block owns a tile x tile pixel tile of all
-// T frames, plus a 1-pixel halo in H and W (the Pallas kernels tile H only,
-// because W fits whole in VMEM; 227 KB of shared memory does not hold a
-// whole row band here). T stays whole and pads with zero frames. The inner
-// channels Ci are walked in chunks of `ck`, accumulating conv_c in fp32, so
-// the widest stage (Ci=432) fits too. Shared memory per block:
-//   acc  float   [T*tile*tile][C]          conv_c accumulator (fwd only)
-//   xa   float   [T*(tile+2)^2][ck]        conv_a+BN+ReLU chunk, rounded to scalar_t
-//   xs   float   [T*tile*tile][ck]         swish chunk rounded to scalar_t (fwd),
-//                                          or unrounded BN_b output (se_sums)
-//   xt   scalar_t[T*(tile+2)^2][C]         the input tile with its halo
-// ops/fused_block.py:plan_tiles picks tile and ck and passes the byte count.
+// T frames plus a 1-pixel H/W halo (the Pallas kernels tile H only, because
+// W fits whole in VMEM; 227 KB of shared memory does not hold a row band
+// here). T stays whole and pads with zero frames. The inner channels Ci are
+// walked in chunks of ck. ops/fused_block.py:plan_tiles picks tile and ck
+// from the layouts below and passes the byte count, which the launch checks.
 //
-// Rounding follows the Pallas kernel: xa rounds to the input dtype after
+// Rounding follows the Pallas kernel: xa rounds to the I/O dtype after
 // conv_a+BN+ReLU (fused_block.py:45), the swish output rounds before conv_c
 // (:69), the output rounds once at the store (:75). Out-of-image halo pixels
 // are zeroed in xa-space, after conv_a+BN+ReLU (:112-117): conv_a+BN maps a
 // zero pixel to relu(b_a) != 0.
 //
-// Bound on the H100: the block does 2*T*H*W*Ci*(2C+27) flops on 2*|x| bytes,
-// far above the bf16 ridge for the two 1x1 convs, so the bound is the
-// tensor-core rate for conv_a/conv_c (or the fp32 CUDA-core rate for the 27
-// depthwise taps, whichever is larger). This first kernel computes both
-// products with scalar fp32 FMAs on CUDA cores (no mma/wgmma, no TMA): it is
-// right first, and recomputes conv_a on the halo ((tile+2)^2/tile^2). Moving
-// conv_a/conv_c onto wgmma and staging tiles by TMA is the work that closes
-// the gap to the bound.
+// What bounds it on the H100: 2*T*H*W*Ci*(2C+27) flops on 2*|x| bytes. The
+// two 1x1 convs are far above the bf16 ridge and the 27 depthwise taps run
+// in fp32 on CUDA cores (67 TFLOP/s), so at every X3D-L stage the bound is
+// the taps, at a few us per launch.
+//
+// bf16 (the serving path), one design for both kernels, 256 threads:
+//   front (shared):
+//     x tile + halo  -> shared memory as bf16 by 16-byte cp.async (zeros
+//                       outside the image and in the K padding);
+//     conv_a         -> mma.sync m16n8k16 bf16 -> fp32 on tensor cores, w_a
+//                       chunk staged transposed in shared memory, zero padded
+//                       to K = C rounded up to 16 and N = ck rounded to 16; a
+//                       warp item is one m16 tile x four n8 tiles (one A
+//                       fragment load per k step, four independent mma);
+//     BN_a, ReLU, bf16 round, halo zeroing -> xa (bf16);
+//     27 taps        -> fp32 on CUDA cores; a thread owns two channels x kXg
+//                       (8 where the tile allows, else 4) outputs along W and
+//                       slides a (kXg + 2)-pixel window, so each xa value is
+//                       loaded once per (dt, dy) row, not per tap; then BN_b.
+//   fused_block_fwd: gate, swish, bf16 round -> xs (conv_c's A operand);
+//     conv_c on tensor cores with the accumulators in registers across all
+//     Ci chunks (each warp owns fixed m16n8 output tiles); epilogue BN_c +
+//     residual (from the staged x tile) + ReLU, one rounding, written back
+//     into the x tile's core and stored with 16-byte stores.
+//   fused_block_se_sums: each thread sums its four outputs, the partial rows
+//     go to shared memory, and a fixed-order pass per channel writes the
+//     block's row of sums.
+//   Shared memory per block (rows padded by 8 bf16 = 16 bytes, so that the
+//   32-bit fragment loads of a warp hit 32 distinct banks):
+//     xt   bf16 [pad16(T*(tile+2)^2)][pad16(C)+8]   x tile with halo (+ output)
+//     wa   bf16 [pad16(ck)][pad16(C)+8]             w_a chunk, [n][k]
+//     xa   bf16 [T*(tile+2)^2][pad16(ck)]           conv_a+BN+ReLU chunk
+//     fwd:  xs bf16 [pad16(T*tile^2)][pad16(ck)+8]  swish chunk, [m][k]
+//           wc bf16 [C][pad16(ck)+8]                w_c chunk, [n][k]
+//     sums: part float [T*tile*tile/4][pad16(ck)]   per-thread partial sums
+//   Tiles are 16, 8 or 4 (a multiple of the 4-wide tap window), chosen so that
+//   two blocks fit an SM (112 KB each, with the L1 carveout set to the most
+//   shared memory) and a warp owns at most 16 conv_c tiles (64 fp32
+//   accumulators in registers, __launch_bounds__(256, 2) caps a thread at 128
+//   registers). Needs C % 8 == 0 and Ci % 2 == 0. Blocks are not persistent
+//   and the Ci chunks are not double-buffered: the x tile's cp.async overlaps
+//   the first chunk's weight loads only.
+//
+// fp32 (the correctness path) keeps the first, scalar design: both products
+// as fp32 FMAs on CUDA cores, conv_c accumulated in fp32 shared memory. It
+// stays exact fp32 (no TF32). Shared memory per block:
+//   acc  float [T*tile*tile][C], xa float [T*(tile+2)^2][ck],
+//   xs   float [T*tile*tile][ck], xt float [T*(tile+2)^2][C].
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "ptx.cuh"
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+using c3d::from_f;
+
 constexpr int kThreads = 256;
-
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// Round an fp32 value to the I/O dtype and back.
-template <typename T> __device__ __forceinline__ float round_to(float v) {
-  return to_f<T>(from_f<T>(v));
-}
+constexpr int kWarps = kThreads / 32;
 
 struct Params {
   const void* x;      // [B,T,H,W,C] scalar_t
@@ -83,8 +104,12 @@ struct Params {
   int T, H, W, C, Ci, tile, ck;
 };
 
-template <typename scalar_t, bool kSums>
-__global__ void __launch_bounds__(kThreads) fused_block_kernel(Params p) {
+// ---------------------------------------------------------------------------
+// fp32: scalar CUDA-core products
+// ---------------------------------------------------------------------------
+
+template <bool kSums>
+__global__ void __launch_bounds__(kThreads) fused_block_f32_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int T = p.T, H = p.H, W = p.W, C = p.C, Ci = p.Ci;
   const int tile = p.tile, ck = p.ck;
@@ -100,12 +125,12 @@ __global__ void __launch_bounds__(kThreads) fused_block_kernel(Params p) {
   float* acc = reinterpret_cast<float*>(smem);
   float* xa = acc + (kSums ? 0 : n_core * C);
   float* xs = xa + n_halo * ck;
-  scalar_t* xt = reinterpret_cast<scalar_t*>(xs + n_core * ck);
+  float* xt = xs + n_core * ck;
 
   const size_t sample = (size_t)T * H * W * C;
-  const scalar_t* xg = static_cast<const scalar_t*>(p.x) + (size_t)b * sample;
-  const scalar_t* wa = static_cast<const scalar_t*>(p.w_a);
-  const scalar_t* wc = static_cast<const scalar_t*>(p.w_c);
+  const float* xg = static_cast<const float*>(p.x) + (size_t)b * sample;
+  const float* wa = static_cast<const float*>(p.w_a);
+  const float* wc = static_cast<const float*>(p.w_c);
 
   // Input tile with halo; pixels outside the image hold 0 (never used:
   // their xa is forced to 0 below, and they have no output).
@@ -113,9 +138,8 @@ __global__ void __launch_bounds__(kThreads) fused_block_kernel(Params p) {
     const int c = e % C, pos = e / C;
     const int xx = pos % hw, yy = (pos / hw) % hw, t = pos / (hw * hw);
     const int gy = y0 - 1 + yy, gx = x0 - 1 + xx;
-    scalar_t v = from_f<scalar_t>(0.f);
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-      v = xg[(((size_t)t * H + gy) * W + gx) * C + c];
+    float v = 0.f;
+    if (gy >= 0 && gy < H && gx >= 0 && gx < W) v = xg[(((size_t)t * H + gy) * W + gx) * C + c];
     xt[e] = v;
   }
   if (!kSums)
@@ -125,7 +149,7 @@ __global__ void __launch_bounds__(kThreads) fused_block_kernel(Params p) {
   for (int ci0 = 0; ci0 < Ci; ci0 += ck) {
     const int kc = min(ck, Ci - ci0);
 
-    // conv_a (fp32 accumulate) -> BN_a -> ReLU -> round; 0 outside the image.
+    // conv_a (fp32 accumulate) -> BN_a -> ReLU; 0 outside the image.
     for (int e = threadIdx.x; e < n_halo * kc; e += blockDim.x) {
       const int k = e % kc, pos = e / kc;
       const int xx = pos % hw, yy = (pos / hw) % hw;
@@ -133,17 +157,17 @@ __global__ void __launch_bounds__(kThreads) fused_block_kernel(Params p) {
       float v = 0.f;
       if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
         const int ci = ci0 + k;
-        const scalar_t* xr = xt + (size_t)pos * C;
+        const float* xr = xt + (size_t)pos * C;
         float s = 0.f;
-        for (int c = 0; c < C; ++c) s = fmaf(to_f(xr[c]), to_f(wa[(size_t)c * Ci + ci]), s);
-        v = round_to<scalar_t>(fmaxf(s * p.a_a[ci] + p.b_a[ci], 0.f));
+        for (int c = 0; c < C; ++c) s = fmaf(xr[c], wa[(size_t)c * Ci + ci], s);
+        v = fmaxf(s * p.a_a[ci] + p.b_a[ci], 0.f);
       }
       xa[pos * ck + k] = v;
     }
     __syncthreads();
 
     // 27 depthwise taps in fp32 (T zero-padded) -> BN_b, then either the
-    // squeeze input (se_sums) or gate -> swish -> round (fwd).
+    // squeeze input (se_sums) or gate -> swish (fwd).
     for (int e = threadIdx.x; e < n_core * kc; e += blockDim.x) {
       const int k = e % kc, q = e / kc;
       const int tx = q % tile, ty = (q / tile) % tile, t = q / (tile * tile);
@@ -163,7 +187,7 @@ __global__ void __launch_bounds__(kThreads) fused_block_kernel(Params p) {
         xs[q * ck + k] = inside ? xb : 0.f;
       } else {
         if (p.gate != nullptr) xb *= p.gate[(size_t)b * Ci + ci];
-        xs[q * ck + k] = round_to<scalar_t>(xb / (1.f + expf(-xb)));
+        xs[q * ck + k] = xb / (1.f + expf(-xb));
       }
     }
     __syncthreads();
@@ -182,7 +206,7 @@ __global__ void __launch_bounds__(kThreads) fused_block_kernel(Params p) {
         const int c = e % C, q = e / C;
         const float* xr = xs + q * ck;
         float s = acc[e];
-        for (int k = 0; k < kc; ++k) s = fmaf(xr[k], to_f(wc[(size_t)(ci0 + k) * C + c]), s);
+        for (int k = 0; k < kc; ++k) s = fmaf(xr[k], wc[(size_t)(ci0 + k) * C + c], s);
         acc[e] = s;
       }
     }
@@ -190,25 +214,379 @@ __global__ void __launch_bounds__(kThreads) fused_block_kernel(Params p) {
   }
 
   if (!kSums) {
-    // BN_c + residual (fp32) -> ReLU -> one rounding at the store.
-    scalar_t* og = static_cast<scalar_t*>(p.out) + (size_t)b * sample;
+    // BN_c + residual -> ReLU.
+    float* og = static_cast<float*>(p.out) + (size_t)b * sample;
     for (int e = threadIdx.x; e < n_core * C; e += blockDim.x) {
       const int c = e % C, q = e / C;
       const int tx = q % tile, ty = (q / tile) % tile, t = q / (tile * tile);
       const int gy = y0 + ty, gx = x0 + tx;
       if (gy >= H || gx >= W) continue;
-      const float r = to_f(xt[((t * hw + ty + 1) * hw + tx + 1) * C + c]);
-      const float y = fmaxf(acc[e] * p.a_c[c] + p.b_c[c] + r, 0.f);
-      og[(((size_t)t * H + gy) * W + gx) * C + c] = from_f<scalar_t>(y);
+      const float r = xt[((t * hw + ty + 1) * hw + tx + 1) * C + c];
+      og[(((size_t)t * H + gy) * W + gx) * C + c] = fmaxf(acc[e] * p.a_c[c] + p.b_c[c] + r, 0.f);
     }
   }
 }
 
-template <typename scalar_t, bool kSums>
-int launch(const Params& p, int B, int smem, void* stream) {
-  auto kernel = fused_block_kernel<scalar_t, kSums>;
+// ---------------------------------------------------------------------------
+// bf16: tensor-core products, bf16 staging
+// ---------------------------------------------------------------------------
+
+__host__ __device__ constexpr int round_up(int a, int m) { return (a + m - 1) / m * m; }
+
+// The bf16 shared-memory layout (byte offsets); ops/fused_block.py mirrors it
+// in _bf16_smem.
+struct Bf16Layout {
+  int hw, nh, nhp, nc, ncp, kp, sx, ckp, ss;
+  int off_wa, off_xa, off_xs, off_wc, off_part, bytes_fwd, bytes_sums;
+  __host__ __device__ Bf16Layout(int T, int tile, int C, int ck) {
+    hw = tile + 2;
+    nh = T * hw * hw;            // halo pixels
+    nhp = round_up(nh, 16);      // ... padded to the mma's 16 rows
+    nc = T * tile * tile;        // output pixels
+    ncp = round_up(nc, 16);
+    kp = round_up(C, 16);        // conv_a depth
+    sx = kp + 8;                 // xt / wa row stride (elements)
+    ckp = round_up(ck, 16);      // conv_a width, conv_c depth
+    ss = ckp + 8;                // xs / wc row stride
+    off_wa = nhp * sx * 2;
+    off_xa = off_wa + ckp * sx * 2;
+    off_xs = off_xa + nh * ckp * 2;
+    off_wc = off_xs + ncp * ss * 2;
+    bytes_fwd = off_wc + C * ss * 2;
+    off_part = off_xs;
+    bytes_sums = off_part + T * tile * (tile / 4) * ckp * 4;
+  }
+};
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Copies n_row x n_col elements of a row-major global matrix (row stride ld)
+// into shared memory transposed, dst[col * dst_ld + row], with zeros where
+// row >= rows or col >= cols. Each thread keeps 8 loads in flight.
+__device__ __forceinline__ void stage_transposed(bf16* dst, int dst_ld, const bf16* src,
+                                                 size_t ld, int n_row, int n_col, int rows,
+                                                 int cols) {
+  const int total = n_row * n_col;
+  const bf16 zero = from_f<bf16>(0.f);
+  for (int e0 = threadIdx.x; e0 < total; e0 += 8 * kThreads) {
+    bf16 v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int e = e0 + i * kThreads, col = e % n_col, row = e / n_col;
+      v[i] = (e < total && row < rows && col < cols) ? src[row * ld + col] : zero;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int e = e0 + i * kThreads;
+      if (e < total) dst[(e % n_col) * dst_ld + e / n_col] = v[i];
+    }
+  }
+}
+
+// kXg: outputs along W per tap thread (4 or 8; the tile is a multiple).
+template <bool kSums, int kAcc, int kXg>
+__global__ void __launch_bounds__(kThreads, 2) fused_block_bf16_kernel(Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int T = p.T, H = p.H, W = p.W, C = p.C, Ci = p.Ci;
+  const int tile = p.tile, ck = p.ck;
+  const Bf16Layout L(T, tile, C, ck);
+  const int hw = L.hw, sx = L.sx, ss = L.ss, ckp = L.ckp;
+  const int tiles_w = (W + tile - 1) / tile;
+  const int tile_id = blockIdx.x;
+  const int b = blockIdx.y;
+  const int y0 = (tile_id / tiles_w) * tile;
+  const int x0 = (tile_id % tiles_w) * tile;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, tq = lane & 3;  // mma fragment row / column pair
+
+  bf16* xt = reinterpret_cast<bf16*>(smem);
+  bf16* wa_s = reinterpret_cast<bf16*>(smem + L.off_wa);
+  bf16* xa = reinterpret_cast<bf16*>(smem + L.off_xa);
+  bf16* xs = reinterpret_cast<bf16*>(smem + L.off_xs);
+  bf16* wc_s = reinterpret_cast<bf16*>(smem + L.off_wc);
+  float* part = reinterpret_cast<float*>(smem + L.off_part);
+
+  const size_t sample = (size_t)T * H * W * C;
+  const bf16* xg = static_cast<const bf16*>(p.x) + (size_t)b * sample;
+  const bf16* wa = static_cast<const bf16*>(p.w_a);
+  const bf16* wc = static_cast<const bf16*>(p.w_c);
+
+  // x tile with halo: 16-byte cp.async per 8 channels of an in-image pixel;
+  // zeros outside the image, in the K padding and in the padding rows.
+  {
+    const int c8 = C / 8, s8 = sx / 8;
+    for (int e = tid; e < L.nhp * s8; e += kThreads) {
+      const int j = e % s8, pos = e / s8;
+      uint4* dst = reinterpret_cast<uint4*>(xt + pos * sx + j * 8);
+      const bf16* src = nullptr;
+      if (pos < L.nh && j < c8) {
+        const int xx = pos % hw, yy = (pos / hw) % hw, t = pos / (hw * hw);
+        const int gy = y0 - 1 + yy, gx = x0 - 1 + xx;
+        if (gy >= 0 && gy < H && gx >= 0 && gx < W)
+          src = xg + (((size_t)t * H + gy) * W + gx) * C + j * 8;
+      }
+      if (src != nullptr)
+        c3d::cp_async16(dst, src);
+      else
+        *dst = make_uint4(0, 0, 0, 0);
+    }
+  }
+  if (!kSums)  // xs starts at zero: its padding rows and columns stay finite
+    for (int e = tid; e < L.ncp * ss / 8; e += kThreads)
+      reinterpret_cast<uint4*>(xs)[e] = make_uint4(0, 0, 0, 0);
+
+  const int n_nt = C / 8;                  // conv_c n8 tiles
+  const int n_tc = (L.ncp / 16) * n_nt;    // conv_c m16n8 tiles
+  float acc[kAcc][4];
+#pragma unroll
+  for (int j = 0; j < kAcc; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int ci0 = 0; ci0 < Ci; ci0 += ck) {
+    const int kc = min(ck, Ci - ci0);
+
+    // This chunk's weights, transposed to [n][k] and zero padded (the first
+    // chunk's loads overlap the x tile's cp.async).
+    stage_transposed(wa_s, sx, wa + ci0, Ci, L.kp, ckp, C, kc);
+    if (!kSums) stage_transposed(wc_s, ss, wc + (size_t)ci0 * C, C, ckp, C, kc, C);
+    c3d::cp_async_wait_all();
+    __syncthreads();
+
+    // conv_a on tensor cores -> BN_a -> ReLU -> bf16; 0 outside the image.
+    // A warp item is one m16 row tile x four n8 tiles: the A fragment is
+    // loaded once per k step for four independent mma.
+    {
+      const int n_at = (kc + 7) / 8, n_grp = (n_at + 3) / 4;
+      const int items = (L.nhp / 16) * n_grp;
+      for (int it = warp; it < items; it += kWarps) {
+        const int mt = it / n_grp, n0 = (it % n_grp) * 4;
+        float2 aa[4], ba[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int k = (n0 + j) * 8 + 2 * tq;
+          aa[j] = ba[j] = make_float2(0.f, 0.f);
+          if (k < kc) {
+            aa[j] = __ldg(reinterpret_cast<const float2*>(p.a_a + ci0 + k));
+            ba[j] = __ldg(reinterpret_cast<const float2*>(p.b_a + ci0 + k));
+          }
+        }
+        float d[4][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) d[j][0] = d[j][1] = d[j][2] = d[j][3] = 0.f;
+        const bf16* a0 = xt + (mt * 16 + g) * sx + 2 * tq;
+        const bf16* a1 = a0 + 8 * sx;
+        const bf16* bw = wa_s + (n0 * 8 + g) * sx + 2 * tq;
+        for (int k0 = 0; k0 < L.kp; k0 += 16) {
+          const uint32_t a[4] = {ld32(a0 + k0), ld32(a1 + k0), ld32(a0 + k0 + 8),
+                                 ld32(a1 + k0 + 8)};
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (n0 + j < n_at)
+              c3d::mma_bf16_16816(d[j], a, ld32(bw + j * 8 * sx + k0),
+                                  ld32(bw + j * 8 * sx + k0 + 8));
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int pos = mt * 16 + g + 8 * h;
+          if (pos >= L.nh) continue;
+          const int xx = pos % hw, yy = (pos / hw) % hw;
+          const int gy = y0 - 1 + yy, gx = x0 - 1 + xx;
+          const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int k = (n0 + j) * 8 + 2 * tq;  // channels of d[j][2h], d[j][2h+1]
+            if (k >= kc) continue;
+            const uint32_t v =
+                in ? c3d::pack_bf16x2(fmaxf(d[j][2 * h] * aa[j].x + ba[j].x, 0.f),
+                                      fmaxf(d[j][2 * h + 1] * aa[j].y + ba[j].y, 0.f))
+                   : 0u;
+            *reinterpret_cast<uint32_t*>(xa + pos * ckp + k) = v;
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // 27 depthwise taps in fp32 (T zero-padded) -> BN_b. A thread owns
+    // channels (k, k+1) of kXg outputs along W of one (t, y) row.
+    {
+      const int pairs = kc / 2, xq_n = tile / kXg, rows = T * tile;
+      const int wstride = ckp / 2;  // 32-bit words between neighbouring pixels of xa
+      for (int e = tid; e < pairs * rows * xq_n; e += kThreads) {
+        const int pp = e % pairs, rest = e / pairs;
+        const int xq = rest % xq_n, r = rest / xq_n;
+        const int y = r % tile, t = r / tile;
+        const int k = 2 * pp, ci = ci0 + k, xb0 = kXg * xq;
+        float2 s[kXg];
+#pragma unroll
+        for (int i = 0; i < kXg; ++i) s[i] = make_float2(0.f, 0.f);
+#pragma unroll
+        for (int dt = 0; dt < 3; ++dt) {
+          const int tt = t + dt - 1;
+          if (tt < 0 || tt >= T) continue;
+#pragma unroll
+          for (int dy = 0; dy < 3; ++dy) {
+            const uint32_t* row = reinterpret_cast<const uint32_t*>(
+                xa + ((tt * hw + y + dy) * hw + xb0) * ckp + k);
+            float2 v[kXg + 2];
+#pragma unroll
+            for (int i = 0; i < kXg + 2; ++i) v[i] = c3d::unpack_bf16x2(row[i * wstride]);
+            const float* wt = p.w_dw + (size_t)((dt * 3 + dy) * 3) * Ci + ci;
+            const float2 w0 = __ldg(reinterpret_cast<const float2*>(wt));
+            const float2 w1 = __ldg(reinterpret_cast<const float2*>(wt + Ci));
+            const float2 w2 = __ldg(reinterpret_cast<const float2*>(wt + 2 * Ci));
+#pragma unroll
+            for (int i = 0; i < kXg; ++i) {
+              s[i].x = fmaf(v[i].x, w0.x, s[i].x);
+              s[i].y = fmaf(v[i].y, w0.y, s[i].y);
+              s[i].x = fmaf(v[i + 1].x, w1.x, s[i].x);
+              s[i].y = fmaf(v[i + 1].y, w1.y, s[i].y);
+              s[i].x = fmaf(v[i + 2].x, w2.x, s[i].x);
+              s[i].y = fmaf(v[i + 2].y, w2.y, s[i].y);
+            }
+          }
+        }
+        const float2 ab = __ldg(reinterpret_cast<const float2*>(p.a_b + ci));
+        const float2 bb = __ldg(reinterpret_cast<const float2*>(p.b_b + ci));
+        if (kSums) {
+          float2 tot = make_float2(0.f, 0.f);
+          const bool row_in = y0 + y < H;
+#pragma unroll
+          for (int i = 0; i < kXg; ++i)
+            if (row_in && x0 + xb0 + i < W) {
+              tot.x += s[i].x * ab.x + bb.x;
+              tot.y += s[i].y * ab.y + bb.y;
+            }
+          *reinterpret_cast<float2*>(part + (r * xq_n + xq) * ckp + k) = tot;
+        } else {
+          float2 gt = make_float2(1.f, 1.f);
+          if (p.gate != nullptr)
+            gt = __ldg(reinterpret_cast<const float2*>(p.gate + (size_t)b * Ci + ci));
+#pragma unroll
+          for (int i = 0; i < kXg; ++i) {
+            float u = s[i].x * ab.x + bb.x, w = s[i].y * ab.y + bb.y;
+            if (p.gate != nullptr) {
+              u *= gt.x;
+              w *= gt.y;
+            }
+            *reinterpret_cast<uint32_t*>(xs + (r * tile + xb0 + i) * ss + k) =
+                c3d::pack_bf16x2(u / (1.f + expf(-u)), w / (1.f + expf(-w)));
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    if (kSums) {
+      // Fixed-order per-channel sums of the partial rows: four neighbouring
+      // lanes split a channel's rows (i = j mod 4), then a fixed shuffle tree.
+      const int n_part = T * tile * (tile / kXg), n_tiles = gridDim.x;
+      for (int e0 = 0; e0 < 4 * kc; e0 += kThreads) {
+        const int e = e0 + tid, k = e >> 2, j = e & 3;
+        float s = 0.f;
+        if (e < 4 * kc)
+          for (int i = j; i < n_part; i += 4) s += part[i * ckp + k];
+        s += __shfl_xor_sync(0xffffffffu, s, 1);
+        s += __shfl_xor_sync(0xffffffffu, s, 2);
+        if (e < 4 * kc && j == 0) p.sums[((size_t)b * n_tiles + tile_id) * Ci + ci0 + k] = s;
+      }
+    } else {
+      // conv_c over this chunk, into the warp's register accumulators.
+#pragma unroll
+      for (int j = 0; j < kAcc; ++j) {
+        const int it = warp + j * kWarps;
+        if (it < n_tc) {
+          const int mt = it / n_nt, nt = it % n_nt;
+          const bf16* a0 = xs + (mt * 16 + g) * ss + 2 * tq;
+          const bf16* a1 = a0 + 8 * ss;
+          const bf16* bw = wc_s + (nt * 8 + g) * ss + 2 * tq;
+          for (int k0 = 0; k0 < ckp; k0 += 16) {
+            const uint32_t a[4] = {ld32(a0 + k0), ld32(a1 + k0), ld32(a0 + k0 + 8),
+                                   ld32(a1 + k0 + 8)};
+            c3d::mma_bf16_16816(acc[j], a, ld32(bw + k0), ld32(bw + k0 + 8));
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  if (!kSums) {
+    // BN_c + residual -> ReLU -> one rounding, written over the x tile's core.
+#pragma unroll
+    for (int j = 0; j < kAcc; ++j) {
+      const int it = warp + j * kWarps;
+      if (it < n_tc) {
+        const int mt = it / n_nt, c = (it % n_nt) * 8 + 2 * tq;
+        const float2 ac = __ldg(reinterpret_cast<const float2*>(p.a_c + c));
+        const float2 bc = __ldg(reinterpret_cast<const float2*>(p.b_c + c));
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int q = mt * 16 + g + 8 * h;
+          if (q >= L.nc) continue;
+          const int tx = q % tile, ty = (q / tile) % tile, t = q / (tile * tile);
+          uint32_t* xr =
+              reinterpret_cast<uint32_t*>(xt + ((t * hw + ty + 1) * hw + tx + 1) * sx + c);
+          const float2 res = c3d::unpack_bf16x2(*xr);
+          *xr = c3d::pack_bf16x2(fmaxf(acc[j][2 * h] * ac.x + bc.x + res.x, 0.f),
+                                 fmaxf(acc[j][2 * h + 1] * ac.y + bc.y + res.y, 0.f));
+        }
+      }
+    }
+    __syncthreads();
+    // 16-byte stores of the output pixels inside the image.
+    bf16* og = static_cast<bf16*>(p.out) + (size_t)b * sample;
+    const int c8 = C / 8;
+    for (int e = tid; e < L.nc * c8; e += kThreads) {
+      const int j = e % c8, q = e / c8;
+      const int tx = q % tile, ty = (q / tile) % tile, t = q / (tile * tile);
+      const int gy = y0 + ty, gx = x0 + tx;
+      if (gy >= H || gx >= W) continue;
+      *reinterpret_cast<uint4*>(og + (((size_t)t * H + gy) * W + gx) * C + j * 8) =
+          *reinterpret_cast<const uint4*>(xt + ((t * hw + ty + 1) * hw + tx + 1) * sx + j * 8);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launch
+// ---------------------------------------------------------------------------
+
+using KernelFn = void (*)(Params);
+
+// The kernel instantiation for a call, or null if the call is not one the
+// kernels take (the bf16 layout's byte count must match `smem`).
+KernelFn pick_kernel(int dtype, bool sums, const Params& p, int smem) {
+  if (dtype == 0) return sums ? fused_block_f32_kernel<true> : fused_block_f32_kernel<false>;
+  if (dtype != 1) return nullptr;
+  const Bf16Layout L(p.T, p.tile, p.C, p.ck);
+  if (p.C % 8 != 0 || p.Ci % 2 != 0 || p.ck % 2 != 0 || p.tile % 4 != 0 ||
+      smem != (sums ? L.bytes_sums : L.bytes_fwd))
+    return nullptr;
+  // Eight outputs per tap thread where the tile allows and the registers are
+  // not held by 16 accumulator tiles.
+  const bool wide = p.tile % 8 == 0;
+  if (sums) return wide ? fused_block_bf16_kernel<true, 1, 8> : fused_block_bf16_kernel<true, 1, 4>;
+  const int per_warp = ((L.ncp / 16) * (p.C / 8) + kWarps - 1) / kWarps;
+  if (per_warp <= 8) return wide ? fused_block_bf16_kernel<false, 8, 8> : fused_block_bf16_kernel<false, 8, 4>;
+  if (per_warp <= 16) return fused_block_bf16_kernel<false, 16, 4>;
+  return nullptr;
+}
+
+cudaError_t set_attributes(KernelFn kernel, int smem) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  // All of L1 that can be shared memory, so that two blocks fit an SM.
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
+int launch(int dtype, bool sums, const Params& p, int B, int smem, void* stream) {
+  KernelFn kernel = pick_kernel(dtype, sums, p, smem);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = set_attributes(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const int tiles = ((p.H + p.tile - 1) / p.tile) * ((p.W + p.tile - 1) / p.tile);
   dim3 grid(tiles, B);
@@ -246,9 +624,7 @@ extern "C" int c3d_fused_block_fwd(int dtype, const void* x, void* out, const vo
   p.w_c = w_c;
   p.a_c = static_cast<const float*>(a_c);
   p.b_c = static_cast<const float*>(b_c);
-  if (dtype == 1) return launch<__nv_bfloat16, false>(p, B, smem, stream);
-  if (dtype == 0) return launch<float, false>(p, B, smem, stream);
-  return (int)cudaErrorInvalidValue;
+  return launch(dtype, false, p, B, smem, stream);
 }
 
 extern "C" int c3d_fused_block_se_sums(int dtype, const void* x, void* sums, const void* w_a,
@@ -258,9 +634,21 @@ extern "C" int c3d_fused_block_se_sums(int dtype, const void* x, void* sums, con
                                        void* stream) {
   Params p = make_params(x, w_a, a_a, b_a, w_dw, a_b, b_b, T, H, W, C, Ci, tile, ck);
   p.sums = static_cast<float*>(sums);
-  if (dtype == 1) return launch<__nv_bfloat16, true>(p, B, smem, stream);
-  if (dtype == 0) return launch<float, true>(p, B, smem, stream);
-  return (int)cudaErrorInvalidValue;
+  return launch(dtype, true, p, B, smem, stream);
+}
+
+// Blocks of the chosen kernel that fit one SM at once (occupancy), or -1 if
+// the kernels do not take the call.
+extern "C" int c3d_fused_block_blocks_per_sm(int dtype, int se_sums, int T, int C, int Ci,
+                                             int tile, int ck, int smem) {
+  Params p{};
+  p.T = T; p.C = C; p.Ci = Ci; p.tile = tile; p.ck = ck;
+  KernelFn kernel = pick_kernel(dtype, se_sums != 0, p, smem);
+  if (kernel == nullptr || set_attributes(kernel, smem) != cudaSuccess) return -1;
+  int n = -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads, smem) != cudaSuccess)
+    return -1;
+  return n;
 }
 
 extern "C" const char* c3d_error_string(int err) {

@@ -2,8 +2,9 @@
 plain C interface, bound with ctypes).
 
 Each ``csrc/*.cu`` compiles on its own for ``sm_90a`` into
-``change3d_tpu_torch/_build/<name>-<source hash>.so`` at first use; a
-library whose source is unchanged is reused. Build and load failures raise:
+``change3d_tpu_torch/_build/<name>-<source hash>.so`` at first use; the hash
+covers the source and every ``csrc/*.cuh`` header, and a library whose hash
+is unchanged is reused. Build and load failures raise:
 there is no fallback on the CUDA path.
 """
 
@@ -37,6 +38,12 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "c3d_fused_block_se_sums": (
             [_I] + [_VP] * 8 + [_I] * 9 + [_VP], _I,
         ),
+        "c3d_fused_block_blocks_per_sm": ([_I] * 8, _I),
+        "c3d_error_string": ([_I], ctypes.c_char_p),
+    },
+    "repros": {
+        "c3d_dot_1d": ([_VP] * 3 + [_I] * 3 + [_VP], _I),
+        "c3d_manual_dma": ([_VP] * 2 + [_I] * 3 + [_VP], _I),
         "c3d_error_string": ([_I], ctypes.c_char_p),
     },
 }
@@ -54,7 +61,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC_DIR / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    """The library's path, named by a hash of its source and of every header
+    in csrc/ (a source may include any of them)."""
+    h = hashlib.sha1((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
@@ -96,6 +109,13 @@ def load(name: str) -> ctypes.CDLL:
         f.argtypes = argtypes
         f.restype = restype
     return lib
+
+
+def aligned(t: "torch.Tensor") -> "torch.Tensor":
+    """t, contiguous, at a 16-byte aligned address (the kernels' 16-byte
+    loads and stores need it)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

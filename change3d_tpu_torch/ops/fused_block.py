@@ -33,17 +33,61 @@ from change3d_tpu_torch.ops.layers import se_gate
 SMEM_TARGET = 112 * 1024
 # The narrowest chunk of inner channels worth a pass over the tile.
 MIN_CHUNK = 16
+# bf16 kernels: threads (warps) per block, and the most conv_c m16n8 output
+# tiles a warp keeps in registers (4 fp32 each).
+WARPS = 8
+MAX_ACC_TILES = 16
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def plan_tiles(t: int, h: int, w: int, c: int, ci: int, itemsize: int):
-    """(tile, ck, smem_fwd, smem_sums, n_tiles) for one block shape.
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
 
-    The largest square tile in (8, 4, 2, 1) whose input tile, conv_c
-    accumulator and a chunk of at least MIN_CHUNK inner channels fit
-    SMEM_TARGET; Ci is then split into equal chunks. The byte counts follow
-    the shared-memory layout documented in csrc/fused_block.cu.
+
+def _bf16_smem(t: int, tile: int, c: int, ck: int) -> Tuple[int, int]:
+    """(fwd, se_sums) shared-memory bytes of the bf16 kernels: the layout of
+    csrc/fused_block.cu (Bf16Layout), rows padded to 16 for the mma and row
+    strides padded by 8 elements against bank conflicts."""
+    pad = lambda a: _ceil(a, 16) * 16
+    nh, nc = t * (tile + 2) ** 2, t * tile * tile
+    sx, ckp = pad(c) + 8, pad(ck)
+    front = (pad(nh) * sx + ckp * sx + nh * ckp) * 2
+    fwd = front + (pad(nc) + c) * (ckp + 8) * 2
+    sums = front + t * tile * (tile // 4) * ckp * 4
+    return fwd, sums
+
+
+def _plan_bf16(t: int, h: int, w: int, c: int, ci: int):
+    """The largest square tile in (16, 8, 4) whose conv_c accumulators fit
+    MAX_ACC_TILES per warp, with the fewest chunks of Ci (a multiple of 8
+    channels, at least MIN_CHUNK) that fit SMEM_TARGET."""
+    for tile in (16, 8, 4):
+        if _ceil(_ceil(t * tile * tile, 16) * _ceil(c, 8), WARPS) > MAX_ACC_TILES:
+            continue
+        n_chunks = 1
+        while True:
+            ck = min(ci, _ceil(_ceil(ci, n_chunks), 8) * 8)
+            if ck < min(ci, MIN_CHUNK):
+                break
+            fwd, sums = _bf16_smem(t, tile, c, ck)
+            if fwd <= SMEM_TARGET:
+                return tile, ck, fwd, sums, _ceil(h, tile) * _ceil(w, tile)
+            n_chunks += 1
+    raise ValueError(f"no bf16 tile fits {SMEM_TARGET} B of shared memory for T={t} C={c} Ci={ci}")
+
+
+def plan_tiles(t: int, h: int, w: int, c: int, ci: int, itemsize: int):
+    """(tile, ck, smem_fwd, smem_sums, n_tiles) for one block shape and I/O
+    dtype size; the kernels' square tiles cover the image row-major.
+
+    bf16 (itemsize 2): ``_plan_bf16``. fp32: the largest square tile in
+    (8, 4, 2, 1) whose input tile, conv_c accumulator and a chunk of at
+    least MIN_CHUNK inner channels fit SMEM_TARGET; Ci is then split into
+    equal chunks. The byte counts follow the shared-memory layouts
+    documented in csrc/fused_block.cu.
     """
+    if itemsize == 2:
+        return _plan_bf16(t, h, w, c, ci)
     for tile in (8, 4, 2, 1):
         halo, core = t * (tile + 2) ** 2, t * tile * tile
         x_bytes, acc_bytes = halo * c * itemsize, core * c * 4
@@ -130,7 +174,11 @@ def _check_cuda_args(x: torch.Tensor, w_a: torch.Tensor) -> Tuple[int, ...]:
         raise TypeError(f"fused block kernels take float32 or bfloat16, got {x.dtype}")
     if x.dim() != 5 or w_a.dim() != 2 or w_a.shape[0] != x.shape[-1]:
         raise ValueError(f"shape mismatch: x {tuple(x.shape)}, w_a {tuple(w_a.shape)}")
+    if x.dtype == torch.bfloat16 and (x.shape[-1] % 8 or w_a.shape[1] % 2):
+        raise ValueError(f"the bf16 kernels take C % 8 == 0 and Ci % 2 == 0, got C={x.shape[-1]} "
+                         f"Ci={w_a.shape[1]}")
     return tuple(x.shape) + (w_a.shape[1],)
+
 
 
 def _f32(v: torch.Tensor, x: torch.Tensor, numel: int, what: str) -> torch.Tensor:
@@ -138,7 +186,7 @@ def _f32(v: torch.Tensor, x: torch.Tensor, numel: int, what: str) -> torch.Tenso
     (the kernel reads exactly that many)."""
     if v.numel() != numel:
         raise ValueError(f"{what} holds {v.numel()} values, the kernel reads {numel}")
-    return v.to(device=x.device, dtype=torch.float32).contiguous()
+    return cuda_build.aligned(v.to(device=x.device, dtype=torch.float32))
 
 
 def _front_args(x, w_a, a_a, b_a, w_dw, a_b, b_b):
@@ -149,7 +197,7 @@ def _front_args(x, w_a, a_a, b_a, w_dw, a_b, b_b):
     if tuple(w_dw.shape) != (3, 3, 3, ci):
         raise ValueError(f"w_dw {tuple(w_dw.shape)} != {(3, 3, 3, ci)}")
     return (
-        x.contiguous(), w_a.to(device=x.device, dtype=x.dtype).contiguous(),
+        cuda_build.aligned(x), cuda_build.aligned(w_a.to(device=x.device, dtype=x.dtype)),
         _f32(a_a, x, ci, "a_a"), _f32(b_a, x, ci, "b_a"), _f32(w_dw, x, 27 * ci, "w_dw"),
         _f32(a_b, x, ci, "a_b"), _f32(b_b, x, ci, "b_b"),
     )
@@ -186,7 +234,7 @@ def fused_block_fwd(x, w_a, a_a, b_a, w_dw, a_b, b_b, w_c, a_c, b_c, gate=None) 
         raise ValueError(f"w_c {tuple(w_c.shape)} != {(ci, c)}")
     args = _front_args(x, w_a, a_a, b_a, w_dw, a_b, b_b)
     back = (
-        w_c.to(device=x.device, dtype=x.dtype).contiguous(),
+        cuda_build.aligned(w_c.to(device=x.device, dtype=x.dtype)),
         _f32(a_c, x, c, "a_c"), _f32(b_c, x, c, "b_c"),
     )
     if gate is not None:
@@ -209,6 +257,16 @@ def fused_block_fwd(x, w_a, a_a, b_a, w_dw, a_b, b_b, w_c, a_c, b_c, gate=None) 
 
 
 fused_block_fwd.launches = 0
+
+
+def blocks_per_sm(dtype: torch.dtype, se_sums: bool, t: int, h: int, w: int, c: int,
+                  ci: int) -> int:
+    """Blocks of the kernel for this shape that one SM of the current card
+    holds at once (CUDA's occupancy calculator)."""
+    tile, ck, smem_fwd, smem_sums, _ = plan_tiles(t, h, w, c, ci, torch.empty((), dtype=dtype).element_size())
+    lib = cuda_build.load("fused_block")
+    return lib.c3d_fused_block_blocks_per_sm(_DTYPES[dtype], int(se_sums), t, c, ci, tile, ck,
+                                             smem_sums if se_sums else smem_fwd)
 
 
 def fused_bottleneck_block(

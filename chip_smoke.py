@@ -19,10 +19,17 @@ no result line):
    and 18 fused_block_se_sums launches per forward; then hold the fp32
    probabilities of the fused model against fused_inference=False (1e-3)
    on a whole batch and report the bf16 mask agreement;
-4. times: bf16 pairs/s of predict_u8 at --batch, with the fused blocks and
-   with fused_inference=False in turns; each kernel's time per stage shape
-   from CUDA events (on operands first held against the plain version),
-   its launches per forward, its bound and its plain version's time.
+4. repros: hold the two repro kernels (ops/repros.py: dot_1d within two
+   bf16 ulps, manual_dma exactly) against their plain versions at the
+   repros' shapes over KERNEL_SEEDS seeds, then drive their entry point
+   (``python -m change3d_tpu_torch.ops.repros``, in process) with their
+   launch counts reset just before, and require a launch of each;
+5. times: bf16 pairs/s of predict_u8 at --batch, with the fused blocks and
+   with fused_inference=False in turns; each fused kernel's time per stage
+   shape from CUDA events (on operands first held against the plain
+   version), its launches per forward, its bound, its blocks per SM and its
+   plain version's time; each repro kernel's time, bound, plain time and
+   library time (torch.mul(x, 2.0) for manual_dma).
 
 The last lines are the kernels JSON, the card line from nvidia-smi, and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
@@ -61,6 +68,8 @@ T = 3
 KERNEL_SEEDS = 3
 SOURCE = "change3d_tpu_torch/csrc/fused_block.cu"
 PALLAS = "change3d_tpu/ops/pallas/fused_block.py"
+REPRO_SOURCE = "change3d_tpu_torch/csrc/repros.cu"
+REPRO_PALLAS = "tests/manual_pallas_repros.py"
 
 
 def card_line() -> str:
@@ -214,6 +223,59 @@ def phase_forward(pkg, dev, batch, n_batches, seed):
     return pred, plain_pred, pairs, launches, stats
 
 
+def phase_repros(rp, dev, seeds):
+    """The repro kernels against their plain versions, then their entry
+    point as a user runs it, counted."""
+    worst = {"dot_1d": {"max_abs_err": 0.0, "limit_used": 0.0},
+             "manual_dma": {"max_abs_err": 0.0, "limit_used": 0.0}}
+    for seed in seeds:
+        x, w, xd = rp.repro_operands(seed, dev)
+        got, want = rp.dot_1d(x, w), rp.dot_1d_reference(x, w)
+        used = rp.bf16_ulps_used(got, want)
+        err = float((got.float() - want.float()).abs().max())
+        if used > 1.0 or not bool(torch.isfinite(got.float()).all()):
+            raise AssertionError(f"dot_1d seed {seed}: max |d| {err}, {used:.3f} of two bf16 ulps")
+        w_ = worst["dot_1d"]
+        w_["max_abs_err"], w_["limit_used"] = max(w_["max_abs_err"], err), max(w_["limit_used"], used)
+        got = rp.manual_dma(xd)
+        err = float((got - rp.manual_dma_reference(xd)).abs().max())
+        if err != 0.0:
+            raise AssertionError(f"manual_dma seed {seed}: max |d| {err}, must be exact")
+    print(f"repros vs plain versions: {json.dumps(worst)}", flush=True)
+
+    rp.dot_1d.launches = 0
+    rp.manual_dma.launches = 0
+    rp.main(seeds[0])
+    torch.cuda.synchronize()
+    launches = {"dot_1d": rp.dot_1d.launches, "manual_dma": rp.manual_dma.launches}
+    if min(launches.values()) < 1:
+        raise AssertionError(f"repro entry point launches {launches}")
+    print(f"repros entry point: launches {launches}", flush=True)
+    return worst, launches
+
+
+def repro_rows(rp, dev, seed, card, iters=200):
+    """Time, bound, plain and library time of each repro kernel at the
+    repros' shapes."""
+    x, w, xd = rp.repro_operands(seed, dev)
+    r, c, n = x.shape[0], x.shape[1], w.shape[1]
+    rows = []
+    for kernel, fn, plain, library, nbytes, flops in (
+        ("dot_1d", lambda: rp.dot_1d(x, w), lambda: rp.dot_1d_reference(x, w), None,
+         (r * c + c * n + r * n) * 2, r * c + 2 * c * n),
+        ("manual_dma", lambda: rp.manual_dma(xd), lambda: rp.manual_dma_reference(xd),
+         lambda: torch.mul(xd, 2.0), 2 * xd.numel() * 4, xd.numel()),
+    ):
+        times = {"bytes": nbytes / HBM_BYTES_S, "operations": flops / FP32_FLOPS}
+        by = max(times, key=times.get)
+        rows.append({"kernel": kernel, "shape": list((x if kernel == "dot_1d" else xd).shape),
+                     "ms": event_ms(fn, iters), "plain_ms": event_ms(plain, iters),
+                     "library_ms": None if library is None else event_ms(library, iters),
+                     "bound_ms": times[by] * 1e3, "bound_by": by})
+        print(f"time {kernel} ({card}): {json.dumps(rows[-1])}", flush=True)
+    return rows
+
+
 def pairs_per_s(pred, pairs, batch, rounds=3):
     """End to end: uint8 host arrays in, bool masks out, host clock."""
     torch.cuda.synchronize()
@@ -252,6 +314,7 @@ def phase_times(fb, worst, pred, plain_pred, pairs, batch, dev, seed, card, iter
             b_ms, b_by = bound(batch, hw, c, ci, 2, sums=sums, n_tiles=n_tiles)
             rows.append({"kernel": kernel, "stage": name, "shape": [batch, T, hw, hw, c],
                          "inner": ci, "launches_per_forward": n_launch,
+                         "blocks_per_sm": fb.blocks_per_sm(torch.bfloat16, sums, T, hw, hw, c, ci),
                          "ms": event_ms(fn, iters), "plain_ms": event_ms(plain, 3),
                          "bound_ms": b_ms, "bound_by": b_by})
             print(f"time {kernel} {name} ({card}): {json.dumps(rows[-1])}", flush=True)
@@ -277,6 +340,7 @@ def main(argv=None) -> int:
     from change3d_tpu_torch.models.x3d import x3d_l_config
     from change3d_tpu_torch.ops import cuda_build
     from change3d_tpu_torch.ops import fused_block as fb
+    from change3d_tpu_torch.ops import repros as rp
 
     dev = resolve_device("cuda")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
@@ -291,11 +355,14 @@ def main(argv=None) -> int:
     card = card_line()
     print(f"card: {card}", flush=True)
 
-    worst = phase_kernels(fb, dev, range(args.seed, args.seed + KERNEL_SEEDS), args.batch)
+    seeds = list(range(args.seed, args.seed + KERNEL_SEEDS))
+    worst = phase_kernels(fb, dev, seeds, args.batch)
     pred, plain_pred, pairs, launches, stats = phase_forward(
         (fb, Change3D, Task, Predictor, x3d_l_config), dev, args.batch, args.batches, args.seed)
+    repro_worst, repro_launches = phase_repros(rp, dev, seeds)
     runs, fwd_ms, rows = phase_times(fb, worst, pred, plain_pred, pairs, args.batch, dev,
                                      args.seed, card)
+    rows += repro_rows(rp, dev, args.seed, card)
     print(f"kernels vs plain versions, worst over every check: {json.dumps(worst)}", flush=True)
     for kind in ("fused", "plain"):
         print(f"bcd predict_u8 bf16 256^2 batch {args.batch} {kind} blocks: "
@@ -321,6 +388,18 @@ def main(argv=None) -> int:
             "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": max(by, key=by.get), "library_ms": None,
             "per": f"one bf16 BCD forward at batch {args.batch} (sum over its launches)",
+        })
+    for kernel, replaces in (("dot_1d", f"{REPRO_PALLAS}:25 (pallas_call :35)"),
+                             ("manual_dma", f"{REPRO_PALLAS}:39 (pallas_call :48)")):
+        row = next(r for r in rows if r["kernel"] == kernel)
+        kernels.append({
+            "name": kernel, "route": "cuda", "source": REPRO_SOURCE, "replaces": replaces,
+            "launches": repro_launches[kernel],
+            "max_abs_err": repro_worst[kernel]["max_abs_err"],
+            "limit_used": repro_worst[kernel]["limit_used"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "per": f"one launch at {row['shape']}",
         })
 
     detail = {"card": card, "torch": torch.__version__, "batch": args.batch,

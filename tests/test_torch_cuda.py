@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from change3d_tpu_torch.ops import fused_block as fb
+from change3d_tpu_torch.ops import repros
 
 pytestmark = pytest.mark.cuda
 
@@ -47,6 +48,9 @@ SHAPES = {
     "ragged": (3, 3, 20, 12, 24, 54, 8),
     "t5_wide": (1, 5, 8, 8, 96, 216, 16),
     "stage4": (2, 3, 16, 16, 192, 432, 32),
+    # 10 x 6 under the bf16 plan's 4 x 4 tiles: the last tile row and
+    # column hang over the bottom and the right edge.
+    "overhang": (2, 3, 10, 6, 96, 216, 16),
 }
 
 
@@ -95,6 +99,14 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         fb.fused_block_se_sums(*ops[:4], ops[4].permute(3, 0, 1, 2), *ops[5:7])
 
 
+def test_bf16_kernels_refuse_shapes_they_do_not_take(cuda):
+    ops, _ = _operands(5, cuda, torch.bfloat16, 1, 3, 8, 8, 12, 16, 8, False)
+    with pytest.raises(ValueError, match="C % 8"):
+        fb.fused_block_fwd(*ops)
+    with pytest.raises(ValueError, match="C % 8"):
+        fb.fused_block_se_sums(*ops[:7])
+
+
 def test_tiny_bcd_model_fused_matches_plain_on_card(cuda):
     from change3d_tpu_torch.models.trainer import Change3D, Task
     from change3d_tpu_torch.models.x3d import X3DConfig
@@ -114,3 +126,44 @@ def test_tiny_bcd_model_fused_matches_plain_on_card(cuda):
         got, want = fused(pre, post)["change"], plain(pre, post)["change"]
     assert fb.fused_block_fwd.launches - before == 1 + 2 + 2
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape", ["ragged", "overhang", "stage4"])
+def test_bf16_se_sums_reruns_are_bit_identical(cuda, shape):
+    b, t, h, w, c, ci, cr = SHAPES[shape]
+    ops, _ = _operands(4, cuda, torch.bfloat16, b, t, h, w, c, ci, cr, False)
+    tile, _, _, _, n_tiles = fb.plan_tiles(t, h, w, c, ci, 2)
+    assert h % tile or w % tile or shape == "stage4"
+    first = fb.fused_block_se_sums(*ops[:7])
+    assert first.shape == (b, n_tiles, ci)
+    for _ in range(3):
+        assert torch.equal(fb.fused_block_se_sums(*ops[:7]), first)
+    torch.testing.assert_close(first.sum(1) / (t * h * w),
+                               fb.se_sums_reference(*ops[:7]).sum(1) / (t * h * w), **BF16_TOL)
+
+
+def test_repro_kernels_match_plain_versions(cuda):
+    x, w, xd = repros.repro_operands(0, cuda)
+    before = (repros.dot_1d.launches, repros.manual_dma.launches)
+    got = repros.dot_1d(x, w)
+    got_dma = repros.manual_dma(xd)
+    torch.cuda.synchronize()
+    assert (repros.dot_1d.launches, repros.manual_dma.launches) == (before[0] + 1, before[1] + 1)
+    want = repros.dot_1d_reference(x, w)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape == (256, 128)
+    assert repros.bf16_ulps_used(got, want) <= 1.0  # two bf16 ulps of max(|ref|, 1)
+    assert torch.equal(got, got[:1].expand_as(got))  # one row, broadcast
+    assert torch.equal(got_dma, repros.manual_dma_reference(xd))  # exact
+
+
+def test_repro_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    x, w, xd = repros.repro_operands(1, cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        repros.dot_1d(x.float(), w)
+    with pytest.raises(ValueError, match="N % 8"):
+        repros.dot_1d(x, w[:, :12])
+    with pytest.raises(TypeError, match="float32"):
+        repros.manual_dma(xd.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="slab"):
+        repros.manual_dma(torch.zeros(1, 512, 512, device=cuda))
+

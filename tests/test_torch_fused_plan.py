@@ -1,0 +1,60 @@
+"""The bf16 tile plan of the fused X3D block kernels (ops/fused_block.py:
+plan_tiles for itemsize 2) and the plain se-sums that follow it. The
+kernels themselves are tested on the card by tests/test_torch_cuda.py."""
+
+import numpy as np
+import pytest
+import torch
+
+from change3d_tpu_torch.ops import fused_block as fb
+
+# (T, H, W, C, Ci) -> (tile, ck, smem_fwd, smem_sums, n_tiles), counted by
+# hand from the layout in csrc/fused_block.cu (Bf16Layout).
+X3D_L_STAGES = {
+    "stage1": ((3, 128, 128, 24, 54), (8, 54, 98944, 80128, 256)),
+    "stage2": ((3, 64, 64, 48, 108), (8, 56, 114176, 91904, 64)),
+    "stage3": ((3, 32, 32, 96, 216), (4, 112, 105344, 76160, 64)),
+    "stage4": ((3, 16, 16, 192, 432), (4, 48, 101248, 76672, 16)),
+}
+
+
+@pytest.mark.parametrize("stage", list(X3D_L_STAGES))
+def test_bf16_plan_at_the_x3d_l_stages(stage):
+    shape, want = X3D_L_STAGES[stage]
+    assert fb.plan_tiles(*shape, 2) == want
+
+
+@pytest.mark.parametrize("shape", [(3, 128, 128, 24, 54), (3, 32, 32, 96, 216),
+                                   (5, 8, 8, 96, 216), (3, 20, 12, 24, 54),
+                                   (3, 16, 16, 192, 432), (3, 32, 32, 8, 18)])
+def test_bf16_plan_respects_the_kernel_limits(shape):
+    t, h, w, c, ci = shape
+    tile, ck, smem_fwd, smem_sums, n_tiles = fb.plan_tiles(t, h, w, c, ci, 2)
+    assert tile in (16, 8, 4) and ck % 2 == 0 and min(ci, fb.MIN_CHUNK) <= ck <= ci
+    assert (ck % 8 == 0) or ck == ci
+    assert smem_sums < smem_fwd <= fb.SMEM_TARGET
+    m_tiles = -(-t * tile * tile // 16)
+    assert -(-m_tiles * (c // 8) // fb.WARPS) <= fb.MAX_ACC_TILES  # accumulators per warp
+    assert n_tiles == -(-h // tile) * -(-w // tile)
+    assert (smem_fwd, smem_sums) == fb._bf16_smem(t, tile, c, ck)
+
+
+def test_bf16_plain_se_sums_follow_the_bf16_tiles():
+    """In bf16 the plain sums use the bf16 plan's tiles (row-major, tiles
+    that hang over the edge sum what lies inside), as the kernel writes them."""
+    rs = np.random.RandomState(6)
+    t, h, w, c, ci = 3, 10, 6, 16, 20
+    f = lambda *s: torch.from_numpy((rs.randn(*s) * 0.2).astype(np.float32))
+    ops = [f(2, t, h, w, c).to(torch.bfloat16), f(c, ci), f(ci) * 0.1 + 1, f(ci) * 0.1,
+           f(3, 3, 3, ci), f(ci) * 0.1 + 1, f(ci) * 0.1]
+    tile, _, _, _, n_tiles = fb.plan_tiles(t, h, w, c, ci, 2)
+    assert h % tile and w % tile  # the last tiles hang over both edges
+    sums = fb.se_sums_reference(*ops)
+    assert sums.shape == (2, n_tiles, ci) and sums.dtype == torch.float32
+    xb = fb._front_reference(*ops)
+    tiles_w = -(-w // tile)
+    for k in range(n_tiles):
+        y0, x0 = (k // tiles_w) * tile, (k % tiles_w) * tile
+        want = xb[:, :, y0:y0 + tile, x0:x0 + tile].sum(dim=(1, 2, 3))
+        torch.testing.assert_close(sums[:, k], want, rtol=1e-5, atol=1e-5)
+

@@ -26,6 +26,9 @@ import sys
 import numpy as np
 import torch
 
+# Names of the fused-block kernels in csrc/fused_block.cu (bf16 and fp32).
+FUSED_KERNELS = ("fused_block_bf16_kernel", "fused_block_f32_kernel")
+
 
 def busy_us(intervals):
     """Length of the union of (start, end) intervals."""
@@ -90,7 +93,8 @@ def main(argv=None) -> int:
     end = max(e.time_range.end for e in kernels)
     busy = busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
     device_ms = sum(v[0] for v in by_name.values()) / args.iters / 1e3
-    fused_ms = sum(v[0] for k, v in by_name.items() if "fused_block_kernel" in k) / args.iters / 1e3
+    fused_ms = sum(v[0] for k, v in by_name.items()
+                   if any(n in k for n in FUSED_KERNELS)) / args.iters / 1e3
     rows = sorted(({"name": k, "ms_per_forward": v[0] / args.iters / 1e3,
                     "launches_per_forward": v[1] / args.iters} for k, v in by_name.items()),
                   key=lambda r: -r["ms_per_forward"])
