@@ -1,12 +1,16 @@
 """PyTorch + CUDA port of change3d_tpu for one NVIDIA H100.
 
 The JAX package ``change3d_tpu`` is the reference; this package imports none
-of it (nor jax/flax). Public functions keep the JAX layouts: activations
-[B, T, H, W, C], images [B, H, W, 3]. Weights are stored in PyTorch's layouts
-(OIDHW / OIHW convs, (I, O, kh, kw) transposed convs) except 1x1x1 convs and
-SE/FC weights, which stay [in, out] matrices so they are plain matmuls.
+of it (nor jax/flax, nor OpenCV). Public functions keep the JAX layouts:
+activations [B, T, H, W, C], images [B, H, W, 3]. Weights are stored in
+PyTorch's layouts (OIDHW / OIHW convs, (I, O, kh, kw) transposed convs)
+except 1x1x1 convs and SE/FC weights, which stay [in, out] matrices so they
+are plain matmuls.
 
-This slice covers the BCD serving forward (``inference.Predictor``); the
-fused X3D bottleneck block runs as a hand-written CUDA kernel
-(``csrc/fused_block.cu`` via ``ops.fused_block``).
+Covered so far: the BCD serving forward (``inference.Predictor``), with the
+fused X3D bottleneck block as a hand-written CUDA kernel
+(``csrc/fused_block.cu`` via ``ops.fused_block``), the two Pallas repro
+kernels (``ops.repros``), and BCD training (``train.engine``,
+``train.loop``, ``python -m change3d_tpu_torch.cli bcd``), which validates
+through the fused kernel.
 """

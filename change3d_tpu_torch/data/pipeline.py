@@ -1,0 +1,200 @@
+"""Input pipeline (counterpart of ``change3d_tpu/data/pipeline.py``):
+threaded decode/augment workers and a double-buffered copy to the card.
+
+The batch order is the JAX loader's: the epoch's permutation is
+``np.random.RandomState(seed + epoch)``, every sample draws its augmentation
+from ``np.random.default_rng((seed, epoch, batch, slot))`` with the global
+batch index, training drops the incomplete final batch and eval pads it
+(repeating the last index) with a ``valid`` mask. So batch k of an epoch is
+the same whether the epoch started at 0 or was resumed at k
+(``DataLoader.iter_from``). The process-sharded loader and the grain loader
+arrive with the multi-GPU slice.
+"""
+
+from __future__ import annotations
+
+import collections
+import queue
+import threading
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, Iterator, Optional
+
+import numpy as np
+import torch
+
+# Batches the workers may assemble ahead of the consumer.
+_PREFETCH = 4
+
+
+class DataLoader:
+    """Deterministic, seedable batch loader with background worker threads.
+
+    ``dataset`` exposes ``__len__`` and ``__getitem__(idx, rng)``; batches
+    are what ``collate`` makes of a list of samples (a dict of stacked numpy
+    arrays)."""
+
+    def __init__(self, dataset, batch_size: int, *, shuffle: bool = False, seed: int = 16,
+                 drop_last: Optional[bool] = None, num_workers: int = 4, pad_final: bool = False,
+                 collate: Optional[Callable] = None):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.drop_last = shuffle if drop_last is None else drop_last
+        self.num_workers = max(1, num_workers)
+        self.pad_final = pad_final
+        self.collate = collate or pair_collate
+        self._epoch = 0
+
+    def __len__(self) -> int:
+        n = len(self.dataset)
+        if self.drop_last and not self.pad_final:
+            return n // self.batch_size
+        return -(-n // self.batch_size)
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = epoch
+
+    def _index_batches(self):
+        n = len(self.dataset)
+        order = np.arange(n)
+        if self.shuffle:
+            np.random.RandomState(self.seed + self._epoch).shuffle(order)
+        batches = []
+        for i in range(0, n, self.batch_size):
+            idxs = order[i:i + self.batch_size]
+            if len(idxs) < self.batch_size:
+                if self.drop_last and not self.pad_final:
+                    break
+                if self.pad_final:
+                    pad = np.full(self.batch_size - len(idxs), idxs[-1])
+                    batches.append((np.concatenate([idxs, pad]), len(idxs)))
+                    continue
+            batches.append((idxs, len(idxs)))
+        return batches
+
+    def __iter__(self) -> Iterator:
+        return self.iter_from(0)
+
+    def iter_from(self, skip_batches: int) -> Iterator:
+        """Iterate from batch ``skip_batches`` of this epoch; the skipped
+        prefix is never decoded."""
+        batches = self._index_batches()
+        if skip_batches:
+            if skip_batches >= len(batches):
+                raise RuntimeError(
+                    f"resume checkpoint is ahead of the dataset: cannot skip "
+                    f"{skip_batches} of {len(batches)} batches (did the train "
+                    f"split shrink since the preemption save?)"
+                )
+            batches = batches[skip_batches:]
+        out_q: "queue.Queue" = queue.Queue(maxsize=_PREFETCH)
+        stop = threading.Event()
+        epoch = self._epoch
+
+        def load_sample(bi, j, idx):
+            rng = np.random.default_rng((self.seed, epoch, bi, j))
+            return self.dataset.__getitem__(int(idx), rng)
+
+        def offer(item) -> bool:
+            """Blocking put that gives up when the consumer has gone."""
+            while not stop.is_set():
+                try:
+                    out_q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def produce():
+            try:
+                # A window of two batches of sample futures keeps decode ahead
+                # of assembly; start= keeps bi the epoch's global batch index.
+                with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
+                    window: "deque" = deque()
+                    it = iter(enumerate(batches, start=skip_batches))
+
+                    def submit():
+                        nxt = next(it, None)
+                        if nxt is not None:
+                            bi, (idxs, valid) = nxt
+                            window.append(([pool.submit(load_sample, bi, j, idx)
+                                            for j, idx in enumerate(idxs)], valid))
+
+                    submit()
+                    submit()
+                    while window and not stop.is_set():
+                        futs, valid = window.popleft()
+                        samples = [f.result() for f in futs]
+                        submit()
+                        batch = self.collate(samples)
+                        if self.pad_final:
+                            batch["valid"] = np.arange(self.batch_size) < valid
+                        if not offer(batch):
+                            return
+            except Exception as e:  # handed to the consumer, which raises it
+                offer(e)
+            finally:
+                offer(None)
+
+        worker = threading.Thread(target=produce, daemon=True)
+        worker.start()
+        try:
+            while True:
+                item = out_q.get()
+                if item is None:
+                    return
+                if isinstance(item, Exception):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+
+
+def make_data_loader(kind: str, dataset, batch_size: int, **kwargs) -> DataLoader:
+    """Loader factory; ``kind`` is 'threaded' (the grain loader arrives with
+    the multi-GPU slice)."""
+    if kind != "threaded":
+        raise NotImplementedError(f"loader {kind!r} is not ported; use 'threaded'")
+    return DataLoader(dataset, batch_size, **kwargs)
+
+
+def pair_collate(samples) -> Dict[str, np.ndarray]:
+    """(image [H,W,6], label [H,W,C]) samples -> {'pre', 'post', 'label'}."""
+    imgs = np.stack([s[0] for s in samples])
+    labels = np.stack([s[1] for s in samples])
+    return {
+        "pre": np.ascontiguousarray(imgs[..., 0:3]),
+        "post": np.ascontiguousarray(imgs[..., 3:6]),
+        "label": labels,
+    }
+
+
+def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
+    """numpy batch -> tensors on ``device``; on the card through pinned host
+    memory with a non-blocking copy."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        out[k] = t
+    return out
+
+
+def device_prefetch(iterator, device: torch.device, depth: int = 2):
+    """Start the copies of the next ``depth`` batches before yielding one,
+    so batch N+1's copy overlaps step N."""
+    buf = collections.deque()
+    it = iter(iterator)
+    for batch in it:
+        buf.append(to_device(batch, device))
+        if len(buf) == depth:
+            break
+    while buf:
+        out = buf.popleft()
+        nxt = next(it, None)
+        if nxt is not None:
+            buf.append(to_device(nxt, device))
+        yield out

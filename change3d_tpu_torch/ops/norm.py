@@ -1,7 +1,17 @@
-"""Eval-mode batch norm (counterpart of ``change3d_tpu/ops/norm.py``).
+"""Batch norm with torch BatchNorm3d semantics (counterpart of
+``change3d_tpu/ops/norm.py``).
 
-Only running statistics are used; batch statistics and their torch-momentum
-update arrive with the training slice, so ``train()`` mode raises.
+In ``train()`` mode the statistics are the batch's, always in fp32: the mean
+and the biased variance E[x^2] - mean^2 (clamped at 0) normalise, and the
+running statistics move by the torch momentum rule (running = (1 - m) *
+running + m * batch, m = 0.1) with the unbiased variance, var * n / (n - 1)
+over the n = B*T*H*W values per channel. The running update happens under
+``torch.no_grad()``; gradients flow through the batch statistics. In
+``eval()`` mode only the running statistics are used. Either way a/b are
+folded in fp32 and applied in the activation dtype.
+
+``F.batch_norm`` is not used: its variance rounds differently from the JAX
+formula this module is held to.
 """
 
 from __future__ import annotations
@@ -16,24 +26,38 @@ class BatchNorm(nn.Module):
     """Channel-last BN over all leading axes. Parameters ``scale``/``bias``,
     buffers ``mean``/``var`` (the JAX variable names)."""
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.scale = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("mean", torch.zeros(num_features))
         self.register_buffer("var", torch.ones(num_features))
 
     def folded(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """fp32 per-channel (a, b) with y = x * a + b."""
+        """fp32 per-channel (a, b) with y = x * a + b, from the running stats."""
         a = self.scale.float() * torch.rsqrt(self.var.float() + self.eps)
         return a, self.bias.float() - self.mean.float() * a
 
+    def _batch_stats(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """fp32 batch mean and biased variance; updates the running stats."""
+        x32 = x.float()
+        dims = tuple(range(x.dim() - 1))
+        n = x.numel() // x.shape[-1]
+        mean = x32.mean(dims)
+        var = torch.clamp_min(x32.square().mean(dims) - mean.square(), 0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.mean.copy_((1.0 - m) * self.mean + m * mean)
+            self.var.copy_((1.0 - m) * self.var + m * (var * (n / max(n - 1, 1))))
+        return mean, var
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError(
-                "BatchNorm batch statistics arrive with the BCD train-step slice; call .eval()"
-            )
-        # a/b are folded in fp32, then applied in the activation dtype.
-        a, b = self.folded()
+            mean, var = self._batch_stats(x)
+            a = self.scale * torch.rsqrt(var + self.eps)
+            b = self.bias - mean * a
+        else:
+            a, b = self.folded()
         return x * a.to(x.dtype) + b.to(x.dtype)

@@ -1,0 +1,250 @@
+"""BCD train-and-validate loop (counterpart of ``change3d_tpu/train/loop.py``).
+
+The protocol is the JAX loop's: validation on the *test* split after every
+epoch except epoch 0, the best model gated on F1, the latest ``max_to_keep``
+checkpoints and a sidecar with the best F1 so far, and a final re-evaluation
+of the best weights. Every step's loss adds into one device scalar, so the
+host syncs once per epoch (and on the progress line every 50 steps).
+
+SIGTERM is honoured between steps: the loop saves the full state (model,
+optimizer, step) and returns; ``--resume`` re-enters that epoch and skips
+the batches already trained, so a preempted-and-resumed run ends bit-for-bit
+where an uninterrupted one does. A preemption that lands on an epoch's last
+step leaves that epoch unvalidated; the resumed run validates it first.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import signal
+import threading
+import time
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from change3d_tpu_torch.checkpoint.io import CheckpointManager
+from change3d_tpu_torch.data.datasets import BCDDataset
+from change3d_tpu_torch.data.pipeline import device_prefetch, make_data_loader, pair_collate
+from change3d_tpu_torch.data.transforms import make_transform_pipelines
+from change3d_tpu_torch.device import resolve_device
+from change3d_tpu_torch.metrics.confusion import BinaryChangeMeter
+from change3d_tpu_torch.models.trainer import Change3D, Task
+from change3d_tpu_torch.train.engine import eval_step, train_step
+from change3d_tpu_torch.train.lr import poly_warmup_schedule, step_schedule
+from change3d_tpu_torch.train.optim import torch_adam
+from change3d_tpu_torch.utils.logging import setup_logger
+
+_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+BEST_METRIC = "F1"
+
+
+@dataclasses.dataclass
+class RunConfig:
+    task: str = "bcd"
+    dataset: str = "LEVIR-CD"
+    file_root: str = ""
+    save_dir: str = "./exp"
+    in_height: int = 256
+    in_width: int = 256
+    max_steps: int = 80_000
+    max_epochs: Optional[int] = None
+    batch_size: int = 16
+    lr: float = 2e-4
+    lr_mode: str = "poly"
+    step_loss: int = 100
+    weight_decay: float = 1e-4
+    resume: bool = False
+    num_workers: int = 4
+    seed: int = 16
+    log_name: str = "train_val_log"
+    compute_dtype: str = "bfloat16"
+    device: str = "cuda"
+
+
+class PreemptionGuard:
+    """SIGTERM -> finish the step in flight, checkpoint, return.
+
+    The handler only sets a flag; the loop polls it after each step and
+    saves. The previous handler comes back on exit. Off the main thread
+    (where ``signal.signal`` raises ValueError) the guard is a plain flag.
+
+    ``CHANGE3D_PREEMPT_AFTER_STEP=N`` raises SIGTERM in process after the
+    Nth optimizer step (``tick``): the real signal path at a fixed point.
+    """
+
+    def __init__(self):
+        self._flag = threading.Event()
+        self._prev = None
+        self._installed = False
+        self._hook_step = int(os.environ.get("CHANGE3D_PREEMPT_AFTER_STEP", "0") or 0)
+
+    def __enter__(self) -> "PreemptionGuard":
+        try:
+            self._prev = signal.signal(signal.SIGTERM, self._on_signal)
+            self._installed = True
+        except ValueError:  # not the main thread
+            pass
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._installed:
+            signal.signal(signal.SIGTERM, self._prev)
+
+    def _on_signal(self, signum, frame) -> None:
+        # Flag first; os.write is async-signal-safe where print is not.
+        self._flag.set()
+        os.write(2, b"[preempt] SIGTERM: finishing the in-flight step, then "
+                    b"checkpoint-and-exit (resume with --resume)\n")
+
+    def tick(self, global_step: int) -> None:
+        if self._hook_step and global_step >= self._hook_step:
+            self._hook_step = 0
+            if self._installed:
+                signal.raise_signal(signal.SIGTERM)
+            else:
+                self._flag.set()
+
+    @property
+    def triggered(self) -> bool:
+        return self._flag.is_set()
+
+
+def build_model(cfg: RunConfig) -> Change3D:
+    """The full-width X3D-L BCD model, initialised from a generator seeded
+    with ``cfg.seed``, on ``cfg.device``."""
+    return Change3D(Task(cfg.task), in_height=cfg.in_height, in_width=cfg.in_width,
+                    device=cfg.device, generator=torch.Generator().manual_seed(cfg.seed))
+
+
+def _evaluate_split(model, loader, device, compute_dtype) -> Dict[str, float]:
+    """One metered pass over an eval loader."""
+    meter = BinaryChangeMeter()
+    losses = []
+    for batch in device_prefetch(loader, device):
+        metrics = eval_step(model, batch, compute_dtype=compute_dtype)
+        losses.append(float(metrics["loss"]))
+        meter.update(metrics["cm"])
+    scores = {k: float(v) for k, v in meter.scores().items()}
+    scores["loss"] = float(np.mean(losses)) if losses else float("nan")
+    return scores
+
+
+def run_detection_training(cfg: RunConfig) -> Dict[str, Any]:
+    """Train and validate BCD; returns {'last', 'test_best'} scores, or
+    {'preempted_at_step'} after a SIGTERM."""
+    if cfg.task != "bcd":
+        raise NotImplementedError(f"{cfg.task} training arrives with its slice")
+    if cfg.compute_dtype not in _DTYPES:
+        raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: one of {sorted(_DTYPES)}")
+    save_path = os.path.join(cfg.save_dir, f"{cfg.dataset}_iter_{cfg.max_steps}_lr_{cfg.lr}")
+    with setup_logger(save_path, dataclasses.asdict(cfg), cfg.log_name) as logger:
+        return _run_detection(cfg, logger, save_path)
+
+
+def _run_detection(cfg: RunConfig, logger, save_path: str) -> Dict[str, Any]:
+    device = resolve_device(cfg.device)
+    compute_dtype = _DTYPES[cfg.compute_dtype]
+    train_tf, eval_tf = make_transform_pipelines(cfg.task, cfg.in_width, cfg.in_height)
+    train_data = BCDDataset(cfg.file_root, "train", train_tf)
+    test_data = BCDDataset(cfg.file_root, "test", eval_tf)
+    train_loader = make_data_loader(
+        "threaded", train_data, cfg.batch_size, shuffle=True, seed=cfg.seed,
+        num_workers=cfg.num_workers, collate=pair_collate, drop_last=True,
+    )
+    test_loader = make_data_loader(
+        "threaded", test_data, cfg.batch_size, shuffle=False, num_workers=cfg.num_workers,
+        collate=pair_collate, pad_final=True,
+    )
+    max_batches = max(len(train_loader), 1)
+    max_epochs = cfg.max_epochs or int(np.ceil(cfg.max_steps / max_batches))
+
+    model = build_model(cfg)
+    if cfg.lr_mode == "poly":
+        schedule = poly_warmup_schedule(cfg.lr, max_batches * max_epochs, max_batches)
+    else:
+        schedule = step_schedule(cfg.lr, max_batches, cfg.step_loss)
+    opt = torch_adam(model.parameters(), weight_decay=cfg.weight_decay)
+
+    ckpt = CheckpointManager(save_path)
+    best_val = -1.0
+    start_epoch = resume_step = skip_batches = 0
+    if cfg.resume:
+        resume_step = ckpt.restore(model, opt)
+        start_epoch, skip_batches = divmod(resume_step, max_batches)
+        best_val = float(ckpt.load_meta().get("best_val", -1.0))
+        print(f"[resume] restored step {resume_step}", flush=True)
+    results: Dict[str, Any] = {"resumed_from_step": resume_step}
+
+    def evaluate() -> Dict[str, float]:
+        return _evaluate_split(model, test_loader, device, compute_dtype)
+
+    def validate(epoch: int) -> None:
+        nonlocal best_val
+        scores = evaluate()
+        logger.log_epoch(epoch, scores)
+        print(f"[epoch {epoch}] val {scores}", flush=True)
+        if scores[BEST_METRIC] >= best_val:
+            best_val = scores[BEST_METRIC]
+            ckpt.save_best(model)
+        ckpt.save_meta({"best_val": best_val})
+        results["last"] = scores
+
+    # A preemption on an epoch's last step: that epoch trained fully but
+    # was never validated (epoch 0 never is).
+    if (cfg.resume and resume_step > 0 and skip_batches == 0 and start_epoch - 1 >= 1
+            and int(ckpt.load_meta().get("preempted_at_step", -1)) == resume_step):
+        print(f"[resume] epoch {start_epoch - 1} completed right at the preemption point "
+              f"but was never evaluated — evaluating now", flush=True)
+        validate(start_epoch - 1)
+
+    host_step = resume_step
+    with PreemptionGuard() as guard:
+        for epoch in range(start_epoch, max_epochs):
+            train_loader.set_epoch(epoch)
+            t0 = time.time()
+            n_batches = len(train_loader)
+            if epoch == start_epoch and skip_batches:
+                print(f"[resume] epoch {epoch}: skipping {skip_batches} already-trained "
+                      f"batches (mid-epoch checkpoint)", flush=True)
+            batches = train_loader.iter_from(skip_batches if epoch == start_epoch else 0)
+            loss_sum, n_steps = None, 0
+            for i, batch in enumerate(device_prefetch(batches, device)):
+                metrics = train_step(model, opt, schedule, batch, host_step,
+                                     compute_dtype=compute_dtype)
+                loss_sum = metrics["loss"] if loss_sum is None else loss_sum + metrics["loss"]
+                n_steps += 1
+                host_step += 1
+                guard.tick(host_step)
+                if guard.triggered:
+                    break
+                if i % 50 == 0 and i:
+                    eta = (time.time() - t0) / (i + 1) * (n_batches - i - 1)
+                    print(f"  [epoch {epoch}] iter {i}/{n_batches} "
+                          f"loss {float(metrics['loss']):.4f} eta {eta:.0f}s", flush=True)
+            if guard.triggered:
+                ckpt.save(host_step, model, opt)
+                ckpt.save_meta({"best_val": best_val, "preempted_at_step": host_step})
+                print(f"[preempt] checkpoint saved at step {host_step}; exiting cleanly",
+                      flush=True)
+                results["preempted_at_step"] = host_step
+                return results
+            mean_loss = float(loss_sum) / n_steps if n_steps else float("nan")
+            print(f"[epoch {epoch}] train loss {mean_loss:.4f} ({time.time() - t0:.1f}s)",
+                  flush=True)
+            if epoch == 0:
+                continue  # the reference protocol: no validation after epoch 0
+            validate(epoch)
+            ckpt.save(host_step, model, opt)
+
+    results["steps"] = host_step
+    try:
+        ckpt.restore_best(model)
+    except FileNotFoundError as e:  # no epoch after 0 has validated
+        print(f"best-model evaluation skipped (no best checkpoint): {e}")
+        return results
+    results["test_best"] = evaluate()
+    logger.log_epoch(-1, results["test_best"], split="test_best")
+    return results

@@ -28,8 +28,25 @@ no result line):
    with fused_inference=False in turns; each fused kernel's time per stage
    shape from CUDA events (on operands first held against the plain
    version), its launches per forward, its bound, its blocks per SM and its
-   plain version's time; each repro kernel's time, bound, plain time and
-   library time (torch.mul(x, 2.0) for manual_dma).
+   plain version's time; each repro kernel's time, plain time and library
+   time (torch.mul(x, 2.0) for manual_dma) on the device timeline
+   (torch.profiler), with the CUDA-event times beside them, and its bound;
+6. train parity: one fp32 train step (TF32 off) of a reduced-depth model at
+   64², batch 2, on the card against the same step on the CPU (loss 1e-4
+   relative, each gradient tensor 1e-2 relative in the 2-norm, BN running
+   stats 1e-4);
+7. overfit: the full-width X3D-L BCD model, bf16, batch 16, 256², 10 Adam
+   steps at lr 2e-4 on one synthetic batch whose label is a function of the
+   pair; every loss finite and the last below the first;
+8. train times on that model: samples/s by host clock over 10 steps after 3
+   warm-up steps, device ms per step by CUDA events, peak memory, and
+   validation pairs/s through eval_step;
+9. train loop: ``python -m change3d_tpu_torch.cli bcd`` in process on a
+   synthetic LEVIR-layout dataset (32 train, 16 test pairs at 256², written
+   with data/png.py) for 2 epochs at batch 16 in bf16, with the fused launch
+   counts reset just before: 37 + 18 launches for each of its 2 validation
+   forwards (epoch 1 and the best-model re-evaluation), best/, the sidecar
+   and the epoch-1 log written; then ``--resume`` restores step 4.
 
 The last lines are the kernels JSON, the card line from nvidia-smi, and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
@@ -254,9 +271,28 @@ def phase_repros(rp, dev, seeds):
     return worst, launches
 
 
+def device_ms(fn, iters):
+    """Device time per call of ``fn`` on the device timeline: the summed
+    durations of the device events (kernels, copies) that torch.profiler
+    records over ``iters`` calls after a warm-up call. Unlike event_ms it
+    leaves out the host's launch gaps between calls."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not evs:
+        raise RuntimeError("the profiler trace holds no device events")
+    return sum(e.time_range.elapsed_us() for e in evs) / iters / 1e3
+
+
 def repro_rows(rp, dev, seed, card, iters=200):
-    """Time, bound, plain and library time of each repro kernel at the
-    repros' shapes."""
+    """Device time, bound, plain and library device time of each repro
+    kernel at the repros' shapes; the CUDA-event times of back-to-back
+    launches (bound by the host's launch rate) beside them as *_events."""
     x, w, xd = rp.repro_operands(seed, dev)
     r, c, n = x.shape[0], x.shape[1], w.shape[1]
     rows = []
@@ -269,11 +305,204 @@ def repro_rows(rp, dev, seed, card, iters=200):
         times = {"bytes": nbytes / HBM_BYTES_S, "operations": flops / FP32_FLOPS}
         by = max(times, key=times.get)
         rows.append({"kernel": kernel, "shape": list((x if kernel == "dot_1d" else xd).shape),
-                     "ms": event_ms(fn, iters), "plain_ms": event_ms(plain, iters),
-                     "library_ms": None if library is None else event_ms(library, iters),
+                     "ms": device_ms(fn, iters), "plain_ms": device_ms(plain, iters),
+                     "library_ms": None if library is None else device_ms(library, iters),
+                     "ms_events": event_ms(fn, iters), "plain_ms_events": event_ms(plain, iters),
+                     "library_ms_events": None if library is None else event_ms(library, iters),
                      "bound_ms": times[by] * 1e3, "bound_by": by})
         print(f"time {kernel} ({card}): {json.dumps(rows[-1])}", flush=True)
     return rows
+
+
+def synthetic_pairs(rs, b, hw):
+    """uint8 pairs whose change is three repainted squares per sample, and
+    the label as a function of the pair: the pixels where |pre - post|,
+    normalised and averaged over channels, exceeds 0.25."""
+    pre = rs.randint(0, 256, (b, hw, hw, 3)).astype(np.uint8)
+    post = pre.copy()
+    for i in range(b):
+        for _ in range(3):
+            s = hw // 8 + rs.randint(0, hw // 8)
+            y, x = rs.randint(0, hw - s, 2)
+            post[i, y:y + s, x:x + s] = rs.randint(0, 256, (s, s, 3))
+    diff = np.abs(pre.astype(np.float32) - post.astype(np.float32)) / 127.5
+    return pre, post, (diff.mean(-1) > 0.25)[..., None].astype(np.int32)
+
+
+def train_batch(rs, b, hw, dev):
+    from change3d_tpu_torch.data.transforms import eval_normalize
+
+    pre, post, label = synthetic_pairs(rs, b, hw)
+    return {"pre": torch.from_numpy(eval_normalize(pre)).to(dev),
+            "post": torch.from_numpy(eval_normalize(post)).to(dev),
+            "label": torch.from_numpy(label).to(dev)}
+
+
+# A reduced-depth backbone at full structure (stem, 3 stages with projection
+# and SE blocks) for the card-vs-CPU train-step parity.
+PARITY_TINY = dict(stem_dim_out=8, stage_dims=(8, 16, 24, 32), stage_inner_dims=(18, 36, 54, 72),
+                   stage_depths=(2, 3, 3, 2))
+
+
+def phase_train_parity(dev, seed):
+    """One fp32 train step (TF32 off) of the reduced-depth model at 64²,
+    batch 2, on the card and on the CPU from the same weights and batch.
+    Limits: loss 1e-4 relative; each gradient tensor within 1e-2 relative
+    in the 2-norm, ||d|| <= 1e-2 ||ref||; BN running stats |d| <= 1e-4
+    (1 + |ref|). The gradients are held normwise because single elements of
+    the BN-scale gradients come out of the cancellation sum(dy x) -
+    mean sum(dy), whose fp32 error on either device alone reaches 1e-3 of
+    the tensor's largest element."""
+    from change3d_tpu_torch.models.trainer import Change3D, Task
+    from change3d_tpu_torch.models.x3d import X3DConfig
+    from change3d_tpu_torch.train.engine import train_step
+    from change3d_tpu_torch.train.optim import torch_adam
+
+    cfg = X3DConfig(**PARITY_TINY)
+    batch = train_batch(np.random.RandomState(seed), 2, 64, "cpu")
+    ref = Change3D(Task.BCD, in_height=64, in_width=64, backbone_cfg=cfg, device="cpu", seed=seed)
+    out = {}
+    for where in ("cpu", "cuda"):
+        model = Change3D(Task.BCD, in_height=64, in_width=64, backbone_cfg=cfg,
+                         device=dev if where == "cuda" else "cpu", seed=seed)
+        model.load_state_dict(ref.state_dict())
+        opt = torch_adam(model.parameters(), weight_decay=1e-4)
+        m = train_step(model, opt, lambda _: 1e-3, {k: v.to(model.encoder.perception_frames.device)
+                                                  for k, v in batch.items()}, 0)
+        out[where] = (float(m["loss"]), {n: p.grad.cpu() for n, p in model.named_parameters()},
+                      {n: b.cpu() for n, b in model.named_buffers()})
+    (l_cpu, g_cpu, s_cpu), (l_gpu, g_gpu, s_gpu) = out["cpu"], out["cuda"]
+    loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    grad_rel, grad_worst = max((float((g_gpu[n] - r).norm() / r.norm()), n)
+                               for n, r in g_cpu.items() if float(r.norm()) > 0)
+    stats_used = max(float(((s_gpu[n] - r).abs() / (1e-4 * (1 + r.abs()))).max())
+                     for n, r in s_cpu.items())
+    stats = {"loss_cpu": l_cpu, "loss_cuda": l_gpu, "loss_rel_err": loss_rel,
+             "grad_rel_err_2norm": grad_rel, "grad_worst_tensor": grad_worst,
+             "grad_limit_used": grad_rel / 1e-2, "bn_stats_limit_used": stats_used,
+             "grad_tensors": len(g_cpu), "bn_buffers": len(s_cpu)}
+    print(f"train parity card vs cpu (fp32, 64², batch 2): {json.dumps(stats)}", flush=True)
+    if not (math.isfinite(l_gpu) and loss_rel <= 1e-4 and grad_rel <= 1e-2 and stats_used <= 1.0):
+        raise AssertionError(f"train step on the card disagrees with the CPU: {stats}")
+    return stats
+
+
+def phase_overfit(dev, seed, batch=16, steps=10):
+    """Full-width X3D-L BCD, bf16, 256²: ``steps`` Adam steps at constant lr
+    2e-4 on one fixed synthetic batch; every loss finite, the last below the
+    first."""
+    from change3d_tpu_torch.models.trainer import Change3D, Task
+    from change3d_tpu_torch.train.engine import train_step
+    from change3d_tpu_torch.train.optim import torch_adam
+
+    model = Change3D(Task.BCD, device=dev, seed=seed)
+    opt = torch_adam(model.parameters(), weight_decay=1e-4)
+    data = train_batch(np.random.RandomState(seed + 2), batch, 256, dev)
+    losses = [train_step(model, opt, lambda _: 2e-4, data, k, compute_dtype=torch.bfloat16)["loss"]
+              for k in range(steps)]
+    losses = [float(x) for x in losses]
+    print(f"overfit X3D-L bf16 256² batch {batch}, {steps} steps: losses {losses}", flush=True)
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"overfit losses {losses}")
+    return model, opt, data, losses
+
+
+def write_levir(root, rs, n_train, n_test, hw):
+    """A synthetic dataset in the LEVIR-CD layout, written with data/png.py."""
+    from change3d_tpu_torch.data.png import write_png
+
+    for split, n in (("train", n_train), ("test", n_test)):
+        for d in ("t1", "t2", "label"):
+            os.makedirs(os.path.join(root, split, d))
+        pre, post, label = synthetic_pairs(rs, n, hw)
+        for i in range(n):
+            write_png(os.path.join(root, split, "t1", f"{i:04d}.png"), pre[i])
+            write_png(os.path.join(root, split, "t2", f"{i:04d}.png"), post[i])
+            write_png(os.path.join(root, split, "label", f"{i:04d}.png"),
+                      (label[i, ..., 0] * 255).astype(np.uint8))
+
+
+def phase_train_loop(fb, seed, batch=16):
+    """``cli bcd`` in process on 32 train and 16 test pairs at 256², bf16,
+    two epochs: epoch 1's validation and the best-model re-evaluation are
+    one forward each, so 2 x (37 + 18) fused launches; then ``--resume``."""
+    import tempfile
+
+    from change3d_tpu_torch import cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root, save = os.path.join(tmp, "levir"), os.path.join(tmp, "exp")
+        write_levir(root, np.random.RandomState(seed + 3), 32, 16, 256)
+        argv = ["bcd", "--file_root", root, "--save_dir", save, "--batch_size", str(batch),
+                "--max_epochs", "2", "--compute_dtype", "bfloat16", "--num_workers", "4",
+                "--seed", str(seed)]
+        fb.fused_block_fwd.launches = 0
+        fb.fused_block_se_sums.launches = 0
+        t0 = time.perf_counter()
+        res = cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {"fused_block_fwd": fb.fused_block_fwd.launches,
+                    "fused_block_se_sums": fb.fused_block_se_sums.launches}
+        forwards = 2
+        want = {"fused_block_fwd": 37 * forwards, "fused_block_se_sums": 18 * forwards}
+        if launches != want:
+            raise AssertionError(f"train loop launches {launches}, want {want}")
+        (run_dir,) = [os.path.join(save, d) for d in os.listdir(save)]
+        for name in ("best/model.pt", "ckpt/train_meta.json", "train_val_log.jsonl"):
+            if not os.path.exists(os.path.join(run_dir, name)):
+                raise AssertionError(f"train loop wrote no {name}")
+        with open(os.path.join(run_dir, "train_val_log.jsonl")) as f:
+            rows = [json.loads(line) for line in f if line.strip()]
+        val = [r for r in rows if r.get("event") == "epoch" and r["split"] == "val"]
+        if [r["epoch"] for r in val] != [1] or not 0.0 <= val[0]["F1"] <= 1.0:
+            raise AssertionError(f"train loop validation log {val}")
+        if res.get("steps") != 4 or "test_best" not in res:
+            raise AssertionError(f"train loop result {res}")
+        resumed = cli.main(argv + ["--resume"])
+        if resumed["resumed_from_step"] != 4:
+            raise AssertionError(f"--resume restored step {resumed['resumed_from_step']}, want 4")
+    stats = {"seconds": seconds, "launches": launches, "validation_forwards": forwards,
+             "epoch1_val": val[0], "test_best": res["test_best"],
+             "resumed_from_step": resumed["resumed_from_step"]}
+    print(f"train loop (cli bcd, 2 epochs): {json.dumps(stats)}", flush=True)
+    return launches, stats
+
+
+def phase_train_times(model, opt, data, card, warmup=3, steps=10):
+    """Train samples/s (host clock, synchronised at the end), device ms per
+    step (CUDA events), peak memory of the steps, and validation pairs/s
+    through eval_step, all on one device-resident bf16 batch."""
+    from change3d_tpu_torch.train.engine import eval_step, train_step
+
+    batch = data["pre"].shape[0]
+    step = lambda: train_step(model, opt, lambda _: 2e-4, data, 0, compute_dtype=torch.bfloat16)
+    for _ in range(warmup):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = event_ms(step, 5)
+    val = lambda: eval_step(model, data, compute_dtype=torch.bfloat16)
+    for _ in range(2):
+        val()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        val()
+    torch.cuda.synchronize()
+    val_s = time.perf_counter() - t0
+    stats = {"batch": batch, "train_samples_per_s": steps * batch / host_s,
+             "train_device_ms_per_step": step_ms, "peak_memory_bytes": peak,
+             "peak_memory_gib": peak / 2 ** 30, "val_pairs_per_s": steps * batch / val_s,
+             "card": card}
+    print(f"train times X3D-L bf16 256² batch {batch} ({card}): {json.dumps(stats)}", flush=True)
+    return stats
 
 
 def pairs_per_s(pred, pairs, batch, rounds=3):
@@ -363,6 +592,11 @@ def main(argv=None) -> int:
     runs, fwd_ms, rows = phase_times(fb, worst, pred, plain_pred, pairs, args.batch, dev,
                                      args.seed, card)
     rows += repro_rows(rp, dev, args.seed, card)
+    train = {"parity": phase_train_parity(dev, args.seed)}
+    model, opt, data, train["overfit_losses"] = phase_overfit(dev, args.seed)
+    train["times"] = phase_train_times(model, opt, data, card)
+    del model, opt, data
+    loop_launches, train["loop"] = phase_train_loop(fb, args.seed)
     print(f"kernels vs plain versions, worst over every check: {json.dumps(worst)}", flush=True)
     for kind in ("fused", "plain"):
         print(f"bcd predict_u8 bf16 256^2 batch {args.batch} {kind} blocks: "
@@ -381,6 +615,7 @@ def main(argv=None) -> int:
             "name": kernel, "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": launches[kernel],
             "launches_per_forward": sum(r["launches_per_forward"] for r in mine),
+            "launches_train_loop": loop_launches[kernel],
             "max_abs_err": worst[kernel]["bfloat16"]["max_abs_err"],
             "limit_used": worst[kernel]["bfloat16"]["limit_used"],
             "max_abs_err_fp32": worst[kernel]["float32"]["max_abs_err"],
@@ -399,12 +634,14 @@ def main(argv=None) -> int:
             "limit_used": repro_worst[kernel]["limit_used"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "per": f"one launch at {row['shape']}",
+            "ms_events": row["ms_events"],
+            "per": f"one launch at {row['shape']}; ms, plain_ms and library_ms on the device "
+                   f"timeline (torch.profiler), ms_events by CUDA events around launches",
         })
 
     detail = {"card": card, "torch": torch.__version__, "batch": args.batch,
               "pairs_per_s": runs, "forward_ms": fwd_ms, "forward_check": stats,
-              "rows": rows, "kernels": kernels}
+              "rows": rows, "kernels": kernels, "train": train}
     if os.path.dirname(args.out):
         os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:

@@ -128,6 +128,51 @@ def test_tiny_bcd_model_fused_matches_plain_on_card(cuda):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
+def test_full_width_bf16_train_step_runs(cuda):
+    from change3d_tpu_torch.models.trainer import Change3D, Task
+    from change3d_tpu_torch.train.engine import train_step
+    from change3d_tpu_torch.train.optim import torch_adam
+
+    model = Change3D(Task.BCD, device=cuda, seed=0)
+    opt = torch_adam(model.parameters(), weight_decay=1e-4)
+    rs = np.random.RandomState(0)
+    batch = {"pre": torch.from_numpy(rs.randn(2, 256, 256, 3).astype(np.float32)).to(cuda),
+             "post": torch.from_numpy(rs.randn(2, 256, 256, 3).astype(np.float32)).to(cuda),
+             "label": torch.from_numpy((rs.rand(2, 256, 256, 1) > 0.8).astype(np.int32)).to(cuda)}
+    before = fb.fused_block_fwd.launches
+    m = train_step(model, opt, lambda _: 2e-4, batch, 0, compute_dtype=torch.bfloat16)
+    assert fb.fused_block_fwd.launches == before  # training runs the plain blocks
+    assert torch.isfinite(m["loss"]) and float(m["cm"].sum()) == 2 * 256 * 256
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters())
+
+
+def test_reduced_depth_fp32_train_step_matches_cpu(cuda):
+    from change3d_tpu_torch.models.trainer import Change3D, Task
+    from change3d_tpu_torch.models.x3d import X3DConfig
+    from change3d_tpu_torch.train.engine import train_step
+    from change3d_tpu_torch.train.optim import torch_adam
+
+    tiny = X3DConfig(stem_dim_out=8, stage_dims=(8, 16, 24, 32),
+                     stage_inner_dims=(18, 36, 54, 72), stage_depths=(2, 3, 3, 2))
+    rs = np.random.RandomState(1)
+    batch = {"pre": torch.from_numpy(rs.randn(2, 64, 64, 3).astype(np.float32)),
+             "post": torch.from_numpy(rs.randn(2, 64, 64, 3).astype(np.float32)),
+             "label": torch.from_numpy((rs.rand(2, 64, 64, 1) > 0.7).astype(np.int32))}
+    out = []
+    for dev in ("cpu", cuda):
+        model = Change3D(Task.BCD, in_height=64, in_width=64, backbone_cfg=tiny, device=dev,
+                         seed=3)
+        opt = torch_adam(model.parameters(), weight_decay=1e-4)
+        m = train_step(model, opt, lambda _: 1e-3, {k: v.to(dev) for k, v in batch.items()}, 0)
+        out.append((float(m["loss"]), {n: p.grad.cpu() for n, p in model.named_parameters()}))
+    (loss_cpu, g_cpu), (loss_gpu, g_gpu) = out
+    assert abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu)
+    # Normwise: single BN-scale gradient elements come out of a cancellation
+    # (sum(dy x) - mean sum(dy)) whose fp32 error is large on either device.
+    for n, want in g_cpu.items():
+        assert float((g_gpu[n] - want).norm()) <= 1e-2 * float(want.norm()), n
+
+
 @pytest.mark.parametrize("shape", ["ragged", "overhang", "stage4"])
 def test_bf16_se_sums_reruns_are_bit_identical(cuda, shape):
     b, t, h, w, c, ci, cr = SHAPES[shape]

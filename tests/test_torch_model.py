@@ -245,11 +245,19 @@ def test_other_tasks_name_their_slice(task):
 
 
 def test_eval_only_batch_norm_refuses_training_mode():
+    """BatchNorm is no longer eval-only: an eval forward leaves every running
+    statistic alone, a train forward moves them and gives every parameter a
+    gradient (the train-step parity is in tests/test_torch_train_step.py)."""
     model = Change3D(Task.BCD, in_height=16, in_width=16, backbone_cfg=X3DConfig(**TINY),
                      device="cpu")
-    x = torch.zeros(1, 16, 16, 3)
-    with pytest.raises(NotImplementedError, match="train"):
-        model.train()(x, x)
+    x = torch.randn(2, 16, 16, 3, generator=torch.Generator().manual_seed(0))
+    before = {n: b.clone() for n, b in model.named_buffers()}
+    with torch.no_grad():
+        model.eval()(x, -x)
+    assert all(torch.equal(b, before[n]) for n, b in model.named_buffers())
+    model.train()(x, -x)["change"].sum().backward()
+    assert all(not torch.equal(b, before[n]) for n, b in model.named_buffers())
+    assert all(p.grad is not None for p in model.parameters())
 
 
 def test_seeded_construction_is_deterministic():

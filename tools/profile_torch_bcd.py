@@ -1,18 +1,23 @@
 #!/usr/bin/env python3
-"""Device-time breakdown of change3d_tpu_torch's BCD serving forward on one
-NVIDIA GPU (torch.profiler with CUDA activity).
+"""Device-time breakdown of change3d_tpu_torch's BCD serving forward or
+train step on one NVIDIA GPU (torch.profiler with CUDA activity).
 
     python3 tools/profile_torch_bcd.py [--batch 8] [--iters 5] [--seed 0] [--plain]
+    python3 tools/profile_torch_bcd.py --train [--batch 16] [--iters 5]
 
-Builds the full-width X3D-L BCD Change3D from --seed, warms
+Builds the full-width X3D-L BCD Change3D from --seed. By default it warms
 ``Predictor.predict_u8_device`` up on random uint8 256^2 pairs already on the
-card, then profiles --iters forwards. Prints the device time per forward by
-kernel name, the share of the fused-block kernels, the device's busy share of
-the profiled window (the union of kernel intervals over the span from the
-first profiled event to the last kernel's end), and the card's name and power
-limit; writes the same to chiprun_out/profile_torch_bcd[_plain].json.
---plain profiles the model with fused_inference=False. Exits non-zero
-when there is no card or the trace holds no device time.
+card, then profiles --iters forwards; --plain profiles the model with
+fused_inference=False. With --train it warms up and then profiles --iters
+bf16 train steps (``train.engine.train_step``: forward in train mode,
+backward, Adam) on one synthetic 256^2 batch already on the card.
+
+Prints the device time per forward (or step) by kernel name and by kernel
+group, the share of the fused-block kernels, the device's busy share of the
+profiled window (the union of kernel intervals over the span from the first
+profiled event to the last kernel's end), and the card's name and power
+limit; writes the same to chiprun_out/profile_torch_bcd[_plain|_train].json.
+Exits non-zero when there is no card or the trace holds no device time.
 """
 
 from __future__ import annotations
@@ -28,6 +33,26 @@ import torch
 
 # Names of the fused-block kernels in csrc/fused_block.cu (bf16 and fp32).
 FUSED_KERNELS = ("fused_block_bf16_kernel", "fused_block_f32_kernel")
+# Kernel groups by name, first match wins.
+GROUPS = (
+    ("fused blocks (csrc/fused_block.cu)", ("fused_block",)),
+    ("cuDNN conv weight gradients", ("wgrad",)),
+    ("cuDNN conv data gradients", ("dgrad",)),
+    ("cuDNN layout conversions", ("nhwcToNchw", "nchwToNhwc")),
+    ("cuDNN generic convs", ("implicit_convolveNd",)),
+    ("GEMMs and tensor-core convs", ("xmma", "cutlass", "nvjet", "gemm", "sm90")),
+    ("other convs", ("conv",)),
+    ("reductions", ("reduce", "Reduce")),
+    ("elementwise", ("elementwise", "Elementwise")),
+    ("copies and fills", ("Memcpy", "Memset", "copy", "fill")),
+)
+
+
+def group_of(name: str) -> str:
+    for group, keys in GROUPS:
+        if any(k in name for k in keys):
+            return group
+    return "other"
 
 
 def busy_us(intervals):
@@ -45,11 +70,13 @@ def busy_us(intervals):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=None, help="8 (forward) or 16 (--train)")
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--plain", action="store_true", help="fused_inference=False")
+    ap.add_argument("--train", action="store_true", help="profile bf16 train steps")
     args = ap.parse_args(argv)
+    args.batch = args.batch or (16 if args.train else 8)
     if not torch.cuda.is_available():
         print("profile_torch_bcd: CUDA is not available", file=sys.stderr)
         return 2
@@ -58,6 +85,8 @@ def main(argv=None) -> int:
     from change3d_tpu_torch.inference import Predictor
     from change3d_tpu_torch.models.trainer import Change3D, Task
     from change3d_tpu_torch.models.x3d import x3d_l_config
+    from change3d_tpu_torch.train.engine import train_step
+    from change3d_tpu_torch.train.optim import torch_adam
 
     dev = resolve_device("cuda")
     card = subprocess.run(
@@ -65,19 +94,30 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[torch.cuda.current_device()]
     cfg = x3d_l_config(fused_inference=not args.plain)
-    pred = Predictor(Change3D(Task.BCD, backbone_cfg=cfg, device=dev, seed=args.seed),
-                     compute_dtype=torch.bfloat16, device=dev)
+    model = Change3D(Task.BCD, backbone_cfg=cfg, device=dev, seed=args.seed)
     rs = np.random.RandomState(args.seed)
-    pre, post = (torch.from_numpy(rs.randint(0, 256, (args.batch, 256, 256, 3)).astype(np.uint8))
-                 .to(dev) for _ in range(2))
+    if args.train:
+        opt = torch_adam(model.parameters(), weight_decay=1e-4)
+        batch = {k: torch.from_numpy(rs.randn(args.batch, 256, 256, 3).astype(np.float32)).to(dev)
+                 for k in ("pre", "post")}
+        batch["label"] = torch.from_numpy(
+            (rs.rand(args.batch, 256, 256, 1) > 0.8).astype(np.int32)).to(dev)
+        run = lambda: train_step(model, opt, lambda _: 2e-4, batch, 0,
+                                 compute_dtype=torch.bfloat16)
+    else:
+        pred = Predictor(model, compute_dtype=torch.bfloat16, device=dev)
+        pre, post = (torch.from_numpy(rs.randint(0, 256, (args.batch, 256, 256, 3))
+                                      .astype(np.uint8)).to(dev) for _ in range(2))
+        run = lambda: pred.predict_u8_device(pre, post)
     for _ in range(3):
-        pred.predict_u8_device(pre, post)
+        run()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(args.iters):
-            pred.predict_u8_device(pre, post)
+            run()
         torch.cuda.synchronize()
 
     events = prof.events()
@@ -98,16 +138,34 @@ def main(argv=None) -> int:
     rows = sorted(({"name": k, "ms_per_forward": v[0] / args.iters / 1e3,
                     "launches_per_forward": v[1] / args.iters} for k, v in by_name.items()),
                   key=lambda r: -r["ms_per_forward"])
-    summary = {"card": card, "fused_inference": not args.plain, "batch": args.batch,
-               "iters": args.iters,
+    # Summed kernel time can exceed the window where kernels overlap (cuDNN
+    # runs some convolution gradients on several streams), so each group
+    # also gets the union of its kernels' intervals: the time it occupies.
+    groups, spans = {}, {}
+    for r in rows:
+        g = groups.setdefault(group_of(r["name"]), {"ms_per_forward": 0.0, "launches": 0.0})
+        g["ms_per_forward"] += r["ms_per_forward"]
+        g["launches"] += r["launches_per_forward"]
+    for e in kernels:
+        spans.setdefault(group_of(e.name), []).append((e.time_range.start, e.time_range.end))
+    for g, v in groups.items():
+        v["busy_ms_per_forward"] = busy_us(spans[g]) / args.iters / 1e3
+    summary = {"card": card, "mode": "train" if args.train else "forward",
+               "fused_inference": not args.plain, "batch": args.batch, "iters": args.iters,
                "window_ms_per_forward": (end - start) / args.iters / 1e3,
                "kernel_ms_per_forward": device_ms, "fused_block_ms_per_forward": fused_ms,
-               "busy_share": busy / (end - start), "kernels": rows}
+               "busy_share": busy / (end - start),
+               "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+               "groups": dict(sorted(groups.items(), key=lambda kv: -kv[1]["ms_per_forward"])),
+               "kernels": rows}
     for r in rows[:25]:
         print(f"{r['ms_per_forward']:9.3f} ms {r['launches_per_forward']:6.1f}x  {r['name'][:110]}")
-    print(json.dumps({k: v for k, v in summary.items() if k != "kernels"}))
+    for g, v in summary["groups"].items():
+        print(f"{v['ms_per_forward']:9.3f} ms summed, {v['busy_ms_per_forward']:9.3f} ms busy "
+              f"{v['launches']:8.1f}x  [{g}]")
+    print(json.dumps({k: v for k, v in summary.items() if k not in ("kernels", "groups")}))
     os.makedirs("chiprun_out", exist_ok=True)
-    out = f"profile_torch_bcd{'_plain' if args.plain else ''}.json"
+    out = f"profile_torch_bcd{'_plain' if args.plain else ''}{'_train' if args.train else ''}.json"
     with open(os.path.join("chiprun_out", out), "w") as f:
         json.dump(summary, f, indent=1)
     return 0
