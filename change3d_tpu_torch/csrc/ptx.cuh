@@ -1,10 +1,30 @@
 // Small device helpers shared by the port's kernels (sm_90a): bf16 <-> fp32,
-// 16-byte cp.async, bf16 tensor-core mma.sync, mbarrier and bulk copies.
+// 16-byte cp.async, bf16 tensor-core mma.sync, mbarrier and bulk copies,
+// cluster barriers and distributed shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// Phase clocks. Built with -DC3D_PHASE_CLOCKS (tools/phase_clocks.py),
+// C3D_PHASE(i) has thread 0 of each of the first 8 blocks record its SM's
+// clock at mark i (< 16), and c3d_phase_clocks copies the [8][16] clocks to
+// the host; otherwise C3D_PHASE is nothing.
+#ifdef C3D_PHASE_CLOCKS
+__device__ long long c3d_phase_clock[8][16];
+#define C3D_PHASE(i)                                                                  \
+  do {                                                                                \
+    if (threadIdx.x == 0 && blockIdx.x < 8) c3d_phase_clock[blockIdx.x][i] = clock64(); \
+  } while (0)
+extern "C" int c3d_phase_clocks(long long* host) {
+  return (int)cudaMemcpyFromSymbol(host, c3d_phase_clock, sizeof(c3d_phase_clock));
+}
+#else
+#define C3D_PHASE(i) \
+  do {               \
+  } while (0)
+#endif
 
 namespace c3d {
 
@@ -97,6 +117,44 @@ __device__ __forceinline__ void bulk_copy_g2s(void* smem, const void* gmem, uint
           smem_addr(smem)),
       "l"(gmem), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+
+// Thread block clusters. The rank of this block in its cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The cluster barrier, split: arrive (release: this block's shared-memory
+// writes become visible to the cluster) and wait (acquire). Every thread of
+// every block in the cluster calls both.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+// An arrive that orders none of this thread's memory accesses for the
+// others: for a block that only signals it is done reading theirs.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// p, a variable in this block's shared memory, as the address of the same
+// variable in block `rank` of the cluster (distributed shared memory).
+__device__ __forceinline__ uint32_t cluster_map(const void* p, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
+  return a;
+}
+
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
 }
 
 }  // namespace c3d

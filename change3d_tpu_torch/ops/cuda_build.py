@@ -43,7 +43,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "repros": {
         "c3d_dot_1d": ([_VP] * 3 + [_I] * 3 + [_VP], _I),
-        "c3d_manual_dma": ([_VP] * 2 + [_I] * 3 + [_VP], _I),
+        # x, out, N, R, C, then manual_dma_plan's chunk, per_slab, per_block, grid
+        "c3d_manual_dma": ([_VP] * 2 + [_I] * 7 + [_VP], _I),
         "c3d_error_string": ([_I], ctypes.c_char_p),
     },
 }

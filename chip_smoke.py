@@ -21,7 +21,9 @@ no result line):
    on a whole batch and report the bf16 mask agreement;
 4. repros: hold the two repro kernels (ops/repros.py: dot_1d within two
    bf16 ulps, manual_dma exactly) against their plain versions at the
-   repros' shapes over KERNEL_SEEDS seeds, then drive their entry point
+   repros' shapes over KERNEL_SEEDS seeds and at REPRO_DOT_SHAPES and
+   REPRO_DMA_SHAPES, with REPRO_RERUNS bit-identical reruns of every
+   dot_1d check, then drive their entry point
    (``python -m change3d_tpu_torch.ops.repros``, in process) with their
    launch counts reset just before, and require a launch of each;
 5. times: bf16 pairs/s of predict_u8 at --batch, with the fused blocks and
@@ -30,7 +32,8 @@ no result line):
    version), its launches per forward, its bound, its blocks per SM and its
    plain version's time; each repro kernel's time, plain time and library
    time (torch.mul(x, 2.0) for manual_dma) on the device timeline
-   (torch.profiler), with the CUDA-event times beside them, and its bound;
+   (torch.profiler), their in-call ratios, the CUDA-event times beside
+   them, its bound, and nvidia-smi's clock and power before and after;
 6. train parity: one fp32 train step (TF32 off) of a reduced-depth model at
    64², batch 2, on the card against the same step on the CPU (loss 1e-4
    relative, each gradient tensor 1e-2 relative in the 2-norm, BN running
@@ -87,6 +90,13 @@ SOURCE = "change3d_tpu_torch/csrc/fused_block.cu"
 PALLAS = "change3d_tpu/ops/pallas/fused_block.py"
 REPRO_SOURCE = "change3d_tpu_torch/csrc/repros.cu"
 REPRO_PALLAS = "tests/manual_pallas_repros.py"
+# Phase 4's shapes beyond the repros' own. dot_1d (R, C, N): R ragged over
+# the cluster's 8 ranks, R < 8. manual_dma (N, R, C): one chunk per slab, a
+# ragged last chunk, a 1 MB slab, four and two chunks per block (the double
+# buffer, the second ragged).
+REPRO_DOT_SHAPES = ((1000, 40, 40), (5, 128, 128))
+REPRO_DMA_SHAPES = ((3, 16, 8), (5, 100, 36), (1, 512, 512), (16, 512, 512), (50, 300, 100))
+REPRO_RERUNS = 5
 
 
 def card_line() -> str:
@@ -241,24 +251,46 @@ def phase_forward(pkg, dev, batch, n_batches, seed):
 
 
 def phase_repros(rp, dev, seeds):
-    """The repro kernels against their plain versions, then their entry
-    point as a user runs it, counted."""
+    """The repro kernels against their plain versions at the repros' shapes
+    and at REPRO_DOT_SHAPES / REPRO_DMA_SHAPES, dot_1d reruns bit-identical,
+    then their entry point as a user runs it, counted."""
     worst = {"dot_1d": {"max_abs_err": 0.0, "limit_used": 0.0},
              "manual_dma": {"max_abs_err": 0.0, "limit_used": 0.0}}
-    for seed in seeds:
-        x, w, xd = rp.repro_operands(seed, dev)
+
+    def check_dot(x, w, what):
         got, want = rp.dot_1d(x, w), rp.dot_1d_reference(x, w)
         used = rp.bf16_ulps_used(got, want)
         err = float((got.float() - want.float()).abs().max())
-        if used > 1.0 or not bool(torch.isfinite(got.float()).all()):
-            raise AssertionError(f"dot_1d seed {seed}: max |d| {err}, {used:.3f} of two bf16 ulps")
+        if used > 1.0 or got.shape != want.shape or not bool(torch.isfinite(got.float()).all()):
+            raise AssertionError(f"dot_1d {what}: max |d| {err}, {used:.3f} of two bf16 ulps")
+        for k in range(REPRO_RERUNS):
+            if not torch.equal(rp.dot_1d(x, w), got):
+                raise AssertionError(f"dot_1d {what}: rerun {k + 1} is not bit-identical")
         w_ = worst["dot_1d"]
         w_["max_abs_err"], w_["limit_used"] = max(w_["max_abs_err"], err), max(w_["limit_used"], used)
-        got = rp.manual_dma(xd)
-        err = float((got - rp.manual_dma_reference(xd)).abs().max())
+
+    def check_dma(xd, what):
+        err = float((rp.manual_dma(xd) - rp.manual_dma_reference(xd)).abs().max())
         if err != 0.0:
-            raise AssertionError(f"manual_dma seed {seed}: max |d| {err}, must be exact")
-    print(f"repros vs plain versions: {json.dumps(worst)}", flush=True)
+            raise AssertionError(f"manual_dma {what}: max |d| {err}, must be exact")
+
+    for seed in seeds:
+        x, w, xd = rp.repro_operands(seed, dev)
+        check_dot(x, w, f"seed {seed}")
+        check_dma(xd, f"seed {seed}")
+    rs = np.random.RandomState(seeds[0])
+    bf16 = lambda *s: torch.from_numpy(rs.randn(*s).astype(np.float32)).to(torch.bfloat16).to(dev)
+    for r, c, n in REPRO_DOT_SHAPES:
+        check_dot(bf16(r, c), bf16(c, n), f"[{r},{c}]x[{c},{n}]")
+    for shape in REPRO_DMA_SHAPES:
+        check_dma(torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(dev), f"{list(shape)}")
+    torch.cuda.synchronize()
+    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    plans = {"x".join(map(str, s)): rp.manual_dma_plan(*s, sms)._asdict()
+             for s in (rp.MANUAL_DMA_SHAPE,) + REPRO_DMA_SHAPES}
+    print(f"repros vs plain versions (also dot_1d at {list(REPRO_DOT_SHAPES)}, {REPRO_RERUNS} "
+          f"bit-identical reruns each; manual_dma plans {json.dumps(plans)}): "
+          f"{json.dumps(worst)}", flush=True)
 
     rp.dot_1d.launches = 0
     rp.manual_dma.launches = 0
@@ -289,12 +321,25 @@ def device_ms(fn, iters):
     return sum(e.time_range.elapsed_us() for e in evs) / iters / 1e3
 
 
+def smi_sample() -> str:
+    """The card's SM clock, power draw and power limit, as nvidia-smi reads them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    return out[torch.cuda.current_device()] if out else "unknown"
+
+
 def repro_rows(rp, dev, seed, card, iters=200):
     """Device time, bound, plain and library device time of each repro
-    kernel at the repros' shapes; the CUDA-event times of back-to-back
-    launches (bound by the host's launch rate) beside them as *_events."""
+    kernel at the repros' shapes, and the in-call ratios plain_ms / ms and
+    library_ms / ms; the CUDA-event times of back-to-back launches (bound by
+    the host's launch rate) beside them as *_events; the card's clock and
+    power sampled before and after. Over the 200 launches the operands stay
+    in L2 for the kernel, its plain version and the library call alike."""
     x, w, xd = rp.repro_operands(seed, dev)
     r, c, n = x.shape[0], x.shape[1], w.shape[1]
+    smi_before = smi_sample()
     rows = []
     for kernel, fn, plain, library, nbytes, flops in (
         ("dot_1d", lambda: rp.dot_1d(x, w), lambda: rp.dot_1d_reference(x, w), None,
@@ -310,7 +355,14 @@ def repro_rows(rp, dev, seed, card, iters=200):
                      "ms_events": event_ms(fn, iters), "plain_ms_events": event_ms(plain, iters),
                      "library_ms_events": None if library is None else event_ms(library, iters),
                      "bound_ms": times[by] * 1e3, "bound_by": by})
-        print(f"time {kernel} ({card}): {json.dumps(rows[-1])}", flush=True)
+        row = rows[-1]
+        row["plain_over_ms"] = row["plain_ms"] / row["ms"]
+        row["library_over_ms"] = None if library is None else row["library_ms"] / row["ms"]
+        print(f"time {kernel} ({card}): {json.dumps(row)}", flush=True)
+    smi = {"clocks_sm,power_draw,power_limit": {"before": smi_before, "after": smi_sample()}}
+    print(f"repro timings nvidia-smi: {json.dumps(smi)}", flush=True)
+    for row in rows:
+        row["nvidia_smi"] = smi
     return rows
 
 
@@ -634,7 +686,8 @@ def main(argv=None) -> int:
             "limit_used": repro_worst[kernel]["limit_used"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "ms_events": row["ms_events"],
+            "ms_events": row["ms_events"], "plain_over_ms": row["plain_over_ms"],
+            "library_over_ms": row["library_over_ms"],
             "per": f"one launch at {row['shape']}; ms, plain_ms and library_ms on the device "
                    f"timeline (torch.profiler), ms_events by CUDA events around launches",
         })

@@ -207,8 +207,47 @@ def test_repro_wrappers_reject_what_the_kernels_do_not_take(cuda):
         repros.dot_1d(x.float(), w)
     with pytest.raises(ValueError, match="N % 8"):
         repros.dot_1d(x, w[:, :12])
+    with pytest.raises(ValueError, match="C % 8"):
+        repros.dot_1d(x[:, :12], w[:12])
     with pytest.raises(TypeError, match="float32"):
         repros.manual_dma(xd.to(torch.bfloat16))
-    with pytest.raises(ValueError, match="slab"):
-        repros.manual_dma(torch.zeros(1, 512, 512, device=cuda))
+    with pytest.raises(ValueError, match=r"R\*C % 4"):
+        repros.manual_dma(torch.zeros(1, 3, 3, device=cuda))
+
+
+# N, R, C: chunks of 2 KB (repro), one chunk per slab (small), a ragged last
+# chunk (3600 floats in chunks of 512), a 1 MB slab, four and two chunks per
+# block (double buffers; the second ragged), one 16-byte slab per chunk.
+DMA_SHAPES = [(4, 128, 128), (3, 16, 8), (5, 100, 36), (1, 512, 512), (16, 512, 512),
+              (50, 300, 100), (1000, 1, 4)]
+
+
+@pytest.mark.parametrize("shape", DMA_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_manual_dma_is_exact_at_every_plan(cuda, shape):
+    x = torch.from_numpy(np.random.RandomState(7).randn(*shape).astype(np.float32)).to(cuda)
+    before = repros.manual_dma.launches
+    got = repros.manual_dma(x)
+    torch.cuda.synchronize()
+    assert repros.manual_dma.launches == before + 1
+    assert torch.equal(got, 2 * x)
+
+
+# R, C, N: the repro, R ragged over the 8 ranks, R < 8 (ranks without rows).
+DOT_SHAPES = [(256, 128, 128), (1000, 40, 40), (5, 128, 128)]
+
+
+@pytest.mark.parametrize("shape", DOT_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_dot_1d_cluster_matches_plain_version_and_reruns_bit_identical(cuda, shape):
+    r, c, n = shape
+    rs = np.random.RandomState(8)
+    x = torch.from_numpy(rs.randn(r, c).astype(np.float32)).to(torch.bfloat16).to(cuda)
+    w = torch.from_numpy(rs.randn(c, n).astype(np.float32)).to(torch.bfloat16).to(cuda)
+    before = repros.dot_1d.launches
+    first = repros.dot_1d(x, w)
+    torch.cuda.synchronize()
+    assert repros.dot_1d.launches == before + 1
+    assert first.shape == (r, n) and torch.equal(first, first[:1].expand_as(first))
+    assert repros.bf16_ulps_used(first, repros.dot_1d_reference(x, w)) <= 1.0
+    for _ in range(5):  # fixed-order sums: no atomics
+        assert torch.equal(repros.dot_1d(x, w), first)
 
