@@ -7,10 +7,10 @@ PyTorch's layouts (OIDHW / OIHW convs, (I, O, kh, kw) transposed convs)
 except 1x1x1 convs and SE/FC weights, which stay [in, out] matrices so they
 are plain matmuls.
 
-Covered so far: the BCD serving forward (``inference.Predictor``), with the
-fused X3D bottleneck block as a hand-written CUDA kernel
-(``csrc/fused_block.cu`` via ``ops.fused_block``), the two Pallas repro
-kernels (``ops.repros``), and BCD training (``train.engine``,
-``train.loop``, ``python -m change3d_tpu_torch.cli bcd``), which validates
-through the fused kernel.
+Covered so far: the serving forward of the three detection tasks, BCD, SCD
+and BDA (``inference.Predictor``), with the fused X3D bottleneck block as a
+hand-written CUDA kernel (``csrc/fused_block.cu`` via ``ops.fused_block``),
+the two Pallas repro kernels (``ops.repros``), and their training
+(``train.engine``, ``train.loop``, ``python -m change3d_tpu_torch.cli
+{bcd,scd,bda}``), which validates through the fused kernel.
 """

@@ -1,13 +1,16 @@
-"""Command-line entry point (counterpart of ``change3d_tpu/cli.py``). This
-slice has the ``bcd`` subcommand:
+"""Command-line entry point (counterpart of ``change3d_tpu/cli.py``) with
+the three detection subcommands:
 
-  python -m change3d_tpu_torch.cli bcd --file_root DATA --save_dir EXP
+  python -m change3d_tpu_torch.cli bcd --file_root DATA --save_dir EXP  # LEVIR-CD, batch 16
+  python -m change3d_tpu_torch.cli scd --file_root DATA --save_dir EXP  # SECOND, 6 classes, batch 8
+  python -m change3d_tpu_torch.cli bda --file_root DATA --save_dir EXP  # xBD, 5 classes, batch 12
 
-trains the full-width X3D-L BCD model on the card (``--device cuda``, the
-default; ``--device cpu`` runs the plain PyTorch versions on the host) in
-bf16 by default, validates from epoch 1 on through the fused CUDA blocks,
-checkpoints, and resumes with ``--resume``. Flags of the JAX CLI that are
-not ported yet are refused with the reason.
+Each trains the full-width X3D-L model of its task on the card
+(``--device cuda``, the default; ``--device cpu`` runs the plain PyTorch
+versions on the host) in bf16 by default, validates from epoch 1 on through
+the fused CUDA blocks, checkpoints, and resumes with ``--resume``. The
+defaults are the JAX CLI's. Flags of the JAX CLI that are not ported yet are
+refused with the reason.
 """
 
 from __future__ import annotations
@@ -32,6 +35,14 @@ _NOT_PORTED = {
     "--platform": "use --device {cuda,cpu}",
     "--num_class": "BCD has one sigmoid output",
 }
+# task -> (dataset, --num_class or None where refused, batch size, max steps)
+_TASKS = {
+    "bcd": ("LEVIR-CD", None, 16, 80_000),
+    "scd": ("SECOND", 6, 8, 80_000),
+    "bda": ("xBD", 5, 12, 200_000),
+}
+_HELP = {"bcd": "binary change detection", "scd": "semantic change detection",
+         "bda": "building damage assessment"}
 
 
 class _NotPorted(argparse.Action):
@@ -46,26 +57,31 @@ class _NotPorted(argparse.Action):
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser("change3d_tpu_torch")
     sub = parser.add_subparsers(dest="task", required=True)
-    bcd = sub.add_parser("bcd", help="binary change detection")
-    bcd.add_argument("--file_root", required=True, help="dataset root directory")
-    bcd.add_argument("--dataset", default="LEVIR-CD", help="names the run directory")
-    bcd.add_argument("--in_height", type=int, default=256)
-    bcd.add_argument("--in_width", type=int, default=256)
-    bcd.add_argument("--batch_size", type=int, default=16)
-    bcd.add_argument("--num_workers", type=int, default=4)
-    bcd.add_argument("--lr", type=float, default=2e-4)
-    bcd.add_argument("--lr_mode", default="poly", choices=["poly", "step"])
-    bcd.add_argument("--step_loss", type=int, default=100)
-    bcd.add_argument("--save_dir", default="./exp")
-    bcd.add_argument("--resume", action="store_true")
-    bcd.add_argument("--seed", type=int, default=16)
-    bcd.add_argument("--max_epochs", type=int, default=None)
-    bcd.add_argument("--max_steps", type=int, default=80_000)
-    bcd.add_argument("--compute_dtype", default="bfloat16", choices=["float32", "bfloat16"])
-    bcd.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                     help="cuda (default; raises without a card) or cpu")
-    for flag in _NOT_PORTED:
-        bcd.add_argument(flag, action=_NotPorted, help=argparse.SUPPRESS)
+    for task, (dataset, num_class, batch_size, max_steps) in _TASKS.items():
+        p = sub.add_parser(task, help=_HELP[task])
+        p.add_argument("--file_root", required=True, help="dataset root directory")
+        p.add_argument("--dataset", default=dataset, help="names the run directory")
+        p.add_argument("--in_height", type=int, default=256)
+        p.add_argument("--in_width", type=int, default=256)
+        p.add_argument("--batch_size", type=int, default=batch_size)
+        p.add_argument("--num_workers", type=int, default=4)
+        p.add_argument("--lr", type=float, default=2e-4)
+        p.add_argument("--lr_mode", default="poly", choices=["poly", "step"])
+        p.add_argument("--step_loss", type=int, default=100)
+        p.add_argument("--save_dir", default="./exp")
+        p.add_argument("--resume", action="store_true")
+        p.add_argument("--seed", type=int, default=16)
+        p.add_argument("--max_epochs", type=int, default=None)
+        p.add_argument("--max_steps", type=int, default=max_steps)
+        p.add_argument("--compute_dtype", default="bfloat16", choices=["float32", "bfloat16"])
+        p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                       help="cuda (default; raises without a card) or cpu")
+        if num_class is not None:
+            p.add_argument("--num_class", dest="num_classes", type=int, default=num_class,
+                           help="semantic classes of the class heads")
+        for flag in _NOT_PORTED:
+            if not (flag == "--num_class" and num_class is not None):
+                p.add_argument(flag, action=_NotPorted, help=argparse.SUPPRESS)
     return parser
 
 

@@ -1,15 +1,22 @@
-"""BCD dataset reader (counterpart of ``change3d_tpu/data/datasets.py:BCDDataset``).
+"""Detection dataset readers (counterpart of ``change3d_tpu/data/datasets.py``),
+read through ``data/png.py``; every file is checked up front.
 
-Layout ``{root}/{split}/{t1,t2,label}/<name>`` (LEVIR-CD / WHU-CD / CLCD),
-images in RGB order, masks gray, read through ``data/png.py``. Every file is
-checked up front. SCD/BDA/CC readers arrive with their slices.
+  BCD  {root}/{split}/{t1,t2,label}/<name>            (LEVIR-CD / WHU-CD / CLCD)
+  SCD  {root}/{split}/{t1,t2,label1,label2,change}/<name>           (SECOND)
+  BDA  {root}/{split}/{t1,t2,label1,label2}; the label files' names rewrite
+       'disaster' to 'disaster_target'                                 (xBD)
+
+Images come in RGB order, except BDA's, which the JAX package reads in BGR
+(as the reference reads xBD with cv2 and trains on BGR). Labels are gray:
+BCD one mask [H, W], SCD [label1, label2, change], BDA [loc, cls]. The CC
+reader arrives with its slice.
 """
 
 from __future__ import annotations
 
 import os
 from os.path import join as osp
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 
@@ -17,16 +24,21 @@ from change3d_tpu_torch.data.png import imread_gray, imread_rgb
 from change3d_tpu_torch.data.transforms import TransformPipeline
 
 
-class BCDDataset:
-    def __init__(self, file_root: str, split: str, transform: Optional[TransformPipeline] = None):
+class _PairDataset:
+    """Pairs from ``t1``/``t2`` and one or more label directories."""
+
+    bgr = False
+
+    def __init__(self, file_root: str, split: str, transform: Optional[TransformPipeline],
+                 names: List[str], label_dirs: List[str], label_name=lambda f: f):
         if not os.path.exists(file_root):
             raise FileNotFoundError(file_root)
-        files = sorted(os.listdir(osp(file_root, split, "label")))
-        self.pre_images = [osp(file_root, split, "t1", f) for f in files]
-        self.post_images = [osp(file_root, split, "t2", f) for f in files]
-        self.labels = [osp(file_root, split, "label", f) for f in files]
+        self.pre_images = [osp(file_root, split, "t1", f) for f in names]
+        self.post_images = [osp(file_root, split, "t2", f) for f in names]
+        self.label_paths = [[osp(file_root, split, d, label_name(f)) for f in names]
+                            for d in label_dirs]
         self.transform = transform
-        for paths in (self.pre_images, self.post_images, self.labels):
+        for paths in [self.pre_images, self.post_images] + self.label_paths:
             for p in paths:
                 if not os.path.exists(p):
                     raise FileNotFoundError(p)
@@ -34,10 +46,45 @@ class BCDDataset:
     def __len__(self) -> int:
         return len(self.pre_images)
 
+    def _image(self, path: str) -> np.ndarray:
+        img = imread_rgb(path)
+        return np.ascontiguousarray(img[..., ::-1]) if self.bgr else img
+
     def __getitem__(self, idx: int, rng: Optional[np.random.Generator] = None):
-        img = np.concatenate([imread_rgb(self.pre_images[idx]),
-                              imread_rgb(self.post_images[idx])], axis=2)
-        label = imread_gray(self.labels[idx])
+        img = np.concatenate([self._image(self.pre_images[idx]),
+                              self._image(self.post_images[idx])], axis=2)
+        labels = [imread_gray(paths[idx]) for paths in self.label_paths]
+        label = labels[0] if len(labels) == 1 else np.stack(labels, axis=-1)
         if self.transform is not None:
             return self.transform(img, label, rng)
         return img, label
+
+
+class BCDDataset(_PairDataset):
+    """Binary change detection: one mask per pair."""
+
+    def __init__(self, file_root: str, split: str, transform: Optional[TransformPipeline] = None):
+        names = sorted(os.listdir(osp(file_root, split, "label")))
+        super().__init__(file_root, split, transform, names, ["label"])
+
+
+class SCDDataset(_PairDataset):
+    """Semantic change detection: label channels [label1, label2, change]."""
+
+    def __init__(self, file_root: str, split: str, transform: Optional[TransformPipeline] = None):
+        names = sorted(os.listdir(osp(file_root, split, "label1")))
+        super().__init__(file_root, split, transform, names, ["label1", "label2", "change"])
+
+
+class BDADataset(_PairDataset):
+    """Building damage assessment: label channels [loc, cls], images BGR."""
+
+    bgr = True
+
+    def __init__(self, file_root: str, split: str, transform: Optional[TransformPipeline] = None):
+        names = sorted(os.listdir(osp(file_root, split, "t1")))
+        super().__init__(file_root, split, transform, names, ["label1", "label2"],
+                         label_name=lambda f: f.replace("disaster", "disaster_target"))
+
+
+DATASETS = {"bcd": BCDDataset, "scd": SCDDataset, "bda": BDADataset}

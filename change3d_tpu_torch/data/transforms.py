@@ -1,18 +1,23 @@
-"""Host-side BCD augmentation (counterpart of
+"""Host-side detection augmentation (counterpart of
 ``change3d_tpu/data/transforms.py``), channel-last numpy in and out.
 
 normalize(/255, mean .5, std .5) -> resize to (W, H) -> random crop-resize
 (crop_area = int(7/224*W), p=.5) -> random vertical and horizontal flips
-(p=.5 each) -> random pre/post exchange (p=.5); the BCD mask is binarised
-with ceil(label/255). The draws come from the caller's
-``np.random.Generator`` in the JAX pipeline's order, so the same generator
-gives the same sample.
+(p=.5 each) -> random pre/post exchange (p=.5). The labels by task:
+
+- BCD binarises its mask with ceil(label/255);
+- SCD ([label1, label2, change]) swaps label1 and label2 on an exchange and
+  keeps change;
+- BDA ([loc, cls]) leaves its labels alone on an exchange.
+
+The draws come from the caller's ``np.random.Generator`` in the JAX
+pipeline's order, so the same generator gives the same sample.
 
 The resizes run through ``torch.nn.functional.interpolate`` on the CPU:
 ``bilinear`` with ``align_corners=False`` for images and ``nearest`` for
 labels follow cv2's INTER_LINEAR (half-pixel centres, edge clamp, no
-antialiasing) and INTER_NEAREST (floor(dst * src/dst)) sampling rules.
-SCD/BDA label handling arrives with their slice.
+antialiasing) and INTER_NEAREST (floor(dst * src/dst)) sampling rules;
+multi-channel labels resize channel by channel with ``nearest``.
 """
 
 from __future__ import annotations
@@ -42,10 +47,13 @@ def resize(img: np.ndarray, width: int, height: int, *, nearest: bool = False) -
     return out.contiguous().numpy()
 
 
+TASKS = ("bcd", "scd", "bda")
+
+
 @dataclass
 class TransformPipeline:
-    """The BCD augmentation pipeline; ``train=False`` only normalises and
-    resizes."""
+    """The augmentation pipeline of one detection task (``TASKS``);
+    ``train=False`` only normalises and resizes."""
 
     width: int = 256
     height: int = 256
@@ -55,18 +63,20 @@ class TransformPipeline:
     std: float = 0.5
 
     def __post_init__(self):
-        if self.task != "bcd":
-            raise NotImplementedError(f"{self.task} transforms arrive with the SCD/BDA slice")
+        if self.task not in TASKS:
+            raise ValueError(f"task {self.task!r}: one of {TASKS}")
         self.crop_area = int(7.0 / 224.0 * self.width)
 
     def __call__(self, image: np.ndarray, label: np.ndarray,
                  rng: Optional[np.random.Generator] = None) -> Tuple[np.ndarray, np.ndarray]:
-        """image: [H, W, 6] uint8 (pre|post); label: [H, W] uint8.
+        """image: [H, W, 6] uint8 (pre|post); label: [H, W] (BCD) or
+        [H, W, C] (SCD: 3, BDA: 2) integers.
 
-        Returns (image float32 [H, W, 6], label int32 [H, W, 1])."""
+        Returns (image float32 [H, W, 6], label int32 [H, W, C'])."""
         rng = rng or np.random.default_rng()
         image = image.astype(np.float32) / 255.0
-        label = np.ceil(label.astype(np.float32) / 255.0)
+        if self.task == "bcd":
+            label = np.ceil(label.astype(np.float32) / 255.0)
         image = (image - self.mean) / self.std
         label = label.astype(np.float32)
 
@@ -89,13 +99,15 @@ class TransformPipeline:
                 label = label[:, ::-1].copy()
             if rng.random() < 0.5:
                 image = np.concatenate([image[:, :, 3:6], image[:, :, 0:3]], axis=2)
+                if self.task == "scd":
+                    label = label[..., [1, 0, 2]]
 
         if label.ndim == 2:
             label = label[..., None]
         return image.astype(np.float32), label.astype(np.int32)
 
 
-def make_transform_pipelines(task: str = "bcd", width: int = 256,
+def make_transform_pipelines(task: str, width: int = 256,
                              height: int = 256) -> Tuple[TransformPipeline, TransformPipeline]:
     """(train, eval) pipelines."""
     return (TransformPipeline(width, height, task, train=True),

@@ -3,7 +3,9 @@
 ``Predictor`` wraps a Change3D module on one device: numpy images in, numpy
 masks out. Eval-mode BN runs from running statistics, so results do not
 depend on the batch. ``predict_u8`` keeps the whole pipeline on the device:
-uint8 pixels up, hardened (and bitpacked) masks down.
+uint8 pixels up, hardened (and bitpacked) masks down. The heads by task
+(``models/trainer.py``): BCD 'change'; SCD 'pre', 'post' (classes) and
+'change'; BDA 'cls' (classes) and 'loc'.
 """
 
 from __future__ import annotations
@@ -53,7 +55,9 @@ class Predictor:
         return self.model(pre.to(self.compute_dtype), post.to(self.compute_dtype))
 
     def predict_probs(self, pre: np.ndarray, post: np.ndarray) -> Dict[str, np.ndarray]:
-        """Soft maps: binary heads as sigmoid probabilities [B,H,W,1]."""
+        """Soft maps: binary heads ('change', 'loc') as sigmoid
+        probabilities [B,H,W,1], class heads ('pre', 'post', 'cls') as
+        softmax probabilities [B,H,W,C]."""
         return postprocess_probs(self._forward(self._put(pre), self._put(post)))
 
     @staticmethod
@@ -71,14 +75,17 @@ class Predictor:
         return result
 
     def predict(self, pre: np.ndarray, post: np.ndarray) -> Dict[str, np.ndarray]:
-        """pre/post: [B,H,W,3] normalized float images. BCD: {'change': bool mask}."""
+        """pre/post: [B,H,W,3] normalized float images. Returns per-task
+        masks: BCD {'change': bool}; SCD {'pre', 'post': class ids,
+        'change': bool}; BDA {'cls': class ids, 'loc': bool}."""
         return self.harden(self.predict_probs(pre, post))
 
     @torch.inference_mode()
     def predict_u8_device(self, pre: torch.Tensor, post: torch.Tensor) -> Dict[str, torch.Tensor]:
         """uint8 [B,H,W,3] device tensors -> hardened masks on the device.
-        Binary masks come back bitpacked (uint8, 8 pixels per byte,
-        np.unpackbits order) when the width is a multiple of 8."""
+        Class maps come back as uint8 argmax ids; binary masks bitpacked
+        (uint8, 8 pixels per byte, np.unpackbits order) when the width is a
+        multiple of 8."""
 
         def norm(a):
             # fp32 first with eval_normalize's op sequence, then the cast: the
@@ -103,7 +110,8 @@ class Predictor:
 
     def predict_u8(self, pre: np.ndarray, post: np.ndarray) -> Dict[str, np.ndarray]:
         """Raw [B,H,W,3] uint8 in, hardened masks out (the same decisions as
-        :meth:`predict` on eval-normalized floats)."""
+        :meth:`predict` on eval-normalized floats): bool binary masks and
+        uint8 class ids, keyed as in :meth:`predict`."""
         out = self.predict_u8_device(self._put(pre), self._put(post))
         w = pre.shape[2]
         fetched = {}

@@ -1,11 +1,20 @@
-"""BCD train and eval steps (counterpart of ``change3d_tpu/train/engine.py``).
+"""Detection train and eval steps (counterpart of
+``change3d_tpu/train/engine.py``) for BCD, SCD and BDA.
 
 ``train_step`` runs the forward in ``train()`` mode (batch-statistics BN,
-every block on plain ops, as JAX trains), the BCEDice loss in fp32,
+every block on plain ops, as JAX trains), the task's loss in fp32,
 backward and the torch-Adam step at ``schedule(step)``. ``eval_step`` runs
 the model in ``eval()`` mode under ``torch.no_grad()``, so the fused CUDA
-blocks carry the backbone on the card. Both return the loss and the 2x2
-confusion matrix as device tensors: nothing syncs with the host per step.
+blocks carry the backbone on the card. Both return the loss and the task's
+metrics as device tensors, so nothing syncs with the host per step:
+
+  BCD: {'cm'}                              2x2 [gt, pred]
+  SCD: {'cm', 'acc_correct', 'acc_total'}  KxK [pred, label] over pre and post
+  BDA: {'loc_cm', 'cls_cm'}                2x2 and KxK [gt, pred]
+
+The losses are JAX's: BCD BCEDice; SCD 0.5 (CE_pre + CE_post) + BCEDice
+(change) + change similarity, CE ignoring class 0 over changed pixels;
+BDA CE(loc * cls, ignore 0) + BCEDice(loc).
 
 With ``compute_dtype`` the images enter the model in that dtype; the
 parameters stay fp32 and each op casts them to the activation dtype, BN
@@ -14,18 +23,25 @@ statistics stay fp32.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from change3d_tpu_torch.metrics.confusion import confusion_matrix
-from change3d_tpu_torch.train.losses import bce_dice_loss
+from change3d_tpu_torch.models.trainer import Task
+from change3d_tpu_torch.train.losses import (
+    bce_dice_loss,
+    change_similarity_loss,
+    cross_entropy_2d,
+)
 from change3d_tpu_torch.train.optim import set_lr
+
+Metrics = Dict[str, torch.Tensor]
 
 
 def _valid_gt(batch: Dict[str, torch.Tensor], gt: torch.Tensor) -> torch.Tensor:
     """gt -> -1 on padded samples (``valid`` false), which the confusion
-    matrix ignores."""
+    matrix ignores in its first argument."""
     valid = batch.get("valid")
     if valid is None:
         return gt
@@ -40,34 +56,79 @@ def _forward(model, batch, compute_dtype):
     return model(pre, post)
 
 
-def _bcd_loss_metrics(outputs, batch):
+def _bcd_loss_metrics(outputs, batch) -> Tuple[torch.Tensor, Metrics]:
     probs = outputs["change"]
     loss = bce_dice_loss(probs, batch["label"].float())
     with torch.no_grad():
         pred = (probs > 0.5).long()
         cm = confusion_matrix(_valid_gt(batch, batch["label"]), pred, 2)
-    return loss, cm
+    return loss, {"cm": cm}
+
+
+def _scd_loss_metrics(outputs, batch) -> Tuple[torch.Tensor, Metrics]:
+    label = batch["label"].long()  # [B,H,W,3]: (label1, label2, change)
+    change = label[..., 2]
+    pre_label, post_label = label[..., 0] * change, label[..., 1] * change
+    seg = (cross_entropy_2d(outputs["pre"], pre_label, ignore_index=0)
+           + cross_entropy_2d(outputs["post"], post_label, ignore_index=0))
+    binary = bce_dice_loss(outputs["change"], change[..., None].float())
+    sim = change_similarity_loss(outputs["pre"][..., 1:], outputs["post"][..., 1:], change)
+    loss = 0.5 * seg + binary + sim
+    with torch.no_grad():
+        k = outputs["pre"].shape[-1]
+        change_pred = (outputs["change"][..., 0] > 0.5).long()
+        pre_pred = torch.argmax(outputs["pre"], dim=-1) * change_pred
+        post_pred = torch.argmax(outputs["post"], dim=-1) * change_pred
+        # hist[pred, label]: padded samples go out through pred = -1.
+        pre_pr, post_pr = _valid_gt(batch, pre_pred), _valid_gt(batch, post_pred)
+        cm = confusion_matrix(pre_pr, pre_label, k) + confusion_matrix(post_pr, post_label, k)
+        valid_px = pre_pr >= 0
+        correct = (((pre_pred == pre_label) & valid_px).sum()
+                   + ((post_pred == post_label) & valid_px).sum())
+        total = 2 * valid_px.sum()
+    return loss, {"cm": cm, "acc_correct": correct, "acc_total": total}
+
+
+def _bda_loss_metrics(outputs, batch) -> Tuple[torch.Tensor, Metrics]:
+    label = batch["label"].long()  # [B,H,W,2]: (loc, cls)
+    label_loc = label[..., 0]
+    label_cls = label[..., 0] * label[..., 1]
+    seg = cross_entropy_2d(outputs["cls"], label_cls, ignore_index=0)
+    loss = seg + bce_dice_loss(outputs["loc"], label_loc[..., None].float())
+    with torch.no_grad():
+        k = outputs["cls"].shape[-1]
+        loc_pred = (outputs["loc"][..., 0] > 0.5).long()
+        loc_cm = confusion_matrix(_valid_gt(batch, torch.clamp(label_loc, max=1)), loc_pred, 2)
+        # Damage classes count only where a building is (loc > 0).
+        cls_gt = _valid_gt(batch, torch.where(label_loc > 0, label_cls, -1))
+        cls_cm = confusion_matrix(cls_gt, torch.argmax(outputs["cls"], dim=-1), k)
+    return loss, {"loc_cm": loc_cm, "cls_cm": cls_cm}
+
+
+_TASK_FNS = {Task.BCD: _bcd_loss_metrics, Task.SCD: _scd_loss_metrics,
+             Task.BDA: _bda_loss_metrics}
 
 
 def train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
                schedule: Callable[[int], float], batch: Dict[str, torch.Tensor], step: int, *,
                compute_dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
     """One optimizer step at learning rate ``schedule(step)``; ``step`` is
-    the number of steps already taken. Returns {'loss', 'cm'} on the device."""
+    the number of steps already taken. Returns the loss and the task's
+    metrics on the device."""
     model.train()
     set_lr(opt, schedule(step))
     opt.zero_grad(set_to_none=True)
-    loss, cm = _bcd_loss_metrics(_forward(model, batch, compute_dtype), batch)
+    loss, metrics = _TASK_FNS[model.task](_forward(model, batch, compute_dtype), batch)
     loss.backward()
     opt.step()
-    return {"loss": loss.detach(), "cm": cm}
+    return dict(metrics, loss=loss.detach())
 
 
 @torch.no_grad()
 def eval_step(model: torch.nn.Module, batch: Dict[str, torch.Tensor], *,
               compute_dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
-    """Eval-mode forward; padded samples are masked out of the confusion
-    matrix (the loss averages over the whole batch, as in JAX)."""
+    """Eval-mode forward; padded samples are masked out of the metrics (the
+    loss averages over the whole batch, as in JAX)."""
     model.eval()
-    loss, cm = _bcd_loss_metrics(_forward(model, batch, compute_dtype), batch)
-    return {"loss": loss, "cm": cm}
+    loss, metrics = _TASK_FNS[model.task](_forward(model, batch, compute_dtype), batch)
+    return dict(metrics, loss=loss)

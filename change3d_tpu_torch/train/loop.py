@@ -1,9 +1,11 @@
-"""BCD train-and-validate loop (counterpart of ``change3d_tpu/train/loop.py``).
+"""Detection train-and-validate loop for BCD, SCD and BDA (counterpart of
+``change3d_tpu/train/loop.py``).
 
 The protocol is the JAX loop's: validation on the *test* split after every
-epoch except epoch 0, the best model gated on F1, the latest ``max_to_keep``
-checkpoints and a sidecar with the best F1 so far, and a final re-evaluation
-of the best weights. Every step's loss adds into one device scalar, so the
+epoch except epoch 0, the best model gated on the task's metric (BCD F1,
+SCD IoU_mean, BDA overall_f1), the latest ``max_to_keep`` checkpoints and a
+sidecar with the best value so far, and a final re-evaluation of the best
+weights. Every step's loss adds into one device scalar, so the
 host syncs once per epoch (and on the progress line every 50 steps).
 
 SIGTERM is honoured between steps: the loop saves the full state (model,
@@ -26,11 +28,11 @@ import numpy as np
 import torch
 
 from change3d_tpu_torch.checkpoint.io import CheckpointManager
-from change3d_tpu_torch.data.datasets import BCDDataset
+from change3d_tpu_torch.data.datasets import DATASETS
 from change3d_tpu_torch.data.pipeline import device_prefetch, make_data_loader, pair_collate
 from change3d_tpu_torch.data.transforms import make_transform_pipelines
 from change3d_tpu_torch.device import resolve_device
-from change3d_tpu_torch.metrics.confusion import BinaryChangeMeter
+from change3d_tpu_torch.metrics.confusion import BDAMeter, BinaryChangeMeter, SCDMeter
 from change3d_tpu_torch.models.trainer import Change3D, Task
 from change3d_tpu_torch.train.engine import eval_step, train_step
 from change3d_tpu_torch.train.lr import poly_warmup_schedule, step_schedule
@@ -38,13 +40,14 @@ from change3d_tpu_torch.train.optim import torch_adam
 from change3d_tpu_torch.utils.logging import setup_logger
 
 _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
-BEST_METRIC = "F1"
+BEST_METRIC = {"bcd": "F1", "scd": "IoU_mean", "bda": "overall_f1"}
 
 
 @dataclasses.dataclass
 class RunConfig:
     task: str = "bcd"
     dataset: str = "LEVIR-CD"
+    num_classes: int = 1
     file_root: str = ""
     save_dir: str = "./exp"
     in_height: int = 256
@@ -113,30 +116,49 @@ class PreemptionGuard:
 
 
 def build_model(cfg: RunConfig) -> Change3D:
-    """The full-width X3D-L BCD model, initialised from a generator seeded
-    with ``cfg.seed``, on ``cfg.device``."""
-    return Change3D(Task(cfg.task), in_height=cfg.in_height, in_width=cfg.in_width,
-                    device=cfg.device, generator=torch.Generator().manual_seed(cfg.seed))
+    """The full-width X3D-L model of ``cfg.task`` with ``cfg.num_classes``
+    classes, initialised from a generator seeded with ``cfg.seed``, on
+    ``cfg.device``."""
+    return Change3D(Task(cfg.task), num_classes=cfg.num_classes, in_height=cfg.in_height,
+                    in_width=cfg.in_width, device=cfg.device,
+                    generator=torch.Generator().manual_seed(cfg.seed))
 
 
-def _evaluate_split(model, loader, device, compute_dtype) -> Dict[str, float]:
+def _make_meter(task: str, num_classes: int):
+    if task == "bcd":
+        return BinaryChangeMeter()
+    if task == "scd":
+        return SCDMeter(num_classes=num_classes)
+    return BDAMeter(num_classes=num_classes)
+
+
+def _update_meter(task: str, meter, metrics: Dict[str, torch.Tensor]) -> None:
+    if task == "bcd":
+        meter.update(metrics["cm"])
+    elif task == "scd":
+        meter.update(metrics["cm"], metrics["acc_correct"], metrics["acc_total"])
+    else:
+        meter.update(metrics["loc_cm"], metrics["cls_cm"])
+
+
+def _evaluate_split(cfg: RunConfig, model, loader, device, compute_dtype) -> Dict[str, float]:
     """One metered pass over an eval loader."""
-    meter = BinaryChangeMeter()
+    meter = _make_meter(cfg.task, cfg.num_classes)
     losses = []
     for batch in device_prefetch(loader, device):
         metrics = eval_step(model, batch, compute_dtype=compute_dtype)
         losses.append(float(metrics["loss"]))
-        meter.update(metrics["cm"])
+        _update_meter(cfg.task, meter, metrics)
     scores = {k: float(v) for k, v in meter.scores().items()}
     scores["loss"] = float(np.mean(losses)) if losses else float("nan")
     return scores
 
 
 def run_detection_training(cfg: RunConfig) -> Dict[str, Any]:
-    """Train and validate BCD; returns {'last', 'test_best'} scores, or
-    {'preempted_at_step'} after a SIGTERM."""
-    if cfg.task != "bcd":
-        raise NotImplementedError(f"{cfg.task} training arrives with its slice")
+    """Train and validate BCD, SCD or BDA; returns {'last', 'test_best'}
+    scores, or {'preempted_at_step'} after a SIGTERM."""
+    if cfg.task not in DATASETS:
+        raise ValueError(f"task {cfg.task!r}: one of {sorted(DATASETS)}")
     if cfg.compute_dtype not in _DTYPES:
         raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: one of {sorted(_DTYPES)}")
     save_path = os.path.join(cfg.save_dir, f"{cfg.dataset}_iter_{cfg.max_steps}_lr_{cfg.lr}")
@@ -148,8 +170,8 @@ def _run_detection(cfg: RunConfig, logger, save_path: str) -> Dict[str, Any]:
     device = resolve_device(cfg.device)
     compute_dtype = _DTYPES[cfg.compute_dtype]
     train_tf, eval_tf = make_transform_pipelines(cfg.task, cfg.in_width, cfg.in_height)
-    train_data = BCDDataset(cfg.file_root, "train", train_tf)
-    test_data = BCDDataset(cfg.file_root, "test", eval_tf)
+    train_data = DATASETS[cfg.task](cfg.file_root, "train", train_tf)
+    test_data = DATASETS[cfg.task](cfg.file_root, "test", eval_tf)
     train_loader = make_data_loader(
         "threaded", train_data, cfg.batch_size, shuffle=True, seed=cfg.seed,
         num_workers=cfg.num_workers, collate=pair_collate, drop_last=True,
@@ -179,15 +201,15 @@ def _run_detection(cfg: RunConfig, logger, save_path: str) -> Dict[str, Any]:
     results: Dict[str, Any] = {"resumed_from_step": resume_step}
 
     def evaluate() -> Dict[str, float]:
-        return _evaluate_split(model, test_loader, device, compute_dtype)
+        return _evaluate_split(cfg, model, test_loader, device, compute_dtype)
 
     def validate(epoch: int) -> None:
         nonlocal best_val
         scores = evaluate()
         logger.log_epoch(epoch, scores)
         print(f"[epoch {epoch}] val {scores}", flush=True)
-        if scores[BEST_METRIC] >= best_val:
-            best_val = scores[BEST_METRIC]
+        if scores[BEST_METRIC[cfg.task]] >= best_val:
+            best_val = scores[BEST_METRIC[cfg.task]]
             ckpt.save_best(model)
         ckpt.save_meta({"best_val": best_val})
         results["last"] = scores

@@ -1,5 +1,7 @@
-"""BCD loss (counterpart of ``change3d_tpu/train/losses.py:bce_dice_loss``),
-computed in fp32. The SCD/BDA/CC losses arrive with their slices."""
+"""Detection losses (counterpart of ``change3d_tpu/train/losses.py``), all
+reductions in fp32: BCD's ``bce_dice_loss``, and SCD/BDA's
+``cross_entropy_2d`` and ``change_similarity_loss``. The CC loss arrives
+with its slice."""
 
 from __future__ import annotations
 
@@ -17,3 +19,36 @@ def bce_dice_loss(probs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     inter = torch.sum(p * t)
     dice = (2.0 * inter + _EPS) / (torch.sum(p) + torch.sum(t) + _EPS)
     return bce + 1.0 - dice
+
+
+def cross_entropy_2d(logits: torch.Tensor, targets: torch.Tensor, *,
+                     ignore_index: int = -1) -> torch.Tensor:
+    """NLL of log_softmax, mean over the pixels whose target is not
+    ``ignore_index``. logits: [B,H,W,C]; targets: [B,H,W] int.
+
+    The mean is written out because a batch with no valid pixel must give 0,
+    as in JAX (sum / max(count, 1)); ``F.cross_entropy(ignore_index=...)``
+    gives nan there, and SCD meets such a batch whenever it has no changed
+    pixel."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    t = targets.long()
+    valid = t != ignore_index
+    picked = torch.gather(logp, -1, torch.where(valid, t, 0)[..., None])[..., 0]
+    loss_sum = -torch.sum(torch.where(valid, picked, 0.0))
+    return loss_sum / torch.clamp(valid.sum(), min=1)
+
+
+def change_similarity_loss(logits1: torch.Tensor, logits2: torch.Tensor,
+                           label_change: torch.Tensor) -> torch.Tensor:
+    """CosineEmbeddingLoss(margin=0) between the softmaxed class maps:
+    unchanged pixels pull the two distributions together (1 - cos), changed
+    pixels push them apart (max(0, cos)). logits1/2: [B,H,W,C];
+    label_change: [B,H,W] (or [B,H,W,1]) in {0,1}."""
+    p1 = torch.softmax(logits1.float(), dim=-1)
+    p2 = torch.softmax(logits2.float(), dim=-1)
+    num = torch.sum(p1 * p2, dim=-1)
+    cos = num / torch.clamp(torch.linalg.vector_norm(p1, dim=-1)
+                            * torch.linalg.vector_norm(p2, dim=-1), min=1e-8)
+    change = label_change[..., 0] if label_change.dim() == cos.dim() + 1 else label_change
+    per_pixel = torch.where(change.bool(), torch.clamp(cos, min=0.0), 1.0 - cos)
+    return torch.mean(per_pixel)

@@ -9,16 +9,20 @@ no result line):
 1. build: compile every CUDA kernel from csrc/ (one nvcc per source, all
    started together) and print the card's name and power limit;
 2. kernels: hold each kernel against its plain PyTorch version on the card
-   at the four X3D-L stage shapes at 256^2 (T=3), with and without SE, at
-   B=2, B=3 and --batch, over KERNEL_SEEDS seeds, in fp32 (TF32 off;
+   at the four X3D-L stage shapes at 256^2 on the clips of the three tasks
+   (T=3 BCD, T=4 BDA, T=5 SCD), with and without SE, at B=2, B=3 and
+   --batch, over KERNEL_SEEDS seeds, in fp32 (TF32 off;
    |d| <= 1e-4 * (1 + |ref|)) and bf16 (|d| <= 2 bf16 ulps of
-   max(|ref|, 1)); prints the worst |d| and the share of the limit it uses;
-3. forward: build the full-width X3D-L BCD Change3D from a seed, run
-   Predictor.predict_u8 on --batches batches of random uint8 256^2 pairs
-   with every launch count reset just before, and require 37 fused_block_fwd
-   and 18 fused_block_se_sums launches per forward; then hold the fp32
-   probabilities of the fused model against fused_inference=False (1e-3)
-   on a whole batch and report the bf16 mask agreement;
+   max(|ref|, 1)); prints the worst |d| per T and the share of the limit
+   it uses;
+3. forward, for BCD, SCD (6 classes) and BDA (5 classes) in turns: build the
+   task's full-width X3D-L Change3D from a seed, run Predictor.predict_u8 on
+   --batches batches of random uint8 256^2 pairs with every launch count
+   reset just before, and require 37 fused_block_fwd and 18
+   fused_block_se_sums launches per forward; then hold every head's fp32
+   probabilities (sigmoid masks, softmax class maps) of the fused model
+   against fused_inference=False (1e-3) on a whole batch and report the
+   bf16 agreement of each mask and class map;
 4. repros: hold the two repro kernels (ops/repros.py: dot_1d within two
    bf16 ulps, manual_dma exactly) against their plain versions at the
    repros' shapes over KERNEL_SEEDS seeds and at REPRO_DOT_SHAPES and
@@ -26,30 +30,35 @@ no result line):
    dot_1d check, then drive their entry point
    (``python -m change3d_tpu_torch.ops.repros``, in process) with their
    launch counts reset just before, and require a launch of each;
-5. times: bf16 pairs/s of predict_u8 at --batch, with the fused blocks and
-   with fused_inference=False in turns; each fused kernel's time per stage
-   shape from CUDA events (on operands first held against the plain
-   version), its launches per forward, its bound, its blocks per SM and its
-   plain version's time; each repro kernel's time, plain time and library
+5. times: bf16 pairs/s of each task's predict_u8 at --batch, with the
+   fused blocks and with fused_inference=False in turns, and device ms per
+   forward; each fused kernel's time per stage shape and T (3, 4, 5) from
+   CUDA events (on operands first held against the plain version), its
+   launches per forward, its bound, its blocks per SM and its plain
+   version's time; each repro kernel's time, plain time and library
    time (torch.mul(x, 2.0) for manual_dma) on the device timeline
    (torch.profiler), their in-call ratios, the CUDA-event times beside
    them, its bound, and nvidia-smi's clock and power before and after;
-6. train parity: one fp32 train step (TF32 off) of a reduced-depth model at
-   64², batch 2, on the card against the same step on the CPU (loss 1e-4
-   relative, each gradient tensor 1e-2 relative in the 2-norm, BN running
-   stats 1e-4);
+6. train parity, for BCD, SCD and BDA: one fp32 train step (TF32 off) of a
+   reduced-depth model at 64², batch 2, on the card against the same step
+   on the CPU (loss 1e-4 relative, each gradient tensor 1e-2 relative in the
+   2-norm, BN running stats 1e-4; the step's metrics' differences reported);
 7. overfit: the full-width X3D-L BCD model, bf16, batch 16, 256², 10 Adam
    steps at lr 2e-4 on one synthetic batch whose label is a function of the
    pair; every loss finite and the last below the first;
-8. train times on that model: samples/s by host clock over 10 steps after 3
-   warm-up steps, device ms per step by CUDA events, peak memory, and
-   validation pairs/s through eval_step;
-9. train loop: ``python -m change3d_tpu_torch.cli bcd`` in process on a
-   synthetic LEVIR-layout dataset (32 train, 16 test pairs at 256², written
-   with data/png.py) for 2 epochs at batch 16 in bf16, with the fused launch
-   counts reset just before: 37 + 18 launches for each of its 2 validation
-   forwards (epoch 1 and the best-model re-evaluation), best/, the sidecar
-   and the epoch-1 log written; then ``--resume`` restores step 4.
+8. train times on that model, then on full-width SCD (batch 8) and BDA
+   (batch 12) models: samples/s by host clock over 10 steps after 3 warm-up
+   steps, device ms per step by CUDA events, peak memory, and validation
+   pairs/s through eval_step;
+9. train loops: ``python -m change3d_tpu_torch.cli bcd``, ``cli scd`` and
+   ``cli bda`` in process on synthetic LEVIR-CD, SECOND and xBD layouts
+   (two train batches and one test batch at the task's default batch, 16, 8
+   and 12, at 256², written with data/png.py; xBD with its
+   'disaster_target' label names) for 2 epochs in bf16, with the fused
+   launch counts reset just before each: 37 + 18 launches for each of its 2
+   validation forwards (epoch 1 and the best-model re-evaluation), best/,
+   the sidecar and the epoch-1 log written; then ``--resume`` restores
+   step 4.
 
 The last lines are the kernels JSON, the card line from nvidia-smi, and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
@@ -74,15 +83,21 @@ HBM_BYTES_S = 3.35e12
 BF16_TC_FLOPS = 989e12
 FP32_FLOPS = 67e12
 
-# (name, H=W at 256^2 input, C, Ci, SE reduced dim, fwd launches per BCD
-# forward, se_sums launches per BCD forward)
+# (name, H=W at 256^2 input, C, Ci, SE reduced dim, fwd launches per
+# forward, se_sums launches per forward; the same for BCD, SCD and BDA)
 STAGES = (
     ("stage1", 128, 24, 54, 8, 4, 2),
     ("stage2", 64, 48, 108, 8, 9, 4),
     ("stage3", 32, 96, 216, 16, 24, 12),
-    ("stage4", 16, 192, 432, 32, 0, 0),  # CC only: not on the BCD path
+    ("stage4", 16, 192, 432, 32, 0, 0),  # CC only: not on the detection paths
 )
-T = 3
+TASKS = ("bcd", "scd", "bda")
+# Clip length (2 + perception frames), classes of the class heads, default
+# train batch (the CLI's).
+CLIP_T = {"bcd": 3, "scd": 5, "bda": 4}
+NUM_CLASSES = {"bcd": 1, "scd": 6, "bda": 5}
+TRAIN_BATCH = {"bcd": 16, "scd": 8, "bda": 12}
+CLIPS = sorted(set(CLIP_T.values()))
 # Phase 2 draws operands from this many seeds, from --seed on: the bf16
 # limit's margin is read over all of them.
 KERNEL_SEEDS = 3
@@ -107,12 +122,12 @@ def card_line() -> str:
     return out[torch.cuda.current_device()] if out else "unknown"
 
 
-def operands(rs, b, hw, c, ci, cr, dtype, dev, has_se):
+def operands(rs, b, t, hw, c, ci, cr, dtype, dev, has_se):
     """Block operands at model scale: x >= 0 (it is a ReLU output),
     torch-default conv init, BN folds near identity."""
     u = lambda fan, *s: torch.from_numpy(rs.uniform(-1, 1, s).astype(np.float32) / math.sqrt(fan))
     n = lambda scale, base, *s: torch.from_numpy((base + scale * rs.randn(*s)).astype(np.float32))
-    x = torch.from_numpy(np.abs(rs.randn(b, T, hw, hw, c)).astype(np.float32))
+    x = torch.from_numpy(np.abs(rs.randn(b, t, hw, hw, c)).astype(np.float32))
     ops = [x, u(c, c, ci), n(0.1, 1, ci), n(0.1, 0, ci), u(27, 3, 3, 3, ci), n(0.1, 1, ci),
            n(0.1, 0, ci), u(ci, ci, c), n(0.1, 1, c), n(0.1, 0, c)]
     ops = [o.to(dev) for o in ops]
@@ -146,10 +161,10 @@ def event_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def bound(b, hw, c, ci, itemsize, *, sums, n_tiles):
+def bound(b, t, hw, c, ci, itemsize, *, sums, n_tiles):
     """Least time on the card: bytes over HBM rate, 1x1-conv flops over the
     bf16 tensor-core rate, 27 depthwise taps over the fp32 rate; the largest."""
-    pix = b * T * hw * hw
+    pix = b * t * hw * hw
     front_w = c * ci * itemsize + (27 + 4) * ci * 4
     if sums:
         nbytes = pix * c * itemsize + front_w + b * n_tiles * ci * 4
@@ -163,49 +178,57 @@ def bound(b, hw, c, ci, itemsize, *, sums, n_tiles):
     return times[kind] * 1e3, kind
 
 
-def hold(worst, key, what, got, ref, dtype):
+def hold(worst, key, t, what, got, ref, dtype):
     """Check got against ref, keep the worst |d| and share of the limit per
-    (key, dtype), raise past the limit."""
+    (key, T, dtype), raise past the limit."""
     ok, err, used = within(got, ref, dtype)
-    w = worst[key].setdefault(str(dtype).split(".")[-1], {"max_abs_err": 0.0, "limit_used": 0.0})
+    w = worst[key].setdefault(f"T{t}", {}).setdefault(
+        str(dtype).split(".")[-1], {"max_abs_err": 0.0, "limit_used": 0.0})
     w["max_abs_err"], w["limit_used"] = max(w["max_abs_err"], err), max(w["limit_used"], used)
     if not ok:
         raise AssertionError(f"{key} {what} {dtype}: max |d| {err}, {used:.3f} of the limit")
 
 
-def check_block(fb, worst, what, ops, se, dtype, hw):
+def check_block(fb, worst, what, ops, se, dtype):
     """Both kernels against their plain versions on one block's operands."""
+    t, hw = ops[0].shape[1], ops[0].shape[2]
     gate = None
     if se is not None:
         ref_sums = fb.se_sums_reference(*ops[:7])
-        hold(worst, "fused_block_se_sums", what, fb.fused_block_se_sums(*ops[:7]).sum(1)
-             / (T * hw * hw), ref_sums.sum(1) / (T * hw * hw), dtype)
-        gate = fb.se_gate(ref_sums.sum(1) / (T * hw * hw), *se)
-    hold(worst, "fused_block_fwd", what, fb.fused_block_fwd(*ops, gate),
+        hold(worst, "fused_block_se_sums", t, what, fb.fused_block_se_sums(*ops[:7]).sum(1)
+             / (t * hw * hw), ref_sums.sum(1) / (t * hw * hw), dtype)
+        gate = fb.se_gate(ref_sums.sum(1) / (t * hw * hw), *se)
+    hold(worst, "fused_block_fwd", t, what, fb.fused_block_fwd(*ops, gate),
          fb.fused_block_fwd_reference(*ops, gate), dtype)
     if se is not None:  # the wrapper's own SE path end to end
-        hold(worst, "fused_block_fwd", what + " sums->gate->fwd",
+        hold(worst, "fused_block_fwd", t, what + " sums->gate->fwd",
              fb.fused_bottleneck_block(*ops, se), fb.fused_block_reference(*ops, se), dtype)
 
 
 def phase_kernels(fb, dev, seeds, batch):
     worst = {"fused_block_fwd": {}, "fused_block_se_sums": {}}
-    for seed in seeds:
-        rs = np.random.RandomState(seed)
-        for name, hw, c, ci, cr, _, _ in STAGES:
-            for b in sorted({2, 3, batch}):
-                for has_se in (False, True):
-                    for dtype in (torch.float32, torch.bfloat16):
-                        ops, se = operands(rs, b, hw, c, ci, cr, dtype, dev, has_se)
-                        check_block(fb, worst, f"{name} B={b} se={has_se} seed={seed}", ops, se,
-                                    dtype, hw)
-            print(f"kernels {name} seed {seed}: {json.dumps(worst)}", flush=True)
+    for t in CLIPS:
+        for seed in seeds:
+            rs = np.random.RandomState(seed)
+            for name, hw, c, ci, cr, _, _ in STAGES:
+                for b in sorted({2, 3, batch}):
+                    for has_se in (False, True):
+                        for dtype in (torch.float32, torch.bfloat16):
+                            ops, se = operands(rs, b, t, hw, c, ci, cr, dtype, dev, has_se)
+                            check_block(fb, worst, f"{name} T={t} B={b} se={has_se} seed={seed}",
+                                        ops, se, dtype)
+        print(f"kernels T={t} seeds {seeds}: "
+              f"{json.dumps({k: v[f'T{t}'] for k, v in worst.items()})}", flush=True)
     return worst
 
 
-def phase_forward(pkg, dev, batch, n_batches, seed):
+def phase_forward(pkg, dev, task, batch, n_batches, seed):
+    """The task's serving forward: launches counted over --batches forwards,
+    then every head's fp32 probabilities fused against plain, and the bf16
+    agreement of each mask and class map with the plain bf16 model."""
     fb, Change3D, Task, Predictor, x3d_l_config = pkg
-    model = Change3D(Task.BCD, device=dev, seed=seed)
+    kw = dict(num_classes=NUM_CLASSES[task], device=dev, seed=seed)
+    model = Change3D(Task(task), **kw)
     pred = Predictor(model, compute_dtype=torch.bfloat16, device=dev)
     rs = np.random.RandomState(seed)
     pairs = [tuple(rs.randint(0, 256, (batch, 256, 256, 3)).astype(np.uint8) for _ in range(2))
@@ -214,39 +237,51 @@ def phase_forward(pkg, dev, batch, n_batches, seed):
 
     fb.fused_block_fwd.launches = 0
     fb.fused_block_se_sums.launches = 0
-    masks = [pred.predict_u8(pre, post)["change"] for pre, post in pairs]
+    maps = [pred.predict_u8(pre, post) for pre, post in pairs]
     torch.cuda.synchronize()
     launches = {"fused_block_fwd": fb.fused_block_fwd.launches,
                 "fused_block_se_sums": fb.fused_block_se_sums.launches}
     want = {"fused_block_fwd": 37 * n_batches, "fused_block_se_sums": 18 * n_batches}
     if launches != want:
-        raise AssertionError(f"launches {launches}, want {want}")
-    for m in masks:
-        if m.shape != (batch, 256, 256) or m.dtype != np.bool_:
-            raise AssertionError(f"mask {m.shape} {m.dtype}")
-    print(f"forward: {n_batches} batches of {batch} pairs, launches {launches}", flush=True)
+        raise AssertionError(f"{task} launches {launches}, want {want}")
+    heads = {"bcd": ("change",), "scd": ("pre", "post", "change"), "bda": ("cls", "loc")}[task]
+    for m in maps:
+        if set(m) != set(heads):
+            raise AssertionError(f"{task} heads {sorted(m)}")
+        for key, val in m.items():
+            binary = key in ("change", "loc")
+            if val.shape != (batch, 256, 256) or val.dtype != (np.bool_ if binary else np.uint8):
+                raise AssertionError(f"{task} {key} {val.shape} {val.dtype}")
+            if not binary and int(val.max()) >= NUM_CLASSES[task]:
+                raise AssertionError(f"{task} {key} class id {int(val.max())}")
+    print(f"forward {task}: {n_batches} batches of {batch} pairs, launches {launches}", flush=True)
 
     # fp32: fused kernels against the plain path on the same weights.
-    plain = Change3D(Task.BCD, backbone_cfg=x3d_l_config(fused_inference=False), device=dev,
-                     seed=seed)
+    plain = Change3D(Task(task), backbone_cfg=x3d_l_config(fused_inference=False), **kw)
     plain.load_state_dict(model.state_dict())
     pre, post = pairs[0]
     norm = lambda a: (a.astype(np.float32) / 255.0 - 0.5) / 0.5
     p_fused = Predictor(model, compute_dtype=torch.float32, device=dev).predict_probs(
-        norm(pre), norm(post))["change"]
+        norm(pre), norm(post))
     p_plain = Predictor(plain, compute_dtype=torch.float32, device=dev).predict_probs(
-        norm(pre), norm(post))["change"]
-    err = float(np.abs(p_fused - p_plain).max())
-    if not (np.isfinite(p_fused).all() and p_fused.shape == (batch, 256, 256, 1) and err <= 1e-3):
-        raise AssertionError(f"fp32 fused vs plain probabilities: max |d| {err}")
-    agree_fp32 = float((masks[0] == (p_plain[..., 0] > 0.5)).mean())
+        norm(pre), norm(post))
     plain_pred = Predictor(plain, compute_dtype=torch.bfloat16, device=dev)
-    agree_bf16 = float((masks[0] == plain_pred.predict_u8(*pairs[0])["change"]).mean())
-    stats = {"fp32_prob_max_abs_err": err, "prob_mean": float(p_plain.mean()),
-             "changed_fraction": float((p_plain > 0.5).mean()),
-             "bf16_mask_agreement_vs_fp32_plain": agree_fp32,
-             "bf16_mask_agreement_vs_bf16_plain": agree_bf16}
-    print(f"forward check: {json.dumps(stats)}", flush=True)
+    hard_plain_bf16 = plain_pred.predict_u8(*pairs[0])
+    hard_plain_fp32 = Predictor.harden(p_plain)
+    stats = {}
+    for key in heads:
+        err = float(np.abs(p_fused[key] - p_plain[key]).max())
+        if not (np.isfinite(p_fused[key]).all() and p_fused[key].shape[:3] == (batch, 256, 256)
+                and err <= 1e-3):
+            raise AssertionError(f"{task} {key}: fp32 fused vs plain probabilities max |d| {err}")
+        stats[key] = {"fp32_prob_max_abs_err": err, "prob_mean": float(p_plain[key].mean()),
+                      "bf16_agreement_vs_fp32_plain":
+                          float((maps[0][key] == hard_plain_fp32[key]).mean()),
+                      "bf16_agreement_vs_bf16_plain":
+                          float((maps[0][key] == hard_plain_bf16[key]).mean())}
+        if key in ("change", "loc"):
+            stats[key]["changed_fraction"] = float((p_plain[key] > 0.5).mean())
+    print(f"forward check {task}: {json.dumps(stats)}", flush=True)
     return pred, plain_pred, pairs, launches, stats
 
 
@@ -381,13 +416,27 @@ def synthetic_pairs(rs, b, hw):
     return pre, post, (diff.mean(-1) > 0.25)[..., None].astype(np.int32)
 
 
-def train_batch(rs, b, hw, dev):
+def task_labels(rs, task, change):
+    """The task's label channels around a change mask [B, H, W, 1] in
+    {0, 1}: BCD the mask; SCD (label1, label2, change) with one class in
+    1..5 per sample and date inside the change; BDA (loc, cls) with one
+    damage class in 1..4 per sample on the changed buildings."""
+    if task == "bcd":
+        return change
+    b = change.shape[0]
+    cls = lambda lo, hi: rs.randint(lo, hi, (b, 1, 1, 1)).astype(np.int32)
+    if task == "scd":
+        return np.concatenate([change * cls(1, 6), change * cls(1, 6), change], axis=-1)
+    return np.concatenate([change, change * cls(1, 5)], axis=-1)
+
+
+def train_batch(rs, b, hw, dev, task="bcd"):
     from change3d_tpu_torch.data.transforms import eval_normalize
 
-    pre, post, label = synthetic_pairs(rs, b, hw)
+    pre, post, change = synthetic_pairs(rs, b, hw)
     return {"pre": torch.from_numpy(eval_normalize(pre)).to(dev),
             "post": torch.from_numpy(eval_normalize(post)).to(dev),
-            "label": torch.from_numpy(label).to(dev)}
+            "label": torch.from_numpy(task_labels(rs, task, change)).to(dev)}
 
 
 # A reduced-depth backbone at full structure (stem, 3 stages with projection
@@ -396,12 +445,12 @@ PARITY_TINY = dict(stem_dim_out=8, stage_dims=(8, 16, 24, 32), stage_inner_dims=
                    stage_depths=(2, 3, 3, 2))
 
 
-def phase_train_parity(dev, seed):
-    """One fp32 train step (TF32 off) of the reduced-depth model at 64²,
-    batch 2, on the card and on the CPU from the same weights and batch.
+def phase_train_parity(dev, seed, task="bcd"):
+    """One fp32 train step (TF32 off) of the task's reduced-depth model at
+    64², batch 2, on the card and on the CPU from the same weights and batch.
     Limits: loss 1e-4 relative; each gradient tensor within 1e-2 relative
     in the 2-norm, ||d|| <= 1e-2 ||ref||; BN running stats |d| <= 1e-4
-    (1 + |ref|). The gradients are held normwise because single elements of
+    (1 + |ref|); the step's metrics (confusion matrices, counts) reported. The gradients are held normwise because single elements of
     the BN-scale gradients come out of the cancellation sum(dy x) -
     mean sum(dy), whose fp32 error on either device alone reaches 1e-3 of
     the tensor's largest element."""
@@ -411,31 +460,36 @@ def phase_train_parity(dev, seed):
     from change3d_tpu_torch.train.optim import torch_adam
 
     cfg = X3DConfig(**PARITY_TINY)
-    batch = train_batch(np.random.RandomState(seed), 2, 64, "cpu")
-    ref = Change3D(Task.BCD, in_height=64, in_width=64, backbone_cfg=cfg, device="cpu", seed=seed)
+    batch = train_batch(np.random.RandomState(seed), 2, 64, "cpu", task)
+    kw = dict(num_classes=NUM_CLASSES[task], in_height=64, in_width=64, backbone_cfg=cfg,
+              seed=seed)
+    ref = Change3D(Task(task), device="cpu", **kw)
     out = {}
     for where in ("cpu", "cuda"):
-        model = Change3D(Task.BCD, in_height=64, in_width=64, backbone_cfg=cfg,
-                         device=dev if where == "cuda" else "cpu", seed=seed)
+        model = Change3D(Task(task), device=dev if where == "cuda" else "cpu", **kw)
         model.load_state_dict(ref.state_dict())
         opt = torch_adam(model.parameters(), weight_decay=1e-4)
         m = train_step(model, opt, lambda _: 1e-3, {k: v.to(model.encoder.perception_frames.device)
                                                   for k, v in batch.items()}, 0)
         out[where] = (float(m["loss"]), {n: p.grad.cpu() for n, p in model.named_parameters()},
-                      {n: b.cpu() for n, b in model.named_buffers()})
-    (l_cpu, g_cpu, s_cpu), (l_gpu, g_gpu, s_gpu) = out["cpu"], out["cuda"]
+                      {n: b.cpu() for n, b in model.named_buffers()},
+                      {k: v.cpu() for k, v in m.items() if k != "loss"})
+    (l_cpu, g_cpu, s_cpu, m_cpu), (l_gpu, g_gpu, s_gpu, m_gpu) = out["cpu"], out["cuda"]
     loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
     grad_rel, grad_worst = max((float((g_gpu[n] - r).norm() / r.norm()), n)
                                for n, r in g_cpu.items() if float(r.norm()) > 0)
     stats_used = max(float(((s_gpu[n] - r).abs() / (1e-4 * (1 + r.abs()))).max())
                      for n, r in s_cpu.items())
-    stats = {"loss_cpu": l_cpu, "loss_cuda": l_gpu, "loss_rel_err": loss_rel,
+    metric_diff = {k: float((m_gpu[k].double() - v.double()).abs().sum()) for k, v in m_cpu.items()}
+    stats = {"task": task, "loss_cpu": l_cpu, "loss_cuda": l_gpu, "loss_rel_err": loss_rel,
              "grad_rel_err_2norm": grad_rel, "grad_worst_tensor": grad_worst,
              "grad_limit_used": grad_rel / 1e-2, "bn_stats_limit_used": stats_used,
-             "grad_tensors": len(g_cpu), "bn_buffers": len(s_cpu)}
-    print(f"train parity card vs cpu (fp32, 64², batch 2): {json.dumps(stats)}", flush=True)
+             "grad_tensors": len(g_cpu), "bn_buffers": len(s_cpu),
+             "metrics_abs_diff": metric_diff}
+    print(f"train parity {task} card vs cpu (fp32, 64², batch 2): {json.dumps(stats)}",
+          flush=True)
     if not (math.isfinite(l_gpu) and loss_rel <= 1e-4 and grad_rel <= 1e-2 and stats_used <= 1.0):
-        raise AssertionError(f"train step on the card disagrees with the CPU: {stats}")
+        raise AssertionError(f"{task} train step on the card disagrees with the CPU: {stats}")
     return stats
 
 
@@ -459,35 +513,48 @@ def phase_overfit(dev, seed, batch=16, steps=10):
     return model, opt, data, losses
 
 
-def write_levir(root, rs, n_train, n_test, hw):
-    """A synthetic dataset in the LEVIR-CD layout, written with data/png.py."""
+# Label directories and file names of the synthetic layouts: LEVIR-CD,
+# SECOND, and xBD (whose label files carry 'disaster_target').
+LAYOUTS = {"bcd": (("label",), "{i:04d}.png"),
+           "scd": (("label1", "label2", "change"), "{i:04d}.png"),
+           "bda": (("label1", "label2"), "synthetic-flood_{i:08d}_post_disaster.png")}
+
+
+def write_layout(root, rs, task, n_train, n_test, hw):
+    """A synthetic dataset in the task's layout, written with data/png.py:
+    BCD masks as 0/255, SCD and BDA labels as class ids."""
     from change3d_tpu_torch.data.png import write_png
 
+    dirs, pattern = LAYOUTS[task]
     for split, n in (("train", n_train), ("test", n_test)):
-        for d in ("t1", "t2", "label"):
+        for d in ("t1", "t2") + dirs:
             os.makedirs(os.path.join(root, split, d))
-        pre, post, label = synthetic_pairs(rs, n, hw)
+        pre, post, change = synthetic_pairs(rs, n, hw)
+        labels = change * 255 if task == "bcd" else task_labels(rs, task, change)
         for i in range(n):
-            write_png(os.path.join(root, split, "t1", f"{i:04d}.png"), pre[i])
-            write_png(os.path.join(root, split, "t2", f"{i:04d}.png"), post[i])
-            write_png(os.path.join(root, split, "label", f"{i:04d}.png"),
-                      (label[i, ..., 0] * 255).astype(np.uint8))
+            name = pattern.format(i=i)
+            write_png(os.path.join(root, split, "t1", name), pre[i])
+            write_png(os.path.join(root, split, "t2", name), post[i])
+            for c, d in enumerate(dirs):
+                write_png(os.path.join(root, split, d, name.replace("disaster", "disaster_target")),
+                          labels[i, ..., c].astype(np.uint8))
 
 
-def phase_train_loop(fb, seed, batch=16):
-    """``cli bcd`` in process on 32 train and 16 test pairs at 256², bf16,
-    two epochs: epoch 1's validation and the best-model re-evaluation are
-    one forward each, so 2 x (37 + 18) fused launches; then ``--resume``."""
+def phase_train_loop(fb, seed, task="bcd"):
+    """``cli <task>`` in process on two train batches and one test batch at
+    the task's default batch, 256², bf16, two epochs: epoch 1's validation
+    and the best-model re-evaluation are one forward each, so 2 x (37 + 18)
+    fused launches; then ``--resume``."""
     import tempfile
 
     from change3d_tpu_torch import cli
 
+    batch = TRAIN_BATCH[task]
     with tempfile.TemporaryDirectory() as tmp:
-        root, save = os.path.join(tmp, "levir"), os.path.join(tmp, "exp")
-        write_levir(root, np.random.RandomState(seed + 3), 32, 16, 256)
-        argv = ["bcd", "--file_root", root, "--save_dir", save, "--batch_size", str(batch),
-                "--max_epochs", "2", "--compute_dtype", "bfloat16", "--num_workers", "4",
-                "--seed", str(seed)]
+        root, save = os.path.join(tmp, "data"), os.path.join(tmp, "exp")
+        write_layout(root, np.random.RandomState(seed + 3), task, 2 * batch, batch, 256)
+        argv = [task, "--file_root", root, "--save_dir", save, "--max_epochs", "2",
+                "--compute_dtype", "bfloat16", "--num_workers", "4", "--seed", str(seed)]
         fb.fused_block_fwd.launches = 0
         fb.fused_block_se_sums.launches = 0
         t0 = time.perf_counter()
@@ -499,7 +566,7 @@ def phase_train_loop(fb, seed, batch=16):
         forwards = 2
         want = {"fused_block_fwd": 37 * forwards, "fused_block_se_sums": 18 * forwards}
         if launches != want:
-            raise AssertionError(f"train loop launches {launches}, want {want}")
+            raise AssertionError(f"{task} train loop launches {launches}, want {want}")
         (run_dir,) = [os.path.join(save, d) for d in os.listdir(save)]
         for name in ("best/model.pt", "ckpt/train_meta.json", "train_val_log.jsonl"):
             if not os.path.exists(os.path.join(run_dir, name)):
@@ -507,37 +574,40 @@ def phase_train_loop(fb, seed, batch=16):
         with open(os.path.join(run_dir, "train_val_log.jsonl")) as f:
             rows = [json.loads(line) for line in f if line.strip()]
         val = [r for r in rows if r.get("event") == "epoch" and r["split"] == "val"]
-        if [r["epoch"] for r in val] != [1] or not 0.0 <= val[0]["F1"] <= 1.0:
-            raise AssertionError(f"train loop validation log {val}")
+        best = {"bcd": "F1", "scd": "IoU_mean", "bda": "overall_f1"}[task]
+        if [r["epoch"] for r in val] != [1] or not 0.0 <= val[0][best] <= 1.0:
+            raise AssertionError(f"{task} train loop validation log {val}")
         if res.get("steps") != 4 or "test_best" not in res:
             raise AssertionError(f"train loop result {res}")
         resumed = cli.main(argv + ["--resume"])
         if resumed["resumed_from_step"] != 4:
             raise AssertionError(f"--resume restored step {resumed['resumed_from_step']}, want 4")
-    stats = {"seconds": seconds, "launches": launches, "validation_forwards": forwards,
-             "epoch1_val": val[0], "test_best": res["test_best"],
+    stats = {"task": task, "batch": batch, "seconds": seconds, "launches": launches,
+             "validation_forwards": forwards, "epoch1_val": val[0], "test_best": res["test_best"],
              "resumed_from_step": resumed["resumed_from_step"]}
-    print(f"train loop (cli bcd, 2 epochs): {json.dumps(stats)}", flush=True)
+    print(f"train loop (cli {task}, 2 epochs): {json.dumps(stats)}", flush=True)
     return launches, stats
 
 
 def phase_train_times(model, opt, data, card, warmup=3, steps=10):
     """Train samples/s (host clock, synchronised at the end), device ms per
     step (CUDA events), peak memory of the steps, and validation pairs/s
-    through eval_step, all on one device-resident bf16 batch."""
+    through eval_step, all on one device-resident bf16 batch; every loss
+    finite."""
     from change3d_tpu_torch.train.engine import eval_step, train_step
 
-    batch = data["pre"].shape[0]
+    batch, task = data["pre"].shape[0], model.task.value
     step = lambda: train_step(model, opt, lambda _: 2e-4, data, 0, compute_dtype=torch.bfloat16)
     for _ in range(warmup):
         step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    for _ in range(steps):
-        step()
+    losses = [step()["loss"] for _ in range(steps)]
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
+    if not all(math.isfinite(float(x)) for x in losses):
+        raise AssertionError(f"{task} train losses {[float(x) for x in losses]}")
     peak = torch.cuda.max_memory_allocated()
     step_ms = event_ms(step, 5)
     val = lambda: eval_step(model, data, compute_dtype=torch.bfloat16)
@@ -549,16 +619,17 @@ def phase_train_times(model, opt, data, card, warmup=3, steps=10):
         val()
     torch.cuda.synchronize()
     val_s = time.perf_counter() - t0
-    stats = {"batch": batch, "train_samples_per_s": steps * batch / host_s,
+    stats = {"task": task, "batch": batch, "train_samples_per_s": steps * batch / host_s,
              "train_device_ms_per_step": step_ms, "peak_memory_bytes": peak,
              "peak_memory_gib": peak / 2 ** 30, "val_pairs_per_s": steps * batch / val_s,
              "card": card}
-    print(f"train times X3D-L bf16 256² batch {batch} ({card}): {json.dumps(stats)}", flush=True)
+    print(f"train times {task} X3D-L bf16 256² batch {batch} ({card}): {json.dumps(stats)}",
+          flush=True)
     return stats
 
 
 def pairs_per_s(pred, pairs, batch, rounds=3):
-    """End to end: uint8 host arrays in, bool masks out, host clock."""
+    """End to end: uint8 host arrays in, masks and class maps out, host clock."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(rounds):
@@ -567,9 +638,9 @@ def pairs_per_s(pred, pairs, batch, rounds=3):
     return rounds * len(pairs) * batch / (time.perf_counter() - t0)
 
 
-def phase_times(fb, worst, pred, plain_pred, pairs, batch, dev, seed, card, iters=10):
-    # The fused forward and the plain one (fused_inference=False) in turns:
-    # fused, plain, plain, fused.
+def serving_times(pred, plain_pred, pairs, batch, dev):
+    """pairs/s of the fused forward and the plain one (fused_inference=False)
+    in turns, fused, plain, plain, fused; device ms per forward of each."""
     for p in (pred, plain_pred):
         p.predict_u8(*pairs[0])
     runs = {"fused": [], "plain": []}
@@ -578,28 +649,50 @@ def phase_times(fb, worst, pred, plain_pred, pairs, batch, dev, seed, card, iter
     dev_pre, dev_post = (torch.from_numpy(a).to(dev) for a in pairs[0])
     fwd_ms = {kind: event_ms(lambda: p.predict_u8_device(dev_pre, dev_post), 5)
               for kind, p in (("fused", pred), ("plain", plain_pred))}
+    return runs, fwd_ms
 
+
+def kernel_rows(fb, worst, batch, dev, seed, card, iters=10):
+    """Each fused kernel's time per stage shape and clip length T, on bf16
+    operands first held against the plain version."""
     rs = np.random.RandomState(seed + 1)
     rows = []
-    for name, hw, c, ci, cr, n_fwd, n_sums in STAGES:
-        ops, se = operands(rs, batch, hw, c, ci, cr, torch.bfloat16, dev, True)
-        check_block(fb, worst, f"{name} B={batch} timed operands", ops, se, torch.bfloat16, hw)
-        gate = fb.se_gate(fb.se_sums_reference(*ops[:7]).sum(1) / (T * hw * hw), *se)
-        _, _, _, _, n_tiles = fb.plan_tiles(T, hw, hw, c, ci, 2)
-        for kernel, fn, plain, n_launch, sums in (
-            ("fused_block_fwd", lambda: fb.fused_block_fwd(*ops, gate),
-             lambda: fb.fused_block_fwd_reference(*ops, gate), n_fwd, False),
-            ("fused_block_se_sums", lambda: fb.fused_block_se_sums(*ops[:7]),
-             lambda: fb.se_sums_reference(*ops[:7]), n_sums, True),
-        ):
-            b_ms, b_by = bound(batch, hw, c, ci, 2, sums=sums, n_tiles=n_tiles)
-            rows.append({"kernel": kernel, "stage": name, "shape": [batch, T, hw, hw, c],
-                         "inner": ci, "launches_per_forward": n_launch,
-                         "blocks_per_sm": fb.blocks_per_sm(torch.bfloat16, sums, T, hw, hw, c, ci),
-                         "ms": event_ms(fn, iters), "plain_ms": event_ms(plain, 3),
-                         "bound_ms": b_ms, "bound_by": b_by})
-            print(f"time {kernel} {name} ({card}): {json.dumps(rows[-1])}", flush=True)
-    return runs, fwd_ms, rows
+    for t in CLIPS:
+        for name, hw, c, ci, cr, n_fwd, n_sums in STAGES:
+            ops, se = operands(rs, batch, t, hw, c, ci, cr, torch.bfloat16, dev, True)
+            check_block(fb, worst, f"{name} T={t} B={batch} timed operands", ops, se,
+                        torch.bfloat16)
+            gate = fb.se_gate(fb.se_sums_reference(*ops[:7]).sum(1) / (t * hw * hw), *se)
+            tile, ck, _, _, n_tiles = fb.plan_tiles(t, hw, hw, c, ci, 2)
+            for kernel, fn, plain, n_launch, sums in (
+                ("fused_block_fwd", lambda: fb.fused_block_fwd(*ops, gate),
+                 lambda: fb.fused_block_fwd_reference(*ops, gate), n_fwd, False),
+                ("fused_block_se_sums", lambda: fb.fused_block_se_sums(*ops[:7]),
+                 lambda: fb.se_sums_reference(*ops[:7]), n_sums, True),
+            ):
+                b_ms, b_by = bound(batch, t, hw, c, ci, 2, sums=sums, n_tiles=n_tiles)
+                rows.append({"kernel": kernel, "stage": name, "t": t,
+                             "shape": [batch, t, hw, hw, c], "inner": ci,
+                             "tile": tile, "chunk": ck, "launches_per_forward": n_launch,
+                             "blocks_per_sm": fb.blocks_per_sm(torch.bfloat16, sums, t, hw, hw,
+                                                               c, ci),
+                             "ms": event_ms(fn, iters), "plain_ms": event_ms(plain, 3),
+                             "bound_ms": b_ms, "bound_by": b_by})
+                print(f"time {kernel} {name} T={t} ({card}): {json.dumps(rows[-1])}", flush=True)
+    return rows
+
+
+def per_forward(rows, kernel, t):
+    """A kernel's summed ms, plain ms and bound over one forward on T-frame
+    clips, and what bounds most of it."""
+    mine = [r for r in rows if r["kernel"] == kernel and r["t"] == t and r["launches_per_forward"]]
+    total = lambda k: sum(r[k] * r["launches_per_forward"] for r in mine)
+    by = {}
+    for r in mine:
+        by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + r["bound_ms"] * r["launches_per_forward"]
+    return {"ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+            "bound_by": max(by, key=by.get),
+            "launches_per_forward": sum(r["launches_per_forward"] for r in mine)}
 
 
 def main(argv=None) -> int:
@@ -622,6 +715,7 @@ def main(argv=None) -> int:
     from change3d_tpu_torch.ops import cuda_build
     from change3d_tpu_torch.ops import fused_block as fb
     from change3d_tpu_torch.ops import repros as rp
+    from change3d_tpu_torch.train.optim import torch_adam
 
     dev = resolve_device("cuda")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
@@ -638,43 +732,62 @@ def main(argv=None) -> int:
 
     seeds = list(range(args.seed, args.seed + KERNEL_SEEDS))
     worst = phase_kernels(fb, dev, seeds, args.batch)
-    pred, plain_pred, pairs, launches, stats = phase_forward(
-        (fb, Change3D, Task, Predictor, x3d_l_config), dev, args.batch, args.batches, args.seed)
+    pkg = (fb, Change3D, Task, Predictor, x3d_l_config)
+    serving = {task: phase_forward(pkg, dev, task, args.batch, args.batches, args.seed)
+               for task in TASKS}
     repro_worst, repro_launches = phase_repros(rp, dev, seeds)
-    runs, fwd_ms, rows = phase_times(fb, worst, pred, plain_pred, pairs, args.batch, dev,
-                                     args.seed, card)
+    times = {}
+    for task in TASKS:
+        pred, plain_pred, pairs, _, _ = serving[task]
+        times[task] = serving_times(pred, plain_pred, pairs, args.batch, dev)
+    rows = kernel_rows(fb, worst, args.batch, dev, args.seed, card)
     rows += repro_rows(rp, dev, args.seed, card)
-    train = {"parity": phase_train_parity(dev, args.seed)}
+    launches = {task: serving[task][3] for task in TASKS}
+    forward_check = {task: serving[task][4] for task in TASKS}
+    del serving, pred, plain_pred, pairs
+
+    train = {"parity": {task: phase_train_parity(dev, args.seed, task) for task in TASKS}}
     model, opt, data, train["overfit_losses"] = phase_overfit(dev, args.seed)
-    train["times"] = phase_train_times(model, opt, data, card)
+    train["times"] = {"bcd": phase_train_times(model, opt, data, card)}
     del model, opt, data
-    loop_launches, train["loop"] = phase_train_loop(fb, args.seed)
+    for task in ("scd", "bda"):
+        model = Change3D(Task(task), num_classes=NUM_CLASSES[task], device=dev, seed=args.seed)
+        opt = torch_adam(model.parameters(), weight_decay=1e-4)
+        data = train_batch(np.random.RandomState(args.seed + 2), TRAIN_BATCH[task], 256, dev, task)
+        train["times"][task] = phase_train_times(model, opt, data, card)
+        del model, opt, data
+    loops = {task: phase_train_loop(fb, args.seed, task) for task in TASKS}
+    train["loop"] = {task: loops[task][1] for task in TASKS}
     print(f"kernels vs plain versions, worst over every check: {json.dumps(worst)}", flush=True)
-    for kind in ("fused", "plain"):
-        print(f"bcd predict_u8 bf16 256^2 batch {args.batch} {kind} blocks: "
-              f"{runs[kind]} pairs/s end to end, {fwd_ms[kind]} ms per forward on the device "
-              f"({card})", flush=True)
+    for task in TASKS:
+        runs, fwd_ms = times[task]
+        for kind in ("fused", "plain"):
+            print(f"{task} predict_u8 bf16 256^2 batch {args.batch} {kind} blocks: "
+                  f"{runs[kind]} pairs/s end to end, {fwd_ms[kind]} ms per forward on the "
+                  f"device ({card})", flush=True)
 
     kernels = []
     for kernel, replaces in (("fused_block_fwd", f"{PALLAS}:414 (also :216, :365)"),
                              ("fused_block_se_sums", f"{PALLAS}:199 (also :349)")):
-        mine = [r for r in rows if r["kernel"] == kernel and r["launches_per_forward"]]
-        total = lambda k: sum(r[k] * r["launches_per_forward"] for r in mine)
-        by = {}
-        for r in mine:
-            by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + r["bound_ms"] * r["launches_per_forward"]
+        worst_of = lambda dtype, k: max(w[dtype][k] for w in worst[kernel].values())
+        forwards = {task: per_forward(rows, kernel, CLIP_T[task]) for task in TASKS}
         kernels.append({
             "name": kernel, "route": "cuda", "source": SOURCE, "replaces": replaces,
-            "launches": launches[kernel],
-            "launches_per_forward": sum(r["launches_per_forward"] for r in mine),
-            "launches_train_loop": loop_launches[kernel],
-            "max_abs_err": worst[kernel]["bfloat16"]["max_abs_err"],
-            "limit_used": worst[kernel]["bfloat16"]["limit_used"],
-            "max_abs_err_fp32": worst[kernel]["float32"]["max_abs_err"],
-            "limit_used_fp32": worst[kernel]["float32"]["limit_used"],
-            "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
-            "bound_by": max(by, key=by.get), "library_ms": None,
-            "per": f"one bf16 BCD forward at batch {args.batch} (sum over its launches)",
+            "launches": launches["bcd"][kernel],
+            "launches_scd_forward": launches["scd"][kernel],
+            "launches_bda_forward": launches["bda"][kernel],
+            "launches_per_forward": forwards["bcd"]["launches_per_forward"],
+            "launches_train_loop": {task: loops[task][0][kernel] for task in TASKS},
+            "max_abs_err": worst_of("bfloat16", "max_abs_err"),
+            "limit_used": worst_of("bfloat16", "limit_used"),
+            "max_abs_err_fp32": worst_of("float32", "max_abs_err"),
+            "limit_used_fp32": worst_of("float32", "limit_used"),
+            "worst_by_t": worst[kernel],
+            "ms": forwards["bcd"]["ms"], "plain_ms": forwards["bcd"]["plain_ms"],
+            "bound_ms": forwards["bcd"]["bound_ms"], "bound_by": forwards["bcd"]["bound_by"],
+            "library_ms": None, "per_forward": forwards,
+            "per": f"one bf16 BCD forward (T=3) at batch {args.batch}, summed over its launches; "
+                   f"per_forward gives SCD (T=5) and BDA (T=4) too",
         })
     for kernel, replaces in (("dot_1d", f"{REPRO_PALLAS}:25 (pallas_call :35)"),
                              ("manual_dma", f"{REPRO_PALLAS}:39 (pallas_call :48)")):
@@ -693,8 +806,9 @@ def main(argv=None) -> int:
         })
 
     detail = {"card": card, "torch": torch.__version__, "batch": args.batch,
-              "pairs_per_s": runs, "forward_ms": fwd_ms, "forward_check": stats,
-              "rows": rows, "kernels": kernels, "train": train}
+              "pairs_per_s": {task: times[task][0] for task in TASKS},
+              "forward_ms": {task: times[task][1] for task in TASKS},
+              "forward_check": forward_check, "rows": rows, "kernels": kernels, "train": train}
     if os.path.dirname(args.out):
         os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:

@@ -70,6 +70,54 @@ def test_block_matches_plain_version(cuda, shape, has_se, dtype):
     torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
+# The X3D-L stage shapes at 256² (H=W, C, Ci, Cr) on BDA's T = 4 and SCD's
+# T = 5 clips: other tile plans than at T = 3 (tests/test_torch_fused_plan.py),
+# stage 2 at T = 5 with 7 chunks of Ci (the last 12 wide) and kAcc = 16.
+STAGES = {"stage1": (128, 24, 54, 8), "stage2": (64, 48, 108, 8), "stage3": (32, 96, 216, 16),
+          "stage4": (16, 192, 432, 32)}
+
+
+@pytest.mark.parametrize("stage", list(STAGES))
+@pytest.mark.parametrize("t", [4, 5], ids=["T4", "T5"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_block_matches_plain_version_at_t4_t5(cuda, stage, t, dtype):
+    hw, c, ci, cr = STAGES[stage]
+    tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+    for has_se in (False, True):
+        ops, se = _operands(9, cuda, dtype, 2, t, hw, hw, c, ci, cr, has_se)
+        got = fb.fused_bottleneck_block(*ops, se)
+        torch.testing.assert_close(got.float(), fb.fused_block_reference(*ops, se).float(), **tol)
+    sums = fb.fused_block_se_sums(*ops[:7])
+    _, _, _, _, n_tiles = fb.plan_tiles(t, hw, hw, c, ci, ops[0].element_size())
+    assert sums.shape == (2, n_tiles, ci)
+    assert torch.equal(fb.fused_block_se_sums(*ops[:7]), sums)  # bit-identical rerun
+
+
+@pytest.mark.parametrize("task", ["scd", "bda"])
+def test_tiny_scd_bda_models_fused_match_plain_on_card(cuda, task):
+    from change3d_tpu_torch.models.trainer import Change3D, Task
+    from change3d_tpu_torch.models.x3d import X3DConfig
+
+    tiny = dict(stem_dim_out=8, stage_dims=(8, 16, 24, 32), stage_inner_dims=(18, 36, 54, 72),
+                stage_depths=(2, 3, 3, 2))
+    kw = dict(num_classes=6 if task == "scd" else 5, in_height=32, in_width=32, device=cuda)
+    fused = Change3D(Task(task), backbone_cfg=X3DConfig(**tiny), **kw).eval()
+    plain = Change3D(Task(task), backbone_cfg=X3DConfig(**tiny, fused_inference=False),
+                     **kw).eval()
+    plain.load_state_dict(fused.state_dict())
+    rs = np.random.RandomState(3)
+    pre, post = (torch.from_numpy(rs.randn(2, 32, 32, 3).astype(np.float32)).to(cuda)
+                 for _ in range(2))
+    before = fb.fused_block_fwd.launches
+    with torch.no_grad():
+        got, want = fused(pre, post), plain(pre, post)
+    assert fb.fused_block_fwd.launches - before == 1 + 2 + 2
+    assert set(got) == set(want) == ({"pre", "post", "change"} if task == "scd"
+                                     else {"cls", "loc"})
+    for k in got:
+        torch.testing.assert_close(got[k], want[k], rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_se_sums_tiles_add_up_to_the_plain_sums(cuda, dtype):
     ops, _ = _operands(1, cuda, dtype, 2, 3, 20, 12, 24, 54, 8, False)

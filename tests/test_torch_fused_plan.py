@@ -18,10 +18,44 @@ X3D_L_STAGES = {
 }
 
 
-@pytest.mark.parametrize("stage", list(X3D_L_STAGES))
+# The same stages on BDA's T = 4 and SCD's T = 5 clips.
+X3D_L_STAGES_T45 = {
+    "t4_stage1": ((4, 128, 128, 24, 54), (8, 32, 82560, 68352, 256)),
+    "t4_stage2": ((4, 64, 64, 48, 108), (8, 32, 98304, 82176, 64)),
+    "t4_stage3": ((4, 32, 32, 96, 216), (4, 72, 97792, 74752, 64)),
+    "t4_stage4": ((4, 16, 16, 192, 432), (4, 32, 100096, 81664, 16)),
+    "t5_stage1": ((5, 128, 128, 24, 54), (8, 32, 103040, 85760, 256)),
+    "t5_stage2": ((5, 64, 64, 48, 108), (8, 16, 92800, 80256, 64)),
+    "t5_stage3": ((5, 32, 32, 96, 216), (4, 56, 101632, 81408, 64)),
+    "t5_stage4": ((5, 16, 16, 192, 432), (4, 16, 102016, 90240, 16)),
+}
+# (chunks of Ci, width of the last chunk, conv_c m16n8 accumulator tiles per
+# warp, which picks the kernel's kAcc = 8 or 16).
+CHUNKS_AND_ACC = {
+    "stage1": ((1, 54, 5), (2, 22, 6), (2, 22, 8)),
+    "stage2": ((2, 52, 9), (4, 12, 12), (7, 12, 15)),
+    "stage3": ((2, 104, 5), (3, 72, 6), (4, 48, 8)),
+    "stage4": ((9, 48, 9), (14, 16, 12), (27, 16, 15)),
+}
+
+
+@pytest.mark.parametrize("stage", list(X3D_L_STAGES) + list(X3D_L_STAGES_T45))
 def test_bf16_plan_at_the_x3d_l_stages(stage):
-    shape, want = X3D_L_STAGES[stage]
+    shape, want = {**X3D_L_STAGES, **X3D_L_STAGES_T45}[stage]
     assert fb.plan_tiles(*shape, 2) == want
+
+
+@pytest.mark.parametrize("stage", list(CHUNKS_AND_ACC))
+def test_bf16_chunks_and_accumulators_at_t3_t4_t5(stage):
+    """SCD's stage 2 (T = 5) runs 7 chunks of 16 inner channels, the last 12
+    wide, with 15 accumulator tiles per warp: the largest kAcc = 16 load."""
+    _, h, w, c, ci = X3D_L_STAGES[stage][0]
+    for t, want in zip((3, 4, 5), CHUNKS_AND_ACC[stage]):
+        tile, ck, _, _, _ = fb.plan_tiles(t, h, w, c, ci, 2)
+        chunks = -(-ci // ck)
+        acc = -(-(-(-t * tile * tile // 16)) * (c // 8) // fb.WARPS)
+        assert (chunks, ci - (chunks - 1) * ck, acc) == want, t
+        assert acc <= fb.MAX_ACC_TILES
 
 
 @pytest.mark.parametrize("shape", [(3, 128, 128, 24, 54), (3, 32, 32, 96, 216),

@@ -238,7 +238,7 @@ def test_seeded_init_follows_the_jax_distributions():
             assert 0.8 < float(g.std() / w.std()) < 1.25, k
 
 
-@pytest.mark.parametrize("task", [Task.SCD, Task.BDA, Task.CC])
+@pytest.mark.parametrize("task", [Task.CC])
 def test_other_tasks_name_their_slice(task):
     with pytest.raises(NotImplementedError, match="slice"):
         Change3D(task, in_height=16, in_width=16, backbone_cfg=X3DConfig(**TINY), device="cpu")

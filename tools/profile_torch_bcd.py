@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Device-time breakdown of change3d_tpu_torch's BCD serving forward or
-train step on one NVIDIA GPU (torch.profiler with CUDA activity).
+"""Device-time breakdown of change3d_tpu_torch's serving forward or train
+step of a detection task on one NVIDIA GPU (torch.profiler with CUDA
+activity).
 
-    python3 tools/profile_torch_bcd.py [--batch 8] [--iters 5] [--seed 0] [--plain]
-    python3 tools/profile_torch_bcd.py --train [--batch 16] [--iters 5]
+    python3 tools/profile_torch_bcd.py [--task bcd] [--batch 8] [--iters 5] [--seed 0] [--plain]
+    python3 tools/profile_torch_bcd.py --train [--task bcd] [--batch 16] [--iters 5]
 
-Builds the full-width X3D-L BCD Change3D from --seed. By default it warms
+Builds the full-width X3D-L Change3D of --task (bcd, scd with 6 classes, bda
+with 5) from --seed; --train's default batch is the CLI's (16, 8, 12). By default it warms
 ``Predictor.predict_u8_device`` up on random uint8 256^2 pairs already on the
 card, then profiles --iters forwards; --plain profiles the model with
 fused_inference=False. With --train it warms up and then profiles --iters
@@ -16,7 +18,8 @@ Prints the device time per forward (or step) by kernel name and by kernel
 group, the share of the fused-block kernels, the device's busy share of the
 profiled window (the union of kernel intervals over the span from the first
 profiled event to the last kernel's end), and the card's name and power
-limit; writes the same to chiprun_out/profile_torch_bcd[_plain|_train].json.
+limit; writes the same to
+chiprun_out/profile_torch_bcd[_scd|_bda][_plain|_train].json.
 Exits non-zero when there is no card or the trace holds no device time.
 """
 
@@ -70,13 +73,15 @@ def busy_us(intervals):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--batch", type=int, default=None, help="8 (forward) or 16 (--train)")
+    ap.add_argument("--task", default="bcd", choices=["bcd", "scd", "bda"])
+    ap.add_argument("--batch", type=int, default=None,
+                    help="8 (forward) or the CLI's train batch (--train)")
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--plain", action="store_true", help="fused_inference=False")
     ap.add_argument("--train", action="store_true", help="profile bf16 train steps")
     args = ap.parse_args(argv)
-    args.batch = args.batch or (16 if args.train else 8)
+    args.batch = args.batch or ({"bcd": 16, "scd": 8, "bda": 12}[args.task] if args.train else 8)
     if not torch.cuda.is_available():
         print("profile_torch_bcd: CUDA is not available", file=sys.stderr)
         return 2
@@ -94,14 +99,20 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[torch.cuda.current_device()]
     cfg = x3d_l_config(fused_inference=not args.plain)
-    model = Change3D(Task.BCD, backbone_cfg=cfg, device=dev, seed=args.seed)
+    num_classes = {"bcd": 1, "scd": 6, "bda": 5}[args.task]
+    model = Change3D(Task(args.task), num_classes=num_classes, backbone_cfg=cfg, device=dev,
+                     seed=args.seed)
     rs = np.random.RandomState(args.seed)
     if args.train:
         opt = torch_adam(model.parameters(), weight_decay=1e-4)
         batch = {k: torch.from_numpy(rs.randn(args.batch, 256, 256, 3).astype(np.float32)).to(dev)
                  for k in ("pre", "post")}
-        batch["label"] = torch.from_numpy(
-            (rs.rand(args.batch, 256, 256, 1) > 0.8).astype(np.int32)).to(dev)
+        shape = (args.batch, 256, 256)
+        change = (rs.rand(*shape, 1) > 0.8).astype(np.int32)
+        label = {"bcd": lambda: change,
+                 "scd": lambda: np.concatenate([rs.randint(0, 6, shape + (2,)), change], -1),
+                 "bda": lambda: np.concatenate([change, rs.randint(0, 5, shape + (1,))], -1)}
+        batch["label"] = torch.from_numpy(label[args.task]().astype(np.int32)).to(dev)
         run = lambda: train_step(model, opt, lambda _: 2e-4, batch, 0,
                                  compute_dtype=torch.bfloat16)
     else:
@@ -150,7 +161,7 @@ def main(argv=None) -> int:
         spans.setdefault(group_of(e.name), []).append((e.time_range.start, e.time_range.end))
     for g, v in groups.items():
         v["busy_ms_per_forward"] = busy_us(spans[g]) / args.iters / 1e3
-    summary = {"card": card, "mode": "train" if args.train else "forward",
+    summary = {"card": card, "task": args.task, "mode": "train" if args.train else "forward",
                "fused_inference": not args.plain, "batch": args.batch, "iters": args.iters,
                "window_ms_per_forward": (end - start) / args.iters / 1e3,
                "kernel_ms_per_forward": device_ms, "fused_block_ms_per_forward": fused_ms,
@@ -165,7 +176,9 @@ def main(argv=None) -> int:
               f"{v['launches']:8.1f}x  [{g}]")
     print(json.dumps({k: v for k, v in summary.items() if k not in ("kernels", "groups")}))
     os.makedirs("chiprun_out", exist_ok=True)
-    out = f"profile_torch_bcd{'_plain' if args.plain else ''}{'_train' if args.train else ''}.json"
+    task = "" if args.task == "bcd" else f"_{args.task}"
+    out = (f"profile_torch_bcd{task}{'_plain' if args.plain else ''}"
+           f"{'_train' if args.train else ''}.json")
     with open(os.path.join("chiprun_out", out), "w") as f:
         json.dump(summary, f, indent=1)
     return 0
