@@ -12,9 +12,12 @@ kernels to the port's layouts:
   up      (kh,kw,I,O)           -> (I, O, kh, kw)  (ConvTranspose, not flipped)
   block-0 projection (1,1,1,I,O) -> [I, O]
   pointwise / SE / FC [I, O]    -> unchanged
+  caption decoder (``decoder/...``: embedding, attention and output
+  matrices [in, out], LayerNorm scale/bias) -> unchanged
 
-A tree without ``stage4``/``head`` is accepted (flax never materialises them
-for detection tasks); the classifier head is not ported and is dropped.
+Detection trees come without ``stage4`` (flax never materialises it there);
+a CC tree has stage4 for CC and the caption decoder. The classifier head is
+not ported and is dropped.
 """
 
 from __future__ import annotations

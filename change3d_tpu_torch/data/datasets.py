@@ -6,14 +6,18 @@ read through ``data/png.py``; every file is checked up front.
   BDA  {root}/{split}/{t1,t2,label1,label2}; the label files' names rewrite
        'disaster' to 'disaster_target'                                 (xBD)
 
+  CC   {root}/{SPLIT}_IMAGES_{ds}.hdf5 ([N, 2, 3, H, W] uint8) +
+       {SPLIT}_CAPTIONS_{ds}.json + {SPLIT}_CAPLENS_{ds}.json, 5 captions
+       per image                                          (LEVIR-CC / DUBAI-CC)
+
 Images come in RGB order, except BDA's, which the JAX package reads in BGR
 (as the reference reads xBD with cv2 and trains on BGR). Labels are gray:
-BCD one mask [H, W], SCD [label1, label2, change], BDA [loc, cls]. The CC
-reader arrives with its slice.
+BCD one mask [H, W], SCD [label1, label2, change], BDA [loc, cls].
 """
 
 from __future__ import annotations
 
+import json
 import os
 from os.path import join as osp
 from typing import List, Optional
@@ -88,3 +92,46 @@ class BDADataset(_PairDataset):
 
 
 DATASETS = {"bcd": BCDDataset, "scd": SCDDataset, "bda": BDADataset}
+
+
+class CaptionDataset:
+    """LEVIR-CC / DUBAI-CC captions: one sample per caption row, images
+    normalised with ImageNet's mean and std; training swaps the pair with
+    p = 0.3 (a draw from the sample's generator). Eval splits add the
+    image's ``all_captions`` [cpi, L]. h5py is imported when a dataset is
+    opened, so the package imports without it."""
+
+    MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+    STD = np.array([0.229, 0.224, 0.225], np.float32)
+
+    def __init__(self, file_root: str, dataset: str, split: str):
+        import h5py
+
+        self.split = split.upper()
+        self.h5 = h5py.File(osp(file_root, f"{self.split}_IMAGES_{dataset}.hdf5"), "r")
+        self.images = self.h5["images"]
+        with open(osp(file_root, f"{self.split}_CAPTIONS_{dataset}.json")) as f:
+            self.captions = json.load(f)
+        with open(osp(file_root, f"{self.split}_CAPLENS_{dataset}.json")) as f:
+            self.caplens = json.load(f)
+        self.cpi = int(self.h5.attrs.get("captions_per_image", 5))
+
+    def __len__(self) -> int:
+        return len(self.captions)
+
+    def __getitem__(self, idx: int, rng: Optional[np.random.Generator] = None):
+        rng = rng or np.random.default_rng()
+        img_idx = idx // self.cpi
+        img = np.asarray(self.images[img_idx], np.float32) / 255.0  # [2, 3, H, W]
+        img = (img.transpose(0, 2, 3, 1) - self.MEAN) / self.STD
+        if self.split == "TRAIN" and rng.random() < 0.3:
+            img = img[::-1].copy()
+        out = {"pre": img[0], "post": img[1], "caption": np.asarray(self.captions[idx], np.int32),
+               "length": int(np.asarray(self.caplens[idx]).reshape(-1)[0])}
+        if self.split != "TRAIN":
+            start = img_idx * self.cpi
+            out["all_captions"] = np.asarray(self.captions[start:start + self.cpi], np.int32)
+        return out
+
+    def close(self) -> None:
+        self.h5.close()

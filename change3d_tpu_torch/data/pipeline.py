@@ -171,6 +171,16 @@ def pair_collate(samples) -> Dict[str, np.ndarray]:
     }
 
 
+def caption_collate(samples) -> Dict[str, np.ndarray]:
+    """CaptionDataset samples -> {'pre', 'post', 'caption', 'length'[,
+    'all_captions']}."""
+    out = {k: np.stack([s[k] for s in samples]) for k in ("pre", "post", "caption")}
+    out["length"] = np.asarray([s["length"] for s in samples], np.int32)
+    if "all_captions" in samples[0]:
+        out["all_captions"] = np.stack([s["all_captions"] for s in samples])
+    return out
+
+
 def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
     """numpy batch -> tensors on ``device``; on the card through pinned host
     memory with a non-blocking copy."""

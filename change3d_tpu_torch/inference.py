@@ -6,16 +6,25 @@ depend on the batch. ``predict_u8`` keeps the whole pipeline on the device:
 uint8 pixels up, hardened (and bitpacked) masks down. The heads by task
 (``models/trainer.py``): BCD 'change'; SCD 'pre', 'post' (classes) and
 'change'; BDA 'cls' (classes) and 'loc'.
+
+``CaptionPredictor`` wraps a CC model: the encoder (fused blocks on the
+card), then the KV-cached beam search; sentences out.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
+from change3d_tpu_torch.data.datasets import CaptionDataset
 from change3d_tpu_torch.device import resolve_device
+from change3d_tpu_torch.models.caption_decoder import (
+    MAX_CAPTION_LEN,
+    beam_search_decode,
+    incremental_fns,
+)
 from change3d_tpu_torch.models.trainer import Change3D
 
 _CLASS_KEYS = ("pre", "post", "cls")
@@ -121,3 +130,63 @@ class Predictor:
                 arr = np.unpackbits(arr, axis=-1).astype(bool)[..., :w]
             fetched[key] = arr
         return fetched
+
+
+def tokens_to_captions(tokens, word_map: Dict[str, int]) -> List[str]:
+    """Decoded id rows -> sentences, without <start>/<end>/<pad>."""
+    rev = {v: k for k, v in word_map.items()}
+    special = {word_map["<start>"], word_map["<end>"], word_map.get("<pad>", 0)}
+    return [" ".join(rev.get(int(t), "<unk>") for t in row if int(t) not in special)
+            for row in np.asarray(tokens)]
+
+
+class CaptionPredictor(Predictor):
+    """Captions for image pairs from a CC ``Change3D``: the encoder in
+    ``compute_dtype``, then ``beam_search_decode`` with ``beam_size`` beams
+    over the KV-cached decode step, at most MAX_CAPTION_LEN tokens."""
+
+    def __init__(self, model: Change3D, word_map: Dict[str, int], *, beam_size: int = 1,
+                 compute_dtype: torch.dtype = torch.bfloat16, device="cuda"):
+        super().__init__(model, compute_dtype=compute_dtype, device=device)
+        self.word_map = word_map
+        self.beam_size = beam_size
+        self._mean = torch.from_numpy(CaptionDataset.MEAN).to(self.device)
+        self._std = torch.from_numpy(CaptionDataset.STD).to(self.device)
+
+    @torch.inference_mode()
+    def encode(self, pre: torch.Tensor, post: torch.Tensor) -> torch.Tensor:
+        """Device tensors [B, H, W, 3] -> the image memory [B, h*w, C] in
+        ``compute_dtype``. uint8 pixels are normalised here with ImageNet's
+        mean and std (``CaptionDataset``'s), in fp32 before the cast; float
+        images are taken as normalised."""
+        if pre.dtype == torch.uint8:
+            norm = lambda a: (a.float() / 255.0 - self._mean) / self._std
+            pre, post = norm(pre), norm(post)
+        return self.model(pre.to(self.compute_dtype), post.to(self.compute_dtype))["memory"]
+
+    @torch.inference_mode()
+    def decode(self, memory: torch.Tensor, **kw) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Beam search over ``memory``: (tokens [B, MAX_CAPTION_LEN],
+        scores [B]) on the device; ``kw`` goes to ``beam_search_decode``."""
+        wm = self.word_map
+        return beam_search_decode(
+            self.model.decode_captions, memory, beam_size=self.beam_size,
+            start_token=wm["<start>"], end_token=wm["<end>"], pad_token=wm.get("<pad>", 0),
+            max_len=MAX_CAPTION_LEN, incremental=incremental_fns(self.model), **kw)
+
+    def caption_device(self, pre: torch.Tensor, post: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Device tensors in (uint8 or normalised floats), (tokens, scores)
+        on the device out."""
+        return self.decode(self.encode(pre, post))
+
+    def caption(self, pre: np.ndarray, post: np.ndarray) -> List[str]:
+        """Normalised float [B, H, W, 3] pairs -> one sentence per pair."""
+        tokens, _ = self.caption_device(self._put(pre.astype(np.float32)),
+                                        self._put(post.astype(np.float32)))
+        return tokens_to_captions(tokens.cpu().numpy(), self.word_map)
+
+    def caption_u8(self, pre: np.ndarray, post: np.ndarray) -> List[str]:
+        """Raw uint8 [B, H, W, 3] pairs; only uint8 pixels go to the device."""
+        tokens, _ = self.caption_device(self._put(pre), self._put(post))
+        return tokens_to_captions(tokens.cpu().numpy(), self.word_map)

@@ -36,3 +36,13 @@ def kaiming_normal_relu_init(generator, shape, fan_in: int) -> torch.Tensor:
 
 def normal_init(generator, shape) -> torch.Tensor:
     return torch.randn(tuple(shape), generator=generator)
+
+
+def uniform_init(generator, shape, scale: float) -> torch.Tensor:
+    """U(-scale, scale)."""
+    return _uniform(generator, shape, scale)
+
+
+def xavier_uniform_init(generator, shape, fan_in: int, fan_out: int) -> torch.Tensor:
+    """Xavier/Glorot uniform: U(+-sqrt(6 / (fan_in + fan_out)))."""
+    return _uniform(generator, shape, math.sqrt(6.0 / (fan_in + fan_out)))

@@ -1,0 +1,338 @@
+"""Autoregressive caption decoder (transformer) and batched beam search
+(counterpart of ``change3d_tpu/models/caption_decoder.py``).
+
+The live path of the reference decoder layer: self-attention -> norm1 ->
+cross-attention over the image memory -> norm2, with a sinusoidal position
+encoding, a uniform(-0.1, 0.1) embedding and output projection, and dropout
+where JAX puts it: the position encoding (always 0.1, ``pe_dropout``), the
+attention weights, the two residual branches and before the output
+projection. Dropout draws from the ``generator`` passed to ``forward`` /
+``decode`` and is active only in ``train()`` mode.
+
+Layout: batch-first [B, L, E]. Names are the JAX variable names
+(``vocab_embedding``, ``layer{i}.{self_attn,cross_attn}.{in_proj_w,
+in_proj_b,out_w,out_b}``, ``layer{i}.norm{1,2}.{scale,bias}``, ``out_w``,
+``out_b``), so ``checkpoint/convert.py`` bridges the trees unchanged; the
+position table is a buffer outside the state_dict.
+
+``beam_search_decode`` keeps the JAX search step for step (retirement,
+shrinking live width, running best, the -1e6 log-prob clamp, the fallback to
+the best live beam, the k = 1 fast path) in a Python loop of fixed-shape
+device ops; ranking ties go to the lower index, as ``jax.lax.top_k`` ranks
+them.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from change3d_tpu_torch.init import kaiming_normal_relu_init, uniform_init, xavier_uniform_init
+from change3d_tpu_torch.ops.attention import (
+    attend_projected,
+    causal_mask,
+    dropout,
+    multi_head_attention,
+    project_kv,
+    project_q,
+)
+from change3d_tpu_torch.ops.layers import linear
+
+MAX_CAPTION_LEN = 52
+# The position table's length (JAX builds 5000 rows).
+PE_ROWS = 5000
+
+Cache = Tuple[Dict[str, torch.Tensor], ...]
+MemoryKV = Tuple[Tuple[torch.Tensor, torch.Tensor], ...]
+
+
+def sinusoidal_position_encoding(max_len: int, d_model: int) -> torch.Tensor:
+    """[max_len, d_model] fp32: sin on even columns, cos on odd ones."""
+    position = torch.arange(max_len, dtype=torch.float32)[:, None]
+    div_term = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float32)
+                         * (-math.log(10000.0) / d_model))
+    pe = torch.zeros((max_len, d_model), dtype=torch.float32)
+    pe[:, 0::2] = torch.sin(position * div_term)
+    pe[:, 1::2] = torch.cos(position * div_term)
+    return pe
+
+
+class MHAParams(nn.Module):
+    """A torch ``nn.MultiheadAttention``'s parameters in the JAX layout:
+    in_proj Xavier-uniform, out_proj Kaiming-normal (ReLU gain), zero
+    biases. Exposes the projection pieces the KV-cached decode uses."""
+
+    def __init__(self, embed_dim: int, num_heads: int, dropout_rate: float,
+                 generator: torch.Generator):
+        super().__init__()
+        e = embed_dim
+        self.embed_dim, self.num_heads, self.dropout = e, num_heads, dropout_rate
+        self.in_proj_w = nn.Parameter(xavier_uniform_init(generator, (e, 3 * e), e, 3 * e))
+        self.in_proj_b = nn.Parameter(torch.zeros(3 * e))
+        self.out_w = nn.Parameter(kaiming_normal_relu_init(generator, (e, e), e))
+        self.out_b = nn.Parameter(torch.zeros(e))
+
+    def params(self) -> Dict[str, torch.Tensor]:
+        return {"in_proj_w": self.in_proj_w, "in_proj_b": self.in_proj_b,
+                "out_w": self.out_w, "out_b": self.out_b}
+
+    def forward(self, q, k, v, *, attn_mask=None, generator=None) -> torch.Tensor:
+        rate = self.dropout if self.training else 0.0
+        return multi_head_attention(q, k, v, self.params(), self.num_heads, attn_mask=attn_mask,
+                                    dropout_rate=rate, generator=generator)
+
+    def project_kv(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        return project_kv(x, self.params(), self.embed_dim)
+
+    def attend_step(self, q_t, kp, vp, *, attn_mask=None) -> torch.Tensor:
+        """Single-query attention against projected keys/values (no dropout)."""
+        p = self.params()
+        return attend_projected(project_q(q_t, p), kp, vp, self.num_heads, p["out_w"], p["out_b"],
+                                attn_mask=attn_mask)
+
+
+class LayerNorm(nn.Module):
+    """torch nn.LayerNorm over the last axis, eps 1e-5, fp32 statistics,
+    cast back to the input dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        mean = x32.mean(-1, keepdim=True)
+        var = (x32 - mean).square().mean(-1, keepdim=True)
+        y = (x32 - mean) * torch.rsqrt(var + self.eps) * self.scale + self.bias
+        return y.to(x.dtype)
+
+
+class CaptionDecoderLayer(nn.Module):
+    def __init__(self, embed_dim: int, num_heads: int, dropout_rate: float,
+                 generator: torch.Generator):
+        super().__init__()
+        self.dropout = dropout_rate
+        self.self_attn = MHAParams(embed_dim, num_heads, dropout_rate, generator)
+        self.cross_attn = MHAParams(embed_dim, num_heads, dropout_rate, generator)
+        self.norm1 = LayerNorm(embed_dim)
+        self.norm2 = LayerNorm(embed_dim)
+
+    def _drop(self, x, generator):
+        return dropout(x, self.dropout if self.training else 0.0, generator)
+
+    def forward(self, tgt, memory, *, tgt_mask=None, generator=None) -> torch.Tensor:
+        sa = self.self_attn(tgt, tgt, tgt, attn_mask=tgt_mask, generator=generator)
+        x1 = self.norm1(tgt + self._drop(sa, generator))
+        ca = self.cross_attn(x1, memory, memory, generator=generator)
+        return self.norm2(x1 + self._drop(ca, generator))
+
+    def step(self, x_t: torch.Tensor, memory_kv, cache: Dict[str, torch.Tensor], pos: int):
+        """KV-cached single-token step (no dropout). x_t: [B, 1, E];
+        memory_kv: this layer's projected cross-attention (k, v) [B, S, E];
+        cache {'k', 'v'} [B, Lmax, E], written in place at ``pos``. Returns
+        (y_t [B, 1, E], cache): column ``pos`` of the full re-decode."""
+        k_t, v_t = self.self_attn.project_kv(x_t)
+        cache["k"][:, pos] = k_t[:, 0].to(cache["k"].dtype)
+        cache["v"][:, pos] = v_t[:, 0].to(cache["v"].dtype)
+        lmax = cache["k"].shape[1]
+        mask = torch.zeros((1, lmax), dtype=torch.float32, device=x_t.device)
+        mask[:, pos + 1:] = float("-inf")  # causal: positions <= pos only
+        sa = self.self_attn.attend_step(x_t, cache["k"], cache["v"], attn_mask=mask)
+        x1 = self.norm1(x_t + sa)
+        mk, mv = memory_kv
+        return self.norm2(x1 + self.cross_attn.attend_step(x1, mk, mv)), cache
+
+
+class CaptionDecoder(nn.Module):
+    def __init__(self, vocab_size: int, embed_dim: int = 192, num_heads: int = 8,
+                 num_layers: int = 3, dropout_rate: float = 0.1, *,
+                 generator: torch.Generator):
+        super().__init__()
+        self.vocab_size, self.embed_dim, self.num_layers = vocab_size, embed_dim, num_layers
+        self.dropout = dropout_rate
+        self.pe_dropout = 0.1  # JAX's position-encoding dropout is fixed at 0.1
+        self.vocab_embedding = nn.Parameter(uniform_init(generator, (vocab_size, embed_dim), 0.1))
+        self.register_buffer("pe", sinusoidal_position_encoding(PE_ROWS, embed_dim),
+                             persistent=False)
+        for i in range(num_layers):
+            self.add_module(f"layer{i}", CaptionDecoderLayer(embed_dim, num_heads, dropout_rate,
+                                                             generator))
+        self.out_w = nn.Parameter(uniform_init(generator, (embed_dim, vocab_size), 0.1))
+        self.out_b = nn.Parameter(torch.zeros(vocab_size))
+
+    def layers(self) -> List[CaptionDecoderLayer]:
+        return [getattr(self, f"layer{i}") for i in range(self.num_layers)]
+
+    def decode(self, tokens: torch.Tensor, memory: torch.Tensor, *,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """tokens: [B, L] int, memory: [B, S, E] -> logits [B, L, V] in
+        memory's dtype."""
+        l = tokens.shape[1]
+        x = F.embedding(tokens.long(), self.vocab_embedding).to(memory.dtype)
+        x = x + self.pe[:l].to(x.dtype)
+        train = self.training
+        x = dropout(x, self.pe_dropout if train else 0.0, generator)
+        mask = causal_mask(l, device=memory.device)
+        for layer in self.layers():
+            x = layer(x, memory, tgt_mask=mask, generator=generator)
+        x = dropout(x, self.dropout if train else 0.0, generator)
+        return linear(x, self.out_w, self.out_b)
+
+    def forward(self, memory: torch.Tensor, captions: torch.Tensor, *,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Teacher-forced scores: position t predicts caption[t + 1]."""
+        return self.decode(captions, memory, generator=generator)
+
+    # -- KV-cached incremental decode (eval) --------------------------------
+
+    def init_decode_cache(self, batch: int, max_len: int, dtype: Optional[torch.dtype] = None,
+                          device=None) -> Cache:
+        """Per-layer self-attention K/V caches [B, max_len, E] in ``dtype``
+        (pass memory's, so bf16 serving carries bf16 caches)."""
+        device = device if device is not None else self.out_w.device
+        z = lambda: torch.zeros((batch, max_len, self.embed_dim), dtype=dtype or torch.float32,
+                                device=device)
+        return tuple({"k": z(), "v": z()} for _ in range(self.num_layers))
+
+    def precompute_memory_kv(self, memory: torch.Tensor) -> MemoryKV:
+        """Each layer's cross-attention keys/values, projected once per decode."""
+        return tuple(layer.cross_attn.project_kv(memory) for layer in self.layers())
+
+    def decode_step(self, tokens_t: torch.Tensor, memory_kv: MemoryKV, cache: Cache, pos: int):
+        """tokens_t: [B] tokens at position ``pos`` -> (logits [B, V] for
+        position pos + 1, cache): column ``pos`` of ``decode`` on the full
+        prefix at O(1) attention work per step."""
+        x = F.embedding(tokens_t.long(), self.vocab_embedding)[:, None]
+        x = x.to(memory_kv[0][0].dtype)
+        x = x + self.pe[pos:pos + 1].to(x.dtype)[None]
+        for layer, mkv, c in zip(self.layers(), memory_kv, cache):
+            x, _ = layer.step(x, mkv, c, pos)
+        return linear(x[:, 0], self.out_w, self.out_b), cache
+
+
+def beam_search_decode(
+    apply_fn: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]],
+    memory: torch.Tensor,
+    *,
+    beam_size: int,
+    start_token: int,
+    end_token: int,
+    pad_token: int = 0,
+    max_len: int = MAX_CAPTION_LEN,
+    incremental: Optional[Sequence[Callable]] = None,
+    early_exit: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fixed-shape batched beam search with the JAX semantics: cumulative
+    log-prob ranking; a beam that emits <end> retires (recorded, live width
+    shrinks by one); the answer is the best completion over the whole
+    search; with no completion, the best live beam.
+
+    ``apply_fn(tokens [B*k, L], memory [B*k, S, E]) -> logits [B*k, L, V]``
+    re-decodes the whole prefix each step. ``incremental`` = (precompute(memory)
+    -> memory_kv, init_cache(batch, max_len, dtype) -> cache, step(tokens_t,
+    memory_kv, cache, pos) -> (logits, cache)) decodes one token per step
+    against per-layer KV caches instead, with identical results.
+
+    With ``early_exit`` the loop stops once no beam in the batch is alive
+    (a check before each step, which waits for the device); a step after
+    every beam retired changes nothing the result depends on, so the
+    results equal the full ``max_len`` loop's. The number of steps run is
+    left in ``beam_search_decode.steps``.
+
+    memory: [B, S, E]. Returns (tokens [B, max_len] int64, scores [B] fp32).
+    """
+    b = memory.shape[0]
+    k = beam_size
+    dev = memory.device
+    neg_inf = -1e9
+    batch_ids = torch.arange(b, device=dev)
+
+    # k = 1 (greedy): every repeat and parent gather is the identity; skip them.
+    mem = memory if k == 1 else memory.repeat_interleave(k, dim=0)  # [B*k, S, E]
+    tokens = torch.full((b * k, max_len), pad_token, dtype=torch.int64, device=dev)
+    tokens[:, 0] = start_token
+    # Beam 0 live, the others at neg_inf, so the first expansion fans out of one beam.
+    first = torch.arange(k, device=dev) == 0
+    scores = torch.where(first, 0.0, neg_inf).to(torch.float32).repeat(b)
+    alive = first.repeat(b)
+    n_live = torch.full((b,), k, dtype=torch.int64, device=dev)
+    best_tokens = torch.full((b, max_len), pad_token, dtype=torch.int64, device=dev)
+    best_scores = torch.full((b,), neg_inf, dtype=torch.float32, device=dev)
+    slot = torch.arange(k, device=dev)[None, :]
+
+    if incremental is not None:
+        precompute_fn, init_cache_fn, step_fn = incremental
+        # Project from the un-repeated memory, then repeat the projections.
+        mem_kv = precompute_fn(memory)
+        if k > 1:
+            mem_kv = tuple(tuple(a.repeat_interleave(k, dim=0) for a in kv) for kv in mem_kv)
+        cache = init_cache_fn(b * k, max_len, memory.dtype)
+
+    t = 1
+    while t < max_len:
+        if early_exit and t > 1 and not bool(alive.any()):
+            break
+        if incremental is not None:
+            step_logits, cache = step_fn(tokens[:, t - 1], mem_kv, cache, t - 1)
+            logp = torch.log_softmax(step_logits.float(), dim=-1)
+        else:
+            logp = torch.log_softmax(apply_fn(tokens, mem)[:, t - 1].float(), dim=-1)
+        # Underflowed log-probs stay above the dead-slot sentinel.
+        logp = torch.clamp_min(logp, -1e6)
+        v = logp.shape[-1]
+        cand = torch.where(alive[:, None], scores[:, None] + logp, neg_inf).reshape(b, k * v)
+        if k == 1:
+            top_idx = torch.argmax(cand, dim=-1, keepdim=True)  # first of equal maxima
+            top_scores = torch.gather(cand, 1, top_idx)
+            tokens = tokens.reshape(b, 1, max_len)
+        else:
+            # Stable descending sort: equal scores rank by lower index (jax.lax.top_k).
+            top_scores, top_idx = torch.sort(cand, dim=-1, descending=True, stable=True)
+            top_scores, top_idx = top_scores[:, :k], top_idx[:, :k]
+            flat_idx = (top_idx // v + batch_ids[:, None] * k).reshape(-1)
+            tokens = tokens[flat_idx].reshape(b, k, max_len)
+        tok_idx = top_idx % v
+        tokens[:, :, t] = tok_idx
+        kept = (slot < n_live[:, None]) & (top_scores > neg_inf / 2)
+        done_now = kept & (tok_idx == end_token)
+        masked = torch.where(done_now, top_scores, neg_inf)
+        step_best, step_arg = masked.max(dim=1).values, torch.argmax(masked, dim=1)
+        improved = step_best > best_scores
+        best_scores = torch.where(improved, step_best, best_scores)
+        best_tokens = torch.where(improved[:, None], tokens[batch_ids, step_arg], best_tokens)
+        n_live = n_live - done_now.sum(dim=1)
+        alive = (kept & ~done_now).reshape(-1)
+        scores = torch.where(alive, top_scores.reshape(-1), neg_inf)
+        tokens = tokens.reshape(b * k, max_len)
+        if incremental is not None and k > 1:
+            # Beams follow their parents: the caches reorder with the gather.
+            cache = tuple({n: a[flat_idx] for n, a in c.items()} for c in cache)
+        t += 1
+    beam_search_decode.steps = t - 1
+
+    any_done = best_scores > neg_inf / 2
+    live_scores = torch.where(alive, scores, neg_inf).reshape(b, k)
+    fb = torch.argmax(live_scores, dim=1)
+    fb_tokens = tokens.reshape(b, k, max_len)[batch_ids, fb]
+    out_tokens = torch.where(any_done[:, None], best_tokens, fb_tokens)
+    out_scores = torch.where(any_done, best_scores, live_scores[batch_ids, fb])
+    return out_tokens, out_scores
+
+
+beam_search_decode.steps = 0
+
+
+def incremental_fns(model) -> Tuple[Callable, Callable, Callable]:
+    """(precompute, init_cache, step) for ``beam_search_decode``'s KV-cached
+    mode, from a module with the decode-step surface (``CaptionDecoder``,
+    or ``Change3D`` which forwards to its decoder)."""
+    step = getattr(model, "decode_captions_step", None) or model.decode_step
+    return (model.precompute_memory_kv,
+            lambda batch, max_len, dtype=None: model.init_decode_cache(batch, max_len, dtype),
+            step)

@@ -4,13 +4,17 @@ perception frames + X3D + temporal-difference enhancement.
 pre, N learned perception frames and post form a [B, N+2, H, W, 3] clip.
 After each of blocks 0..3 (stem..stage3), |pre - post| at that scale goes
 through a per-stage 1x1 conv + ReLU and is added to the middle frame. The
-taps are the features at temporal indices 1..N. The CC path (stage-4
-feature without enhancement) arrives with the CC slice.
+taps are the features at temporal indices 1..N.
+
+With ``output_final`` (the CC encoder) the backbone has stage 4 and the
+encoder runs blocks 0..4 without enhancement, returning the stage-4 feature
+of frame N. It builds no ``fc0..fc3``: the JAX CC tree has none, since its
+enhancement convs are never called on that path.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Optional
 
 import torch
 from torch import nn
@@ -41,16 +45,19 @@ class EnhanceFC(nn.Module):
 
 class Encoder(nn.Module):
     def __init__(self, num_perception_frames: int, in_height: int = 256, in_width: int = 256,
-                 cfg: Optional[X3DConfig] = None, *, generator: torch.Generator):
+                 cfg: Optional[X3DConfig] = None, *, generator: torch.Generator,
+                 output_final: bool = False):
         super().__init__()
         cfg = cfg or x3d_l_config()
         self.num_perception_frames = num_perception_frames
-        self.x3d = X3D(cfg, num_stages=3, generator=generator)
+        self.output_final = output_final
+        self.x3d = X3D(cfg, num_stages=4 if output_final else 3, generator=generator)
         self.perception_frames = nn.Parameter(
             normal_init(generator, (1, num_perception_frames, in_height, in_width, 3))
         )
-        for i, dim in enumerate(tap_dims(cfg)):
-            self.add_module(f"fc{i}", EnhanceFC(dim, generator))
+        if not output_final:
+            for i, dim in enumerate(tap_dims(cfg)):
+                self.add_module(f"fc{i}", EnhanceFC(dim, generator))
 
     def _stack_frames(self, pre: torch.Tensor, post: torch.Tensor) -> torch.Tensor:
         percep = self.perception_frames.to(pre.dtype).expand(
@@ -66,10 +73,15 @@ class Encoder(nn.Module):
         x[:, middle] += enh
         return x
 
-    def forward(self, pre: torch.Tensor, post: torch.Tensor) -> List[List[torch.Tensor]]:
+    def forward(self, pre: torch.Tensor, post: torch.Tensor):
         """pre/post: [B, H, W, 3]. Returns 4 stages x N per-frame features
-        [B, H', W', C'] at strides 1, 2, 4, 8."""
+        [B, H', W', C'] at strides 1, 2, 4, 8; with ``output_final`` the
+        stage-4 feature of frame N, [B, H/16, W/16, C4]."""
         x = self._stack_frames(pre, post)
+        if self.output_final:
+            for i in range(5):
+                x = self.x3d.run_block(i, x)
+            return x[:, self.num_perception_frames]
         taps = []
         for i in range(4):
             x = self._enhance(self.x3d.run_block(i, x), i)

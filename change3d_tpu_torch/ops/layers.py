@@ -85,6 +85,16 @@ def conv_transpose2d(
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x: [..., in], w: [in, out]. The product accumulates in fp32 and is
+    rounded to x's dtype before the bias is added in that dtype, as JAX's
+    ``dot_general(preferred_element_type=f32).astype(x.dtype) + b``."""
+    y = torch.matmul(x, w.to(x.dtype))
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
 def swish(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 

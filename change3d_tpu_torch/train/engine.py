@@ -1,5 +1,5 @@
-"""Detection train and eval steps (counterpart of
-``change3d_tpu/train/engine.py``) for BCD, SCD and BDA.
+"""Train and eval steps (counterpart of ``change3d_tpu/train/engine.py``)
+for BCD, SCD, BDA and CC.
 
 ``train_step`` runs the forward in ``train()`` mode (batch-statistics BN,
 every block on plain ops, as JAX trains), the task's loss in fp32,
@@ -11,10 +11,13 @@ metrics as device tensors, so nothing syncs with the host per step:
   BCD: {'cm'}                              2x2 [gt, pred]
   SCD: {'cm', 'acc_correct', 'acc_total'}  KxK [pred, label] over pre and post
   BDA: {'loc_cm', 'cls_cm'}                2x2 and KxK [gt, pred]
+  CC:  {'top1'}                            teacher-forced token accuracy, %
 
 The losses are JAX's: BCD BCEDice; SCD 0.5 (CE_pre + CE_post) + BCEDice
 (change) + change similarity, CE ignoring class 0 over changed pixels;
-BDA CE(loc * cls, ignore 0) + BCEDice(loc).
+BDA CE(loc * cls, ignore 0) + BCEDice(loc); CC the teacher-forced caption CE
+(padding ignored). CC's caption decoder draws its train-mode dropout from
+the ``generator`` passed to ``train_step``.
 
 With ``compute_dtype`` the images enter the model in that dtype; the
 parameters stay fp32 and each op casts them to the activation dtype, BN
@@ -23,7 +26,7 @@ statistics stay fp32.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Mapping, Optional, Tuple, Union
 
 import torch
 
@@ -31,6 +34,8 @@ from change3d_tpu_torch.metrics.confusion import confusion_matrix
 from change3d_tpu_torch.models.trainer import Task
 from change3d_tpu_torch.train.losses import (
     bce_dice_loss,
+    caption_cross_entropy,
+    caption_top_k_accuracy,
     change_similarity_loss,
     cross_entropy_2d,
 )
@@ -49,10 +54,12 @@ def _valid_gt(batch: Dict[str, torch.Tensor], gt: torch.Tensor) -> torch.Tensor:
     return torch.where(valid.reshape(shape), gt, -1)
 
 
-def _forward(model, batch, compute_dtype):
+def _forward(model, batch, compute_dtype, generator=None):
     pre, post = batch["pre"], batch["post"]
     if compute_dtype is not None:
         pre, post = pre.to(compute_dtype), post.to(compute_dtype)
+    if model.task == Task.CC:
+        return model(pre, post, batch["caption"], generator=generator)
     return model(pre, post)
 
 
@@ -105,20 +112,32 @@ def _bda_loss_metrics(outputs, batch) -> Tuple[torch.Tensor, Metrics]:
     return loss, {"loc_cm": loc_cm, "cls_cm": cls_cm}
 
 
+def _cc_loss_metrics(outputs, batch) -> Tuple[torch.Tensor, Metrics]:
+    logits = outputs["logits"]
+    loss = caption_cross_entropy(logits, batch["caption"], batch["length"], ignore_index=0)
+    with torch.no_grad():
+        top1 = caption_top_k_accuracy(logits, batch["caption"], batch["length"], k=1)
+    return loss, {"top1": top1}
+
+
 _TASK_FNS = {Task.BCD: _bcd_loss_metrics, Task.SCD: _scd_loss_metrics,
-             Task.BDA: _bda_loss_metrics}
+             Task.BDA: _bda_loss_metrics, Task.CC: _cc_loss_metrics}
 
 
 def train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
-               schedule: Callable[[int], float], batch: Dict[str, torch.Tensor], step: int, *,
-               compute_dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
-    """One optimizer step at learning rate ``schedule(step)``; ``step`` is
-    the number of steps already taken. Returns the loss and the task's
-    metrics on the device."""
+               schedule: Callable[[int], Union[float, Mapping[str, float]]],
+               batch: Dict[str, torch.Tensor], step: int, *,
+               compute_dtype: Optional[torch.dtype] = None,
+               generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+    """One optimizer step at learning rate ``schedule(step)`` (one rate, or
+    one per parameter-group name); ``step`` is the number of steps already
+    taken. ``generator`` (on the model's device) feeds CC's dropout.
+    Returns the loss and the task's metrics on the device."""
     model.train()
     set_lr(opt, schedule(step))
     opt.zero_grad(set_to_none=True)
-    loss, metrics = _TASK_FNS[model.task](_forward(model, batch, compute_dtype), batch)
+    outputs = _forward(model, batch, compute_dtype, generator)
+    loss, metrics = _TASK_FNS[model.task](outputs, batch)
     loss.backward()
     opt.step()
     return dict(metrics, loss=loss.detach())

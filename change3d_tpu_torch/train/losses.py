@@ -1,7 +1,7 @@
-"""Detection losses (counterpart of ``change3d_tpu/train/losses.py``), all
-reductions in fp32: BCD's ``bce_dice_loss``, and SCD/BDA's
-``cross_entropy_2d`` and ``change_similarity_loss``. The CC loss arrives
-with its slice."""
+"""Losses (counterpart of ``change3d_tpu/train/losses.py``), all reductions
+in fp32: BCD's ``bce_dice_loss``, SCD/BDA's ``cross_entropy_2d`` and
+``change_similarity_loss``, and CC's ``caption_cross_entropy`` with its
+``caption_top_k_accuracy``."""
 
 from __future__ import annotations
 
@@ -52,3 +52,31 @@ def change_similarity_loss(logits1: torch.Tensor, logits2: torch.Tensor,
     change = label_change[..., 0] if label_change.dim() == cos.dim() + 1 else label_change
     per_pixel = torch.where(change.bool(), torch.clamp(cos, min=0.0), 1.0 - cos)
     return torch.mean(per_pixel)
+
+
+def caption_cross_entropy(logits: torch.Tensor, captions: torch.Tensor, lengths: torch.Tensor, *,
+                          ignore_index: int = 0) -> torch.Tensor:
+    """Teacher-forced caption CE over the first ``length - 1`` target
+    positions whose target is not ``ignore_index`` (packed-sequence CE).
+    logits: [B, L, V] (position t predicts caption[t + 1]); captions: [B, L];
+    lengths: [B] true lengths, <start> and <end> included."""
+    targets = captions[:, 1:].long()
+    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    picked = torch.gather(logp, -1, targets[..., None])[..., 0]
+    pos = torch.arange(targets.shape[1], device=targets.device)[None, :]
+    valid = (pos < (lengths[:, None] - 1)) & (targets != ignore_index)
+    loss_sum = -torch.sum(torch.where(valid, picked, 0.0))
+    return loss_sum / torch.clamp(valid.sum(), min=1)
+
+
+def caption_top_k_accuracy(logits: torch.Tensor, captions: torch.Tensor, lengths: torch.Tensor,
+                           k: int = 1) -> torch.Tensor:
+    """Top-k token accuracy in percent over the positions < length - 1
+    (padding targets included, as JAX counts them)."""
+    targets = captions[:, 1:].long()
+    pos = torch.arange(targets.shape[1], device=targets.device)[None, :]
+    valid = pos < (lengths[:, None] - 1)
+    # Ties rank by lower index, as jax.lax.top_k ranks them.
+    topk = torch.sort(logits[:, :-1], dim=-1, descending=True, stable=True).indices[..., :k]
+    hit = (topk == targets[..., None]).any(-1)
+    return 100.0 * (hit & valid).sum() / torch.clamp(valid.sum(), min=1)

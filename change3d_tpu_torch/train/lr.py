@@ -5,7 +5,8 @@ already taken) uses ``schedule(k)``.
 
 - poly: lr * (1 - step/max_iter)^0.9, with a 200-step linear warmup from
   0.1*lr to lr that applies only while ``step < steps_per_epoch``;
-- step: lr * 0.1^(epoch // step_epochs).
+- step: lr * 0.1^(epoch // step_epochs);
+- shrink (CC): lr * factor^(epoch // shrink_every_epochs), x0.5 every 10.
 """
 
 from __future__ import annotations
@@ -33,5 +34,14 @@ def step_schedule(base_lr: float, steps_per_epoch: int, step_epochs: int) -> Cal
     def schedule(step: int) -> float:
         epoch = int(step) // steps_per_epoch
         return float(_F(base_lr) * np.power(_F(0.1), _F(epoch // step_epochs)))
+
+    return schedule
+
+
+def shrink_schedule(base_lr: float, steps_per_epoch: int, shrink_every_epochs: int = 10,
+                    factor: float = 0.5) -> Callable[[int], float]:
+    def schedule(step: int) -> float:
+        epoch = int(step) // steps_per_epoch
+        return float(_F(base_lr) * np.power(_F(factor), _F(epoch // shrink_every_epochs)))
 
     return schedule

@@ -10,11 +10,11 @@ no result line):
    started together) and print the card's name and power limit;
 2. kernels: hold each kernel against its plain PyTorch version on the card
    at the four X3D-L stage shapes at 256^2 on the clips of the three tasks
-   (T=3 BCD, T=4 BDA, T=5 SCD), with and without SE, at B=2, B=3 and
-   --batch, over KERNEL_SEEDS seeds, in fp32 (TF32 off;
-   |d| <= 1e-4 * (1 + |ref|)) and bf16 (|d| <= 2 bf16 ulps of
-   max(|ref|, 1)); prints the worst |d| per T and the share of the limit
-   it uses;
+   (T=3 BCD and CC, T=4 BDA, T=5 SCD), with and without SE, at B=2, B=3 and
+   --batch, over KERNEL_SEEDS seeds, and at CC's evaluation batch (32) on
+   T=3, in fp32 (TF32 off; |d| <= 1e-4 * (1 + |ref|)) and bf16 (|d| <= 2
+   bf16 ulps of max(|ref|, 1)); prints the worst |d| per T and the share of
+   the limit it uses;
 3. forward, for BCD, SCD (6 classes) and BDA (5 classes) in turns: build the
    task's full-width X3D-L Change3D from a seed, run Predictor.predict_u8 on
    --batches batches of random uint8 256^2 pairs with every launch count
@@ -22,7 +22,12 @@ no result line):
    fused_block_se_sums launches per forward; then hold every head's fp32
    probabilities (sigmoid masks, softmax class maps) of the fused model
    against fused_inference=False (1e-3) on a whole batch and report the
-   bf16 agreement of each mask and class map;
+   bf16 agreement of each mask and class map; then CC (stages 1-4, a
+   500-word decoder): CaptionPredictor.caption_u8 at beam 1 and 3, 51
+   fused_block_fwd and 25 fused_block_se_sums launches per forward, the
+   fp32 memory fused vs plain (1e-3 of its max), equal fp32 tokens fused vs
+   plain at beam 1 and 3, and the bf16 tokens' agreement with the plain
+   bf16 model;
 4. repros: hold the two repro kernels (ops/repros.py: dot_1d within two
    bf16 ulps, manual_dma exactly) against their plain versions at the
    repros' shapes over KERNEL_SEEDS seeds and at REPRO_DOT_SHAPES and
@@ -39,17 +44,23 @@ no result line):
    time (torch.mul(x, 2.0) for manual_dma) on the device timeline
    (torch.profiler), their in-call ratios, the CUDA-event times beside
    them, its bound, and nvidia-smi's clock and power before and after;
+   CC caption_u8 captions/s at beam 1 and 3, the encoder's and the decode's
+   CUDA-event ms, the decode's device-busy ms, steps and host ms per step;
+   the fused kernels also at B=32 on T=3 with their launches per CC forward;
 6. train parity, for BCD, SCD and BDA: one fp32 train step (TF32 off) of a
    reduced-depth model at 64², batch 2, on the card against the same step
    on the CPU (loss 1e-4 relative, each gradient tensor 1e-2 relative in the
-   2-norm, BN running stats 1e-4; the step's metrics' differences reported);
+   2-norm, BN running stats 1e-4; the step's metrics' differences reported),
+   and CC's (dropout 0; loss 1e-4, top1 equal, gradients 1e-2);
 7. overfit: the full-width X3D-L BCD model, bf16, batch 16, 256², 10 Adam
    steps at lr 2e-4 on one synthetic batch whose label is a function of the
    pair; every loss finite and the last below the first;
 8. train times on that model, then on full-width SCD (batch 8) and BDA
    (batch 12) models: samples/s by host clock over 10 steps after 3 warm-up
    steps, device ms per step by CUDA events, peak memory, and validation
-   pairs/s through eval_step;
+   pairs/s through eval_step; then CC at the CLI defaults (fp32, batch 32,
+   no remat) and in bf16 at batch 32, with evaluation captions/s at batch
+   32;
 9. train loops: ``python -m change3d_tpu_torch.cli bcd``, ``cli scd`` and
    ``cli bda`` in process on synthetic LEVIR-CD, SECOND and xBD layouts
    (two train batches and one test batch at the task's default batch, 16, 8
@@ -58,7 +69,10 @@ no result line):
    launch counts reset just before each: 37 + 18 launches for each of its 2
    validation forwards (epoch 1 and the best-model re-evaluation), best/,
    the sidecar and the epoch-1 log written; then ``--resume`` restores
-   step 4.
+   step 4; then ``cli cc`` (fp32, batch 32) on a synthetic 256² LEVIR-CC
+   layout for 2 epochs with beam evaluation after each: 3 x (51 + 25)
+   launches, the BLEU-4 gate, ``--resume`` at step 4 (without h5py, an
+   in-memory .npy reader stands in for the HDF5 one, and the line says so).
 
 The last lines are the kernels JSON, the card line from nvidia-smi, and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
@@ -91,6 +105,12 @@ STAGES = (
     ("stage3", 32, 96, 216, 16, 24, 12),
     ("stage4", 16, 192, 432, 32, 0, 0),  # CC only: not on the detection paths
 )
+# Launches per CC forward (T = 3, stages 1-4): (fused_block_fwd, fused_block_se_sums).
+CC_LAUNCHES = {"stage1": (4, 2), "stage2": (9, 4), "stage3": (24, 12), "stage4": (14, 7)}
+CC_PER_FORWARD = {"fused_block_fwd": 51, "fused_block_se_sums": 25}
+# CC: the vocabulary of a LEVIR-CC word map at minimum word frequency 5
+# (about 500 entries), captions padded to 52 tokens, the CLI's batch (32).
+CC_VOCAB, CC_LEN, CC_BATCH = 500, 52, 32
 TASKS = ("bcd", "scd", "bda")
 # Clip length (2 + perception frames), classes of the class heads, default
 # train batch (the CLI's).
@@ -219,6 +239,15 @@ def phase_kernels(fb, dev, seeds, batch):
                                         ops, se, dtype)
         print(f"kernels T={t} seeds {seeds}: "
               f"{json.dumps({k: v[f'T{t}'] for k, v in worst.items()})}", flush=True)
+    # CC's evaluation batch (32) at every stage shape, stage 4 included, on T = 3.
+    rs = np.random.RandomState(seeds[0] + 7)
+    for name, hw, c, ci, cr, _, _ in STAGES:
+        for has_se in (False, True):
+            for dtype in (torch.float32, torch.bfloat16):
+                ops, se = operands(rs, CC_BATCH, 3, hw, c, ci, cr, dtype, dev, has_se)
+                check_block(fb, worst, f"{name} T=3 B={CC_BATCH} se={has_se}", ops, se, dtype)
+    print(f"kernels T=3 B={CC_BATCH}, stages 1-4 (worst of T=3 so far): "
+          f"{json.dumps({k: v['T3'] for k, v in worst.items()})}", flush=True)
     return worst
 
 
@@ -628,6 +657,335 @@ def phase_train_times(model, opt, data, card, warmup=3, steps=10):
     return stats
 
 
+def cc_words(vocab=CC_VOCAB):
+    """A word map with the special tokens at their LEVIR-CC ids."""
+    words = {"<pad>": 0, "<unk>": 1, "<start>": 2, "<end>": 3}
+    words.update({f"w{i}": i for i in range(4, vocab)})
+    return words
+
+
+def phase_cc_forward(fb, dev, batch, seed):
+    """The CC serving forward at full X3D-L width and depth, 256², bf16:
+    CaptionPredictor.caption_u8 at beam 1 and 3 with the launch counts reset
+    just before each, 51 + 25 per forward; then the fp32 memory fused
+    against fused_inference=False (1e-3 of its max), the fp32 tokens equal
+    at beam 1 and 3, and the bf16 tokens' agreement with the plain bf16
+    model, as a share of positions."""
+    from change3d_tpu_torch.inference import CaptionPredictor
+    from change3d_tpu_torch.models.trainer import Change3D, Task
+    from change3d_tpu_torch.models.x3d import x3d_l_config
+
+    words = cc_words()
+    model = Change3D(Task.CC, vocab_size=CC_VOCAB, device=dev, seed=seed)
+    rs = np.random.RandomState(seed + 5)
+    pre, post = (rs.randint(0, 256, (batch, 256, 256, 3)).astype(np.uint8) for _ in range(2))
+    launches, preds = {}, {}
+    for beam in (1, 3):
+        pred = preds[beam] = CaptionPredictor(model, words, beam_size=beam,
+                                              compute_dtype=torch.bfloat16, device=dev)
+        pred.caption_u8(pre, post)  # load the kernels, warm the allocator
+        torch.cuda.synchronize()
+        fb.fused_block_fwd.launches = 0
+        fb.fused_block_se_sums.launches = 0
+        caps = pred.caption_u8(pre, post)
+        torch.cuda.synchronize()
+        launches[beam] = {"fused_block_fwd": fb.fused_block_fwd.launches,
+                          "fused_block_se_sums": fb.fused_block_se_sums.launches}
+        if launches[beam] != CC_PER_FORWARD:
+            raise AssertionError(f"cc beam {beam} launches {launches[beam]}, want {CC_PER_FORWARD}")
+        if len(caps) != batch or not all(isinstance(c, str) for c in caps):
+            raise AssertionError(f"cc captions {caps}")
+        print(f"forward cc beam {beam}: batch {batch}, launches per forward {launches[beam]}, "
+              f"first caption {caps[0][:80]!r}", flush=True)
+
+    plain = Change3D(Task.CC, backbone_cfg=x3d_l_config(fused_inference=False),
+                     vocab_size=CC_VOCAB, device=dev, seed=seed)
+    plain.load_state_dict(model.state_dict())
+    dpre, dpost = (torch.from_numpy(a).to(dev) for a in (pre, post))
+    stats = {}
+    p32 = {kind: CaptionPredictor(m, words, compute_dtype=torch.float32, device=dev)
+           for kind, m in (("fused", model), ("plain", plain))}
+    mem = {kind: p.encode(dpre, dpost) for kind, p in p32.items()}
+    err = float((mem["fused"] - mem["plain"]).abs().max() / mem["plain"].abs().max())
+    if not (err <= 1e-3 and bool(torch.isfinite(mem["fused"]).all())
+            and mem["fused"].shape == (batch, 256, 192)):
+        raise AssertionError(f"cc fp32 memory fused vs plain: {err} of its max, "
+                             f"shape {tuple(mem['fused'].shape)}")
+    stats["fp32_memory_rel_err"] = err
+    p16_plain = CaptionPredictor(plain, words, compute_dtype=torch.bfloat16, device=dev)
+    for beam in (1, 3):
+        tok = {}
+        for kind, p in p32.items():
+            p.beam_size = beam
+            tok[kind] = p.decode(mem[kind])[0]
+        if not torch.equal(tok["fused"], tok["plain"]):
+            raise AssertionError(f"cc fp32 tokens fused vs plain differ at beam {beam}")
+        p16_plain.beam_size = beam
+        t16 = preds[beam].caption_device(dpre, dpost)[0]
+        stats[f"bf16_token_agreement_beam{beam}"] = float(
+            (t16 == p16_plain.caption_device(dpre, dpost)[0]).float().mean())
+        stats[f"fp32_tokens_equal_beam{beam}"] = True
+    print(f"forward check cc: {json.dumps(stats)}", flush=True)
+    return model, preds, (pre, post), launches, stats
+
+
+def phase_cc_times(preds, pairs, batch, dev, card, rounds=3):
+    """caption_u8 captions/s at ``batch`` (host clock), the encoder's and the
+    decode's CUDA-event ms, the decode's device-busy ms on the profiler's
+    timeline, its steps, and its host ms per step; the decode again without
+    early exit (no per-step sync)."""
+    from change3d_tpu_torch.models import caption_decoder as cd
+
+    dpre, dpost = (torch.from_numpy(a).to(dev) for a in pairs)
+    out = {}
+    for beam, pred in preds.items():
+        pred.caption_u8(*pairs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            pred.caption_u8(*pairs)
+        caps_s = rounds * batch / (time.perf_counter() - t0)
+        mem = pred.encode(dpre, dpost)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred.decode(mem)
+        torch.cuda.synchronize()
+        wall_ms, steps = (time.perf_counter() - t0) * 1e3, cd.beam_search_decode.steps
+        row = {"beam": beam, "batch": batch, "captions_per_s": caps_s,
+               "encoder_ms": event_ms(lambda: pred.encode(dpre, dpost), 5),
+               "decode_ms": event_ms(lambda: pred.decode(mem), 3),
+               "decode_ms_no_early_exit": event_ms(lambda: pred.decode(mem, early_exit=False), 3),
+               "decode_device_busy_ms": device_ms(lambda: pred.decode(mem), 2),
+               "decode_steps": steps, "decode_host_ms_per_step": wall_ms / steps,
+               "card": card}
+        out[beam] = row
+        print(f"cc times beam {beam} bf16 256² batch {batch} ({card}): {json.dumps(row)}",
+              flush=True)
+    return out
+
+
+def cc_batch(rs, b, hw, dev, vocab=CC_VOCAB):
+    """ImageNet-normalised random pairs and captions of 8-20 words padded to
+    CC_LEN, as the CC loader gives them."""
+    norm = lambda a: ((a / 255.0 - np.array([0.485, 0.456, 0.406]))
+                      / np.array([0.229, 0.224, 0.225])).astype(np.float32)
+    caps = np.zeros((b, CC_LEN), np.int64)
+    lengths = rs.randint(10, 23, b)
+    for i, n in enumerate(lengths):
+        caps[i, 0], caps[i, 1:n - 1], caps[i, n - 1] = 2, rs.randint(4, vocab, n - 2), 3
+    return {"pre": torch.from_numpy(norm(rs.randint(0, 256, (b, hw, hw, 3)))).to(dev),
+            "post": torch.from_numpy(norm(rs.randint(0, 256, (b, hw, hw, 3)))).to(dev),
+            "caption": torch.from_numpy(caps).to(dev),
+            "length": torch.from_numpy(lengths.astype(np.int64)).to(dev)}
+
+
+def phase_cc_train_parity(dev, seed):
+    """One fp32 CC train step (TF32 off, dropout 0, gradient values clipped
+    at 5) of a reduced-depth model at 64², batch 2, on the card and on the
+    CPU from the same weights and batch: loss 1e-4 relative, top1 equal,
+    each gradient tensor within 1e-2 relative in the 2-norm, BN running
+    stats 1e-4 (1 + |ref|)."""
+    from change3d_tpu_torch.models.trainer import Change3D, Task
+    from change3d_tpu_torch.models.x3d import X3DConfig
+    from change3d_tpu_torch.train.engine import train_step
+    from change3d_tpu_torch.train.optim import torch_adam
+
+    cfg = X3DConfig(**PARITY_TINY)
+    kw = dict(in_height=64, in_width=64, backbone_cfg=cfg, vocab_size=40,
+              embed_dim=cfg.stage_dims[3], num_heads=4, num_layers=2, dropout=0.0, seed=seed)
+    batch = cc_batch(np.random.RandomState(seed + 6), 2, 64, "cpu", vocab=40)
+    ref = Change3D(Task.CC, device="cpu", **kw)
+    out = {}
+    for where in ("cpu", "cuda"):
+        d = dev if where == "cuda" else torch.device("cpu")
+        model = Change3D(Task.CC, device=d, **kw)
+        model.load_state_dict(ref.state_dict())
+        model.decoder.pe_dropout = 0.0
+        opt = torch_adam(model.parameters(), weight_decay=1e-5, grad_clip_value=5.0)
+        m = train_step(model, opt, lambda _: 1e-4, {k: v.to(d) for k, v in batch.items()}, 0,
+                       generator=torch.Generator(device=d).manual_seed(0))
+        out[where] = (float(m["loss"]), float(m["top1"]),
+                      {n: p.grad.cpu() for n, p in model.named_parameters()},
+                      {n: b.cpu() for n, b in model.named_buffers() if n != "decoder.pe"})
+    (l_cpu, t_cpu, g_cpu, s_cpu), (l_gpu, t_gpu, g_gpu, s_gpu) = out["cpu"], out["cuda"]
+    loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    grad_rel, grad_worst = max((float((g_gpu[n] - r).norm() / r.norm()), n)
+                               for n, r in g_cpu.items() if float(r.norm()) > 0)
+    stats_used = max(float(((s_gpu[n] - r).abs() / (1e-4 * (1 + r.abs()))).max())
+                     for n, r in s_cpu.items())
+    stats = {"task": "cc", "loss_cpu": l_cpu, "loss_cuda": l_gpu, "loss_rel_err": loss_rel,
+             "top1_cpu": t_cpu, "top1_cuda": t_gpu, "grad_rel_err_2norm": grad_rel,
+             "grad_worst_tensor": grad_worst, "grad_limit_used": grad_rel / 1e-2,
+             "bn_stats_limit_used": stats_used, "grad_tensors": len(g_cpu)}
+    print(f"train parity cc card vs cpu (fp32, 64², batch 2, dropout 0): {json.dumps(stats)}",
+          flush=True)
+    if not (math.isfinite(l_gpu) and loss_rel <= 1e-4 and t_gpu == t_cpu and grad_rel <= 1e-2
+            and stats_used <= 1.0):
+        raise AssertionError(f"cc train step on the card disagrees with the CPU: {stats}")
+    return stats
+
+
+def phase_cc_train_times(dev, seed, card, warmup=3, steps=5):
+    """CC training at the CLI defaults (fp32, batch 32, 256², full X3D-L,
+    no remat), then bf16 at batch 32: samples/s by host clock, device ms per
+    step (CUDA events), peak memory of the steps; then evaluation captions/s
+    at batch 32 through the loop's decode (fp32, fused blocks, beam 1)."""
+    from change3d_tpu_torch.models.trainer import Change3D, Task
+    from change3d_tpu_torch.train.caption_loop import make_decode_fn
+    from change3d_tpu_torch.train.engine import train_step
+    from change3d_tpu_torch.train.optim import torch_adam
+
+    out = {}
+    for name, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+        model = Change3D(Task.CC, vocab_size=CC_VOCAB, device=dev, seed=seed)
+        opt = torch_adam(model.parameters(), weight_decay=1e-5, grad_clip_value=5.0)
+        data = cc_batch(np.random.RandomState(seed + 8), CC_BATCH, 256, dev)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        step = lambda: train_step(model, opt, lambda _: 1e-4, data, 0, compute_dtype=dtype,
+                                  generator=gen)
+        for _ in range(warmup):
+            step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses = [step()["loss"] for _ in range(steps)]
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        if not all(math.isfinite(float(x)) for x in losses):
+            raise AssertionError(f"cc {name} train losses {[float(x) for x in losses]}")
+        peak = torch.cuda.max_memory_allocated()
+        row = {"compute_dtype": name, "batch": CC_BATCH, "train_samples_per_s":
+               steps * CC_BATCH / host_s, "train_device_ms_per_step": event_ms(step, 3),
+               "peak_memory_bytes": peak, "peak_memory_gb": peak / 1e9, "card": card}
+        if dtype is None:  # evaluation, as the loop runs it
+            decode = make_decode_fn(model, 1, cc_words())
+            decode(data["pre"], data["post"])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2):
+                decode(data["pre"], data["post"])
+            torch.cuda.synchronize()
+            row["eval_captions_per_s"] = 2 * CC_BATCH / (time.perf_counter() - t0)
+        out[name] = row
+        print(f"train times cc X3D-L {name} 256² batch {CC_BATCH} ({card}): {json.dumps(row)}",
+              flush=True)
+        del model, opt, data, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def write_cc_layout(root, rs, n_train, n_test, hw, h5py):
+    """A synthetic LEVIR-CC layout: {SPLIT}_IMAGES_SYNTH ([N, 2, 3, H, W]
+    uint8; HDF5 with ``h5py``, else .npy), {SPLIT}_CAPTIONS_SYNTH.json and
+    {SPLIT}_CAPLENS_SYNTH.json (5 captions per image, padded to CC_LEN) and
+    WORDMAP_SYNTH.json (40 words)."""
+    words = cc_words(40)
+    os.makedirs(root)
+    for split, n in (("TRAIN", n_train), ("TEST", n_test)):
+        images = rs.randint(0, 256, (n, 2, 3, hw, hw)).astype(np.uint8)
+        if h5py is not None:
+            with h5py.File(os.path.join(root, f"{split}_IMAGES_SYNTH.hdf5"), "w") as f:
+                f.attrs["captions_per_image"] = 5
+                f.create_dataset("images", data=images)
+        else:
+            np.save(os.path.join(root, f"{split}_IMAGES_SYNTH.npy"), images)
+        caps, lens = [], []
+        for _ in range(5 * n):
+            k = rs.randint(5, 15)
+            caps.append([2] + rs.randint(4, len(words), k - 2).tolist() + [3] + [0] * (CC_LEN - k))
+            lens.append(k)
+        for what, obj in (("CAPTIONS", caps), ("CAPLENS", lens)):
+            with open(os.path.join(root, f"{split}_{what}_SYNTH.json"), "w") as f:
+                json.dump(obj, f)
+    with open(os.path.join(root, "WORDMAP_SYNTH.json"), "w") as f:
+        json.dump(words, f)
+
+
+def npy_caption_dataset():
+    """CaptionDataset over .npy images: the in-memory stand-in for the HDF5
+    reader where h5py is not installed."""
+    from change3d_tpu_torch.data.datasets import CaptionDataset
+
+    class NpyCaptionDataset(CaptionDataset):
+        def __init__(self, file_root, dataset, split):
+            self.split = split.upper()
+            self.images = np.load(os.path.join(file_root, f"{self.split}_IMAGES_{dataset}.npy"))
+            with open(os.path.join(file_root, f"{self.split}_CAPTIONS_{dataset}.json")) as f:
+                self.captions = json.load(f)
+            with open(os.path.join(file_root, f"{self.split}_CAPLENS_{dataset}.json")) as f:
+                self.caplens = json.load(f)
+            self.cpi = 5
+
+        def close(self):
+            pass
+
+    return NpyCaptionDataset
+
+
+def phase_cc_loop(fb, seed):
+    """``cli cc`` in process on a synthetic 256² LEVIR-CC layout (13 train
+    images = 65 caption rows, 2 steps per epoch at batch 32; 8 test images,
+    one eval batch of 32) at the CLI defaults (fp32) for 2 epochs with beam-1
+    evaluation after each and a best-model re-evaluation: 3 x (51 + 25)
+    fused launches; then ``--resume`` restores step 4. Without h5py the
+    HDF5 reader is replaced by an in-memory .npy reader, said on the line."""
+    import tempfile
+
+    from change3d_tpu_torch import cli
+    from change3d_tpu_torch.train import caption_loop
+
+    try:
+        import h5py
+    except ImportError:
+        h5py = None
+    reader = "CaptionDataset (HDF5)" if h5py else "in-memory .npy stand-in for CaptionDataset"
+    original = caption_loop.CaptionDataset
+    with tempfile.TemporaryDirectory() as tmp:
+        root, save = os.path.join(tmp, "data"), os.path.join(tmp, "exp")
+        write_cc_layout(root, np.random.RandomState(seed + 9), 13, 8, 256, h5py)
+        argv = ["cc", "--file_root", root, "--dataset", "SYNTH", "--save_dir", save,
+                "--epochs", "2", "--num_workers", "4", "--seed", str(seed)]
+        try:
+            if h5py is None:
+                caption_loop.CaptionDataset = npy_caption_dataset()
+            fb.fused_block_fwd.launches = 0
+            fb.fused_block_se_sums.launches = 0
+            t0 = time.perf_counter()
+            res = cli.main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = {"fused_block_fwd": fb.fused_block_fwd.launches,
+                        "fused_block_se_sums": fb.fused_block_se_sums.launches}
+            resumed = cli.main(argv + ["--resume"])
+        finally:
+            caption_loop.CaptionDataset = original
+        forwards = 3
+        want = {k: v * forwards for k, v in CC_PER_FORWARD.items()}
+        if launches != want:
+            raise AssertionError(f"cc train loop launches {launches}, want {want}")
+        (run_dir,) = [os.path.join(save, d) for d in os.listdir(save)]
+        for name in ("best/model.pt", "ckpt/train_meta.json", "train_val_log.jsonl", "res.json"):
+            if not os.path.exists(os.path.join(run_dir, name)):
+                raise AssertionError(f"cc train loop wrote no {name}")
+        with open(os.path.join(run_dir, "train_val_log.jsonl")) as f:
+            rows = [json.loads(line) for line in f if line.strip()]
+        val = [r for r in rows if r.get("event") == "epoch" and r["split"] == "val"]
+        with open(os.path.join(run_dir, "ckpt", "train_meta.json")) as f:
+            best = json.load(f)["best_val"]
+        if [r["epoch"] for r in val] != [0, 1] or best != max(r["Bleu_4"] for r in val):
+            raise AssertionError(f"cc train loop evaluation log {val}, best {best}")
+        if res.get("steps") != 4 or "test_best" not in res:
+            raise AssertionError(f"cc train loop result {res}")
+        if resumed["resumed_from_step"] != 4:
+            raise AssertionError(f"--resume restored step {resumed['resumed_from_step']}, want 4")
+    stats = {"task": "cc", "reader": reader, "batch": CC_BATCH, "seconds": seconds,
+             "launches": launches, "eval_forwards": forwards, "bleu4_gate_best": best,
+             "eval": val, "test_best": res["test_best"],
+             "resumed_from_step": resumed["resumed_from_step"]}
+    print(f"train loop (cli cc, 2 epochs, {reader}): {json.dumps(stats)}", flush=True)
+    return launches, stats
+
+
 def pairs_per_s(pred, pairs, batch, rounds=3):
     """End to end: uint8 host arrays in, masks and class maps out, host clock."""
     torch.cuda.synchronize()
@@ -653,46 +1011,53 @@ def serving_times(pred, plain_pred, pairs, batch, dev):
 
 
 def kernel_rows(fb, worst, batch, dev, seed, card, iters=10):
-    """Each fused kernel's time per stage shape and clip length T, on bf16
-    operands first held against the plain version."""
+    """Each fused kernel's time per stage shape and clip length T at
+    ``batch``, and at T = 3 at CC's batch (32), on bf16 operands first held
+    against the plain version."""
     rs = np.random.RandomState(seed + 1)
     rows = []
-    for t in CLIPS:
+    for t, b in [(t, batch) for t in CLIPS] + [(3, CC_BATCH)]:
         for name, hw, c, ci, cr, n_fwd, n_sums in STAGES:
-            ops, se = operands(rs, batch, t, hw, c, ci, cr, torch.bfloat16, dev, True)
-            check_block(fb, worst, f"{name} T={t} B={batch} timed operands", ops, se,
+            ops, se = operands(rs, b, t, hw, c, ci, cr, torch.bfloat16, dev, True)
+            check_block(fb, worst, f"{name} T={t} B={b} timed operands", ops, se,
                         torch.bfloat16)
             gate = fb.se_gate(fb.se_sums_reference(*ops[:7]).sum(1) / (t * hw * hw), *se)
             tile, ck, _, _, n_tiles = fb.plan_tiles(t, hw, hw, c, ci, 2)
-            for kernel, fn, plain, n_launch, sums in (
+            cc_fwd, cc_sums = CC_LAUNCHES[name] if t == 3 else (0, 0)
+            for kernel, fn, plain, n_launch, n_cc, sums in (
                 ("fused_block_fwd", lambda: fb.fused_block_fwd(*ops, gate),
-                 lambda: fb.fused_block_fwd_reference(*ops, gate), n_fwd, False),
+                 lambda: fb.fused_block_fwd_reference(*ops, gate), n_fwd, cc_fwd, False),
                 ("fused_block_se_sums", lambda: fb.fused_block_se_sums(*ops[:7]),
-                 lambda: fb.se_sums_reference(*ops[:7]), n_sums, True),
+                 lambda: fb.se_sums_reference(*ops[:7]), n_sums, cc_sums, True),
             ):
-                b_ms, b_by = bound(batch, t, hw, c, ci, 2, sums=sums, n_tiles=n_tiles)
-                rows.append({"kernel": kernel, "stage": name, "t": t,
-                             "shape": [batch, t, hw, hw, c], "inner": ci,
-                             "tile": tile, "chunk": ck, "launches_per_forward": n_launch,
+                b_ms, b_by = bound(b, t, hw, c, ci, 2, sums=sums, n_tiles=n_tiles)
+                rows.append({"kernel": kernel, "stage": name, "t": t, "batch": b,
+                             "shape": [b, t, hw, hw, c], "inner": ci,
+                             "tile": tile, "chunk": ck,
+                             "launches_per_forward": n_launch if b == batch else 0,
+                             "launches_per_cc_forward": n_cc,
                              "blocks_per_sm": fb.blocks_per_sm(torch.bfloat16, sums, t, hw, hw,
                                                                c, ci),
                              "ms": event_ms(fn, iters), "plain_ms": event_ms(plain, 3),
                              "bound_ms": b_ms, "bound_by": b_by})
-                print(f"time {kernel} {name} T={t} ({card}): {json.dumps(rows[-1])}", flush=True)
+                print(f"time {kernel} {name} T={t} B={b} ({card}): {json.dumps(rows[-1])}",
+                      flush=True)
     return rows
 
 
-def per_forward(rows, kernel, t):
+def per_forward(rows, kernel, t, batch, launches="launches_per_forward"):
     """A kernel's summed ms, plain ms and bound over one forward on T-frame
-    clips, and what bounds most of it."""
-    mine = [r for r in rows if r["kernel"] == kernel and r["t"] == t and r["launches_per_forward"]]
-    total = lambda k: sum(r[k] * r["launches_per_forward"] for r in mine)
+    clips at ``batch`` (``launches`` names the row's launch count: a
+    detection forward's, or a CC forward's), and what bounds most of it."""
+    mine = [r for r in rows if r["kernel"] == kernel and r["t"] == t and r["batch"] == batch
+            and r[launches]]
+    total = lambda k: sum(r[k] * r[launches] for r in mine)
     by = {}
     for r in mine:
-        by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + r["bound_ms"] * r["launches_per_forward"]
+        by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + r["bound_ms"] * r[launches]
     return {"ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
-            "bound_by": max(by, key=by.get),
-            "launches_per_forward": sum(r["launches_per_forward"] for r in mine)}
+            "bound_by": max(by, key=by.get), "batch": batch,
+            "launches_per_forward": sum(r[launches] for r in mine)}
 
 
 def main(argv=None) -> int:
@@ -740,13 +1105,19 @@ def main(argv=None) -> int:
     for task in TASKS:
         pred, plain_pred, pairs, _, _ = serving[task]
         times[task] = serving_times(pred, plain_pred, pairs, args.batch, dev)
-    rows = kernel_rows(fb, worst, args.batch, dev, args.seed, card)
-    rows += repro_rows(rp, dev, args.seed, card)
     launches = {task: serving[task][3] for task in TASKS}
     forward_check = {task: serving[task][4] for task in TASKS}
     del serving, pred, plain_pred, pairs
+    cc_model, cc_preds, cc_pairs, cc_launches, forward_check["cc"] = phase_cc_forward(
+        fb, dev, args.batch, args.seed)
+    cc_times = phase_cc_times(cc_preds, cc_pairs, args.batch, dev, card)
+    del cc_model, cc_preds, cc_pairs
+    torch.cuda.empty_cache()
+    rows = kernel_rows(fb, worst, args.batch, dev, args.seed, card)
+    rows += repro_rows(rp, dev, args.seed, card)
 
     train = {"parity": {task: phase_train_parity(dev, args.seed, task) for task in TASKS}}
+    train["parity"]["cc"] = phase_cc_train_parity(dev, args.seed)
     model, opt, data, train["overfit_losses"] = phase_overfit(dev, args.seed)
     train["times"] = {"bcd": phase_train_times(model, opt, data, card)}
     del model, opt, data
@@ -756,8 +1127,10 @@ def main(argv=None) -> int:
         data = train_batch(np.random.RandomState(args.seed + 2), TRAIN_BATCH[task], 256, dev, task)
         train["times"][task] = phase_train_times(model, opt, data, card)
         del model, opt, data
+    train["times"]["cc"] = phase_cc_train_times(dev, args.seed, card)
     loops = {task: phase_train_loop(fb, args.seed, task) for task in TASKS}
-    train["loop"] = {task: loops[task][1] for task in TASKS}
+    loops["cc"] = phase_cc_loop(fb, args.seed)
+    train["loop"] = {task: loop[1] for task, loop in loops.items()}
     print(f"kernels vs plain versions, worst over every check: {json.dumps(worst)}", flush=True)
     for task in TASKS:
         runs, fwd_ms = times[task]
@@ -765,19 +1138,28 @@ def main(argv=None) -> int:
             print(f"{task} predict_u8 bf16 256^2 batch {args.batch} {kind} blocks: "
                   f"{runs[kind]} pairs/s end to end, {fwd_ms[kind]} ms per forward on the "
                   f"device ({card})", flush=True)
+    for beam, row in cc_times.items():
+        print(f"cc caption_u8 bf16 256^2 batch {args.batch} beam {beam}: "
+              f"{row['captions_per_s']} captions/s end to end, encoder {row['encoder_ms']} ms, "
+              f"decode {row['decode_ms']} ms over {row['decode_steps']} steps "
+              f"({row['decode_host_ms_per_step']} host ms per step, "
+              f"{row['decode_device_busy_ms']} ms device-busy) ({card})", flush=True)
 
     kernels = []
     for kernel, replaces in (("fused_block_fwd", f"{PALLAS}:414 (also :216, :365)"),
                              ("fused_block_se_sums", f"{PALLAS}:199 (also :349)")):
         worst_of = lambda dtype, k: max(w[dtype][k] for w in worst[kernel].values())
-        forwards = {task: per_forward(rows, kernel, CLIP_T[task]) for task in TASKS}
+        forwards = {task: per_forward(rows, kernel, CLIP_T[task], args.batch) for task in TASKS}
+        forwards["cc"] = per_forward(rows, kernel, 3, args.batch, "launches_per_cc_forward")
+        forwards["cc_batch32"] = per_forward(rows, kernel, 3, CC_BATCH, "launches_per_cc_forward")
         kernels.append({
             "name": kernel, "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": launches["bcd"][kernel],
             "launches_scd_forward": launches["scd"][kernel],
             "launches_bda_forward": launches["bda"][kernel],
+            "launches_cc_forward": cc_launches[1][kernel],
             "launches_per_forward": forwards["bcd"]["launches_per_forward"],
-            "launches_train_loop": {task: loops[task][0][kernel] for task in TASKS},
+            "launches_train_loop": {task: loop[0][kernel] for task, loop in loops.items()},
             "max_abs_err": worst_of("bfloat16", "max_abs_err"),
             "limit_used": worst_of("bfloat16", "limit_used"),
             "max_abs_err_fp32": worst_of("float32", "max_abs_err"),
@@ -787,7 +1169,8 @@ def main(argv=None) -> int:
             "bound_ms": forwards["bcd"]["bound_ms"], "bound_by": forwards["bcd"]["bound_by"],
             "library_ms": None, "per_forward": forwards,
             "per": f"one bf16 BCD forward (T=3) at batch {args.batch}, summed over its launches; "
-                   f"per_forward gives SCD (T=5) and BDA (T=4) too",
+                   f"per_forward gives SCD (T=5), BDA (T=4) and CC (T=3, stages 1-4, at batch "
+                   f"{args.batch} and {CC_BATCH}) too",
         })
     for kernel, replaces in (("dot_1d", f"{REPRO_PALLAS}:25 (pallas_call :35)"),
                              ("manual_dma", f"{REPRO_PALLAS}:39 (pallas_call :48)")):
@@ -808,7 +1191,8 @@ def main(argv=None) -> int:
     detail = {"card": card, "torch": torch.__version__, "batch": args.batch,
               "pairs_per_s": {task: times[task][0] for task in TASKS},
               "forward_ms": {task: times[task][1] for task in TASKS},
-              "forward_check": forward_check, "rows": rows, "kernels": kernels, "train": train}
+              "forward_check": forward_check, "cc_times": cc_times, "rows": rows,
+              "kernels": kernels, "train": train}
     if os.path.dirname(args.out):
         os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:

@@ -299,3 +299,48 @@ def test_dot_1d_cluster_matches_plain_version_and_reruns_bit_identical(cuda, sha
     for _ in range(5):  # fixed-order sums: no atomics
         assert torch.equal(repros.dot_1d(x, w), first)
 
+
+
+# The four X3D-L stage shapes at B = 32, the CC evaluation batch, on T = 3.
+@pytest.mark.parametrize("stage", list(STAGES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_block_matches_plain_version_at_b32(cuda, stage, dtype):
+    hw, c, ci, cr = STAGES[stage]
+    tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+    for has_se in (False, True):
+        ops, se = _operands(11, cuda, dtype, 32, 3, hw, hw, c, ci, cr, has_se)
+        got = fb.fused_bottleneck_block(*ops, se)
+        torch.testing.assert_close(got.float(), fb.fused_block_reference(*ops, se).float(), **tol)
+
+
+def test_tiny_cc_model_fused_matches_plain_on_card(cuda):
+    """A TINY-width CC model with stage 4 (a fused SE and a fused plain
+    block there): memory and teacher-forced logits, fused against plain,
+    and equal beam-3 tokens through CaptionPredictor."""
+    from change3d_tpu_torch.inference import CaptionPredictor
+    from change3d_tpu_torch.models.trainer import Change3D, Task
+    from change3d_tpu_torch.models.x3d import X3DConfig
+
+    tiny = dict(stem_dim_out=8, stage_dims=(8, 16, 24, 32), stage_inner_dims=(18, 36, 54, 72),
+                stage_depths=(2, 3, 3, 3))
+    kw = dict(in_height=32, in_width=32, vocab_size=11, embed_dim=32, num_heads=4,
+              num_layers=2, device=cuda)
+    fused = Change3D(Task.CC, backbone_cfg=X3DConfig(**tiny), **kw).eval()
+    plain = Change3D(Task.CC, backbone_cfg=X3DConfig(**tiny, fused_inference=False), **kw).eval()
+    plain.load_state_dict(fused.state_dict())
+    rs = np.random.RandomState(4)
+    pre, post = (torch.from_numpy(rs.randn(2, 32, 32, 3).astype(np.float32)).to(cuda)
+                 for _ in range(2))
+    caps = torch.from_numpy(rs.randint(2, 11, (2, 9))).to(cuda)
+    before = fb.fused_block_fwd.launches, fb.fused_block_se_sums.launches
+    with torch.no_grad():
+        got, want = fused(pre, post, caps), plain(pre, post, caps)
+    assert (fb.fused_block_fwd.launches - before[0], fb.fused_block_se_sums.launches - before[1]) \
+        == (1 + 2 + 2 + 2, 0 + 1 + 1 + 1)
+    for k in ("memory", "logits"):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-4, atol=1e-4)
+    words = {"<pad>": 0, "<unk>": 1, "<start>": 2, "<end>": 3}
+    words.update({f"w{i}": i for i in range(4, 11)})
+    caption = lambda m: CaptionPredictor(m, words, beam_size=3, compute_dtype=torch.float32,
+                                         device=cuda).caption_device(pre, post)[0]
+    assert torch.equal(caption(fused), caption(plain))

@@ -62,10 +62,16 @@ def test_png_gray_reader_takes_rgb_files_of_gray_pixels(tmp_path):
 
 
 def test_png_refuses_what_it_does_not_read(tmp_path):
+    """RGBA reads as cv2 reads it (alpha dropped, tests/test_torch_png_cv2.py
+    covers every flavour); what is not a PNG still raises, and the writer
+    takes uint8 only."""
     path = str(tmp_path / "rgba.png")
-    cv2.imwrite(path, np.zeros((4, 4, 4), np.uint8))
-    with pytest.raises(ValueError, match="8-bit gray or RGB"):
-        png.read_png(path)
+    cv2.imwrite(path, np.random.RandomState(0).randint(0, 256, (4, 4, 4)).astype(np.uint8))
+    np.testing.assert_array_equal(png.read_png(path), cv2.imread(path, cv2.IMREAD_COLOR)[..., ::-1])
+    with open(str(tmp_path / "not.png"), "wb") as f:
+        f.write(b"GIF89a")
+    with pytest.raises(ValueError, match="not a PNG"):
+        png.read_png(str(tmp_path / "not.png"))
     with pytest.raises(ValueError, match="uint8"):
         png.write_png(path, np.zeros((4, 4), np.float32))
 

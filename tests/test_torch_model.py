@@ -238,10 +238,22 @@ def test_seeded_init_follows_the_jax_distributions():
             assert 0.8 < float(g.std() / w.std()) < 1.25, k
 
 
-@pytest.mark.parametrize("task", [Task.CC])
-def test_other_tasks_name_their_slice(task):
-    with pytest.raises(NotImplementedError, match="slice"):
-        Change3D(task, in_height=16, in_width=16, backbone_cfg=X3DConfig(**TINY), device="cpu")
+def test_cc_builds_with_the_jax_cc_tree_keys():
+    """Change3D(Task.CC) builds on the CPU with exactly the keys of the JAX
+    CC tree bridged: stage 4, the caption decoder, no encoder.fc*."""
+    kw = dict(vocab_size=7, embed_dim=TINY["stage_dims"][3], num_heads=4, num_layers=2)
+    jmodel = JaxChange3D(task=JaxTask.CC, in_height=16, in_width=16,
+                         backbone_cfg=_cfgs(False)[0], **kw)
+    z = jnp.zeros((1, 16, 16, 3), jnp.float32)
+    shapes = jax.eval_shape(lambda key: jmodel.init(key, z, z, captions=jnp.zeros((1, 4), jnp.int32)),
+                            jax.random.PRNGKey(0))
+    want = from_jax_variables(jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32),
+                                                     shapes), X3DConfig(**TINY))
+    model = Change3D(Task.CC, in_height=16, in_width=16, backbone_cfg=X3DConfig(**TINY),
+                     device="cpu", **kw)
+    assert set(model.state_dict()) == set(want)
+    assert "encoder.x3d.stage4.block1.bottleneck.conv_a" in want
+    assert not any(k.startswith("encoder.fc") for k in want)
 
 
 def test_eval_only_batch_norm_refuses_training_mode():
