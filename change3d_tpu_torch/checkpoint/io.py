@@ -82,8 +82,7 @@ class CheckpointManager:
     def restore_best(self, model: torch.nn.Module) -> None:
         """Load the best weights into ``model``; FileNotFoundError when no
         best model was saved."""
-        model.load_state_dict(torch.load(os.path.join(self.best_dir, "model.pt"),
-                                         map_location="cpu"))
+        model.load_state_dict(restore_best_state(os.path.dirname(self.best_dir)))
 
     @property
     def _meta_path(self) -> str:
@@ -101,3 +100,21 @@ class CheckpointManager:
                 return json.load(f)
         except FileNotFoundError:
             return {}
+
+
+def restore_best_state(run_dir: str) -> dict:
+    """The model state_dict of ``{run_dir}/best/model.pt`` (CPU tensors);
+    FileNotFoundError when the run saved no best model."""
+    return torch.load(os.path.join(run_dir, "best", "model.pt"), map_location="cpu")
+
+
+def restore_latest_state(run_dir: str):
+    """(model state_dict, step) of the newest ``{run_dir}/ckpt/{step}``;
+    FileNotFoundError when the run holds no checkpoint."""
+    ckpt = os.path.join(run_dir, "ckpt")
+    steps = sorted(int(d) for d in (os.listdir(ckpt) if os.path.isdir(ckpt) else ())
+                   if d.isdigit() and os.path.exists(os.path.join(ckpt, d, "state.pt")))
+    if not steps:
+        raise FileNotFoundError(f"no checkpoint under {ckpt}")
+    state = torch.load(os.path.join(ckpt, str(steps[-1]), "state.pt"), map_location="cpu")
+    return state["model"], int(state["step"])

@@ -16,7 +16,11 @@ readers give what ``cv2.imread`` gives (its libpng transforms):
   keep their value). At 16 bits the sum is rounded, (... + 16384) >> 15,
   before the high byte is kept.
 
-Writes take 8-bit gray or RGB and use filter 0 in one IDAT chunk.
+Writes take 8-bit gray or RGB and use filter 0 in one IDAT chunk. The
+bytes forms serve HTTP bodies: ``decode_png_bytes`` gives what
+``cv2.imdecode(buf, IMREAD_COLOR)`` gives for a PNG (BGR order),
+``read_png_bytes`` what ``read_png`` gives, ``encode_png_bytes`` the bytes
+``write_png`` writes.
 
 Rows that all use filter 0 are copied out directly. Otherwise the rows are
 unfiltered as a wavefront over the anti-diagonals x + y = d of filter units
@@ -123,7 +127,11 @@ def _decode(raw: np.ndarray, h: int, w: int, ch: int, depth: int, interlace: int
 def _read(path: str):
     """(samples [H, W, ch], colour type, bit depth, palette [n, 3] or None)."""
     with open(path, "rb") as f:
-        data = f.read()
+        return _parse(f.read(), path)
+
+
+def _parse(data: bytes, path: str):
+    """``_read`` of a PNG file's bytes; ``path`` names it in errors."""
     if not data.startswith(_SIGNATURE):
         raise ValueError(f"{path}: not a PNG file")
     header, palette, idat = None, None, []
@@ -162,10 +170,11 @@ def _to_8bit(samples: np.ndarray, depth: int) -> np.ndarray:
     return samples
 
 
-def _colour(path: str):
+def _colour(path: str, data: bytes = None):
     """(pixels [H, W, 1 or 3] without alpha, bit depth): palettes expanded
-    to 8-bit RGB, samples still at their depth otherwise."""
-    samples, ctype, depth, palette = _read(path)
+    to 8-bit RGB, samples still at their depth otherwise. Reads ``data``
+    when given, else the file."""
+    samples, ctype, depth, palette = _read(path) if data is None else _parse(data, path)
     if ctype == 3:
         if int(samples.max(initial=0)) >= len(palette):
             raise ValueError(f"{path}: palette index past the {len(palette)} PLTE entries")
@@ -179,6 +188,25 @@ def read_png(path: str) -> np.ndarray:
     img, depth = _colour(path)
     img = _to_8bit(img, depth)
     return img[..., 0] if img.shape[-1] == 1 else img
+
+
+def read_png_bytes(buf: bytes) -> np.ndarray:
+    """``read_png`` of a PNG held in memory; ValueError if it is not one."""
+    try:
+        img, depth = _colour("PNG data", bytes(buf))
+    except (struct.error, zlib.error) as e:
+        raise ValueError(f"PNG data: {e}") from None
+    img = _to_8bit(img, depth)
+    return img[..., 0] if img.shape[-1] == 1 else img
+
+
+def decode_png_bytes(buf: bytes) -> np.ndarray:
+    """[H, W, 3] uint8 in BGR order, what ``cv2.imdecode(buf,
+    IMREAD_COLOR)`` gives for a PNG: alpha dropped, gray repeated over the
+    three channels. Raises ValueError for anything that is not a PNG."""
+    img = read_png_bytes(buf)
+    return np.repeat(img[..., None], 3, axis=2) if img.ndim == 2 else np.ascontiguousarray(
+        img[..., ::-1])
 
 
 def imread_rgb(path: str) -> np.ndarray:
@@ -212,14 +240,20 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
     return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
 
 
-def write_png(path: str, img: np.ndarray) -> None:
-    """Write [H, W] (gray) or [H, W, 3] (RGB order) uint8 as a PNG file."""
+def encode_png_bytes(img: np.ndarray) -> bytes:
+    """[H, W] (gray) or [H, W, 3] (RGB order) uint8 -> the bytes of a PNG."""
     img = np.ascontiguousarray(img)
     if img.dtype != np.uint8 or not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
-        raise ValueError(f"write_png takes [H, W] or [H, W, 3] uint8, got {img.dtype} {img.shape}")
+        raise ValueError(f"a PNG takes [H, W] or [H, W, 3] uint8, got {img.dtype} {img.shape}")
     h, w = img.shape[:2]
     ctype = 0 if img.ndim == 2 else 2
     rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, -1)], axis=1)
+    return (_SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + _chunk(b"IEND", b""))
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """Write [H, W] (gray) or [H, W, 3] (RGB order) uint8 as a PNG file."""
+    data = encode_png_bytes(img)
     with open(path, "wb") as f:
-        f.write(_SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
-                + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + _chunk(b"IEND", b""))
+        f.write(data)

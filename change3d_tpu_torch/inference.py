@@ -7,17 +7,26 @@ uint8 pixels up, hardened (and bitpacked) masks down. The heads by task
 (``models/trainer.py``): BCD 'change'; SCD 'pre', 'post' (classes) and
 'change'; BDA 'cls' (classes) and 'loc'.
 
+``predict_u8_async`` / ``finalize_u8`` split ``predict_u8`` in two: the
+first launches the forward and the copies of its masks into pinned host
+memory and returns at once, the second waits and unpacks, so a caller (the
+serving batcher) overlaps one batch's fetch with the next batch's forward.
+``TiledPredictor`` runs scenes of any size through a Predictor in fixed-size
+batches of model-sized tiles.
+
 ``CaptionPredictor`` wraps a CC model: the encoder (fused blocks on the
-card), then the KV-cached beam search; sentences out.
+card), then the KV-cached beam search; sentences out. ``from_checkpoint``
+builds either from a run's ``best/model.pt``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from change3d_tpu_torch.checkpoint.io import restore_best_state
 from change3d_tpu_torch.data.datasets import CaptionDataset
 from change3d_tpu_torch.device import resolve_device
 from change3d_tpu_torch.models.caption_decoder import (
@@ -44,6 +53,17 @@ def postprocess_probs(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return result
 
 
+class U8Launch(NamedTuple):
+    """A launched ``predict_u8`` forward: the hardened masks (bitpacked
+    binary masks, uint8 class maps) in pinned host tensors that the copies
+    still fill, the event recorded after those copies (None on the CPU,
+    where everything is done), and the input width for the unpacking."""
+
+    out: Dict[str, torch.Tensor]
+    event: Optional[torch.cuda.Event]
+    width: int
+
+
 class Predictor:
     def __init__(self, model: Change3D, *, compute_dtype: torch.dtype = torch.bfloat16,
                  device="cuda"):
@@ -55,6 +75,13 @@ class Predictor:
         self.compute_dtype = compute_dtype
         pows = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32)
         self._pows = pows.to(self.device)
+
+    @classmethod
+    def from_checkpoint(cls, model: Change3D, run_dir: str, **kw) -> "Predictor":
+        """A Predictor over ``{run_dir}/best/model.pt`` loaded into ``model``;
+        ``kw`` goes to the constructor."""
+        model.load_state_dict(restore_best_state(run_dir))
+        return cls(model, **kw)
 
     def _put(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
@@ -117,19 +144,94 @@ class Predictor:
                 hard[key] = val
         return hard
 
+    @torch.inference_mode()
+    def predict_u8_async(self, pre: np.ndarray, post: np.ndarray) -> U8Launch:
+        """Launch the uint8 forward on the current stream and the copies of
+        its hardened masks into freshly pinned host tensors, record an event
+        after them and return without waiting; :meth:`finalize_u8` waits.
+        Each call has its own host buffers, so launches may overlap. On the
+        CPU the work is done on return."""
+        out = self.predict_u8_device(self._put(pre), self._put(post))
+        if self.device.type != "cuda":
+            return U8Launch(out, None, pre.shape[2])
+        host = {}
+        for key, val in out.items():
+            host[key] = torch.empty(val.shape, dtype=val.dtype, pin_memory=True)
+            host[key].copy_(val, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return U8Launch(host, event, pre.shape[2])
+
+    @staticmethod
+    def finalize_u8(launch: U8Launch) -> Dict[str, np.ndarray]:
+        """Wait for a :meth:`predict_u8_async` launch and unpack its masks:
+        bool binary masks [B, H, W] and uint8 class ids."""
+        if launch.event is not None:
+            launch.event.synchronize()
+        fetched = {}
+        for key, val in launch.out.items():
+            arr = val.numpy()
+            if key in _BINARY_KEYS and launch.width % 8 == 0:
+                arr = np.unpackbits(arr, axis=-1).astype(bool)[..., :launch.width]
+            fetched[key] = arr
+        return fetched
+
     def predict_u8(self, pre: np.ndarray, post: np.ndarray) -> Dict[str, np.ndarray]:
         """Raw [B,H,W,3] uint8 in, hardened masks out (the same decisions as
         :meth:`predict` on eval-normalized floats): bool binary masks and
         uint8 class ids, keyed as in :meth:`predict`."""
-        out = self.predict_u8_device(self._put(pre), self._put(post))
-        w = pre.shape[2]
-        fetched = {}
-        for key, val in out.items():
-            arr = val.cpu().numpy()
-            if key in _BINARY_KEYS and w % 8 == 0:
-                arr = np.unpackbits(arr, axis=-1).astype(bool)[..., :w]
-            fetched[key] = arr
-        return fetched
+        return self.finalize_u8(self.predict_u8_async(pre, post))
+
+
+class TiledPredictor:
+    """Full-scene inference (counterpart of the JAX ``TiledPredictor``):
+    the model's (in_height, in_width) window slides over the scene with
+    ``overlap``, the tiles go through :meth:`Predictor.predict_probs` in
+    batches of exactly ``batch_size`` (the last padded by repeating its
+    last tile), the soft maps are cosine-blended over the overlaps and
+    hardened once, so seams average in probability space."""
+
+    def __init__(self, predictor: Predictor, *, overlap: int = 32, batch_size: int = 16):
+        if overlap < 0 or overlap >= min(predictor.model.in_height, predictor.model.in_width):
+            raise ValueError(f"overlap {overlap} must be in [0, tile size)")
+        self.predictor = predictor
+        self.overlap = overlap
+        self.batch_size = batch_size
+
+    def predict_scene_probs(self, pre: np.ndarray, post: np.ndarray) -> Dict[str, np.ndarray]:
+        """pre/post: one [H, W, 3] normalized float scene, any size. Returns
+        the blended soft maps at scene resolution. Tiles are cut and blended
+        batch by batch, so host memory stays O(scene)."""
+        from change3d_tpu_torch.utils.tiling import blend_window, pad_scene, scene_offsets
+
+        th, tw = self.predictor.model.in_height, self.predictor.model.in_width
+        pre_p = pad_scene(np.asarray(pre, np.float32), th, tw)
+        post_p = pad_scene(np.asarray(post, np.float32), th, tw)
+        ch, cw = pre_p.shape[:2]
+        offsets = scene_offsets(ch, cw, th, tw, self.overlap)
+        win = blend_window(th, tw, self.overlap)[..., None]
+        acc: Dict[str, np.ndarray] = {}
+        wacc = np.zeros((ch, cw, 1), np.float32)
+        b = self.batch_size
+        for i in range(0, len(offsets), b):
+            group = offsets[i:i + b]
+            pad = [group[-1]] * (b - len(group))
+            pre_t = np.stack([pre_p[y:y + th, x:x + tw] for y, x in group + pad])
+            post_t = np.stack([post_p[y:y + th, x:x + tw] for y, x in group + pad])
+            probs = self.predictor.predict_probs(pre_t, post_t)
+            for j, (y, x) in enumerate(group):
+                for key, val in probs.items():
+                    if key not in acc:
+                        acc[key] = np.zeros((ch, cw, val.shape[-1]), np.float32)
+                    acc[key][y:y + th, x:x + tw] += val[j] * win
+                wacc[y:y + th, x:x + tw] += win
+        h0, w0 = pre.shape[:2]
+        return {key: (a / wacc)[:h0, :w0] for key, a in acc.items()}
+
+    def predict_scene(self, pre: np.ndarray, post: np.ndarray) -> Dict[str, np.ndarray]:
+        """Hardened scene-resolution maps ([H, W] bool / class ids), the
+        decision rules of :meth:`Predictor.predict`."""
+        return Predictor.harden(self.predict_scene_probs(pre, post))
 
 
 def tokens_to_captions(tokens, word_map: Dict[str, int]) -> List[str]:

@@ -6,16 +6,22 @@ Each ``csrc/*.cu`` compiles on its own for ``sm_90a`` into
 covers the source and every ``csrc/*.cuh`` header, and a library whose hash
 is unchanged is reused. Build and load failures raise:
 there is no fallback on the CUDA path.
+
+``build`` and ``load`` are safe under threads: one lock serialises first
+use within the process, so two threads that reach a kernel together build
+it once and share one handle. Each build writes to a temporary name of its
+own (process and thread id), renamed into place, so processes that build
+together never see half a library.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Sequence
 
@@ -50,6 +56,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
 }
 
 
+_LOCK = threading.RLock()
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
 def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -72,20 +82,30 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
+def _start_nvcc(name: str, out: Path) -> subprocess.Popen:
+    """Start nvcc on ``csrc/<name>.cu`` writing ``out``; stdout carries its
+    report and errors."""
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(CSRC_DIR / f"{name}.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
 def build(names: Sequence[str] = tuple(SIGNATURES)) -> Dict[str, str]:
     """Compile every named source that has no current library, one nvcc per
     source, all started together. Returns each source's ptxas report
     (registers, shared memory, spills); raises with nvcc's output on failure."""
+    with _LOCK:
+        return _build(names)
+
+
+def _build(names: Sequence[str]) -> Dict[str, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
         target = library_path(name)
         if target.exists():
             continue
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), tmp, target)
+        tmp = target.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        procs[name] = (_start_nvcc(name, tmp), tmp, target)
     reports, failed = {}, []
     for name, (proc, tmp, target) in procs.items():
         out, _ = proc.communicate()
@@ -99,17 +119,22 @@ def build(names: Sequence[str] = tuple(SIGNATURES)) -> Dict[str, str]:
     return reports
 
 
-@functools.cache
 def load(name: str) -> ctypes.CDLL:
     """The named kernel library, built first if needed, with every exported
-    function's argument and result types declared."""
-    build([name])
-    lib = ctypes.CDLL(str(library_path(name)))
-    for fn, (argtypes, restype) in SIGNATURES[name].items():
-        f = getattr(lib, fn)
-        f.argtypes = argtypes
-        f.restype = restype
-    return lib
+    function's argument and result types declared; one handle per process."""
+    lib = _LOADED.get(name)
+    if lib is not None:
+        return lib
+    with _LOCK:
+        if name not in _LOADED:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            for fn, (argtypes, restype) in SIGNATURES[name].items():
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = restype
+            _LOADED[name] = lib
+        return _LOADED[name]
 
 
 def aligned(t: "torch.Tensor") -> "torch.Tensor":

@@ -16,6 +16,10 @@ The reference protocol, as the JAX loop runs it:
 - the best checkpoint gated on BLEU-4, the latest two kept, and a final
   re-evaluation of the best weights.
 
+``pretrained`` starts the backbone from a Kinetics ``X3D_L.pyth``;
+``run_caption_eval`` scores a saved run (best or latest weights) on any
+split.
+
 SIGTERM is honoured between steps (``PreemptionGuard``): the loop saves the
 model, optimizer and step, and ``resume`` re-enters that epoch skipping the
 batches already trained. Dropout draws from a generator re-seeded from
@@ -43,7 +47,12 @@ from change3d_tpu_torch.inference import CaptionPredictor
 from change3d_tpu_torch.metrics.caption import eval_caption_scores
 from change3d_tpu_torch.models.trainer import Change3D, Task
 from change3d_tpu_torch.train.engine import train_step
-from change3d_tpu_torch.train.loop import _DTYPES, PreemptionGuard
+from change3d_tpu_torch.train.loop import (
+    _DTYPES,
+    PreemptionGuard,
+    load_pretrained_backbone,
+    restore_run_state,
+)
 from change3d_tpu_torch.train.lr import shrink_schedule
 from change3d_tpu_torch.train.optim import freeze_subtree, per_subtree_lr, torch_adam
 from change3d_tpu_torch.utils.logging import setup_logger
@@ -82,6 +91,7 @@ class CaptionRunConfig:
     fine_tune_encoder: bool = True
     compute_dtype: str = "float32"  # the train step's activations; eval runs fp32
     device: str = "cuda"
+    pretrained: Optional[str] = None  # a Kinetics X3D_L.pyth for the backbone
 
 
 def load_word_map(cfg: CaptionRunConfig) -> Dict[str, int]:
@@ -184,6 +194,28 @@ class _EveryFifth:
         return self.ds.__getitem__(self.idxs[i], rng)
 
 
+def run_caption_eval(cfg: CaptionRunConfig, run_dir: Optional[str] = None,
+                     split: Optional[str] = None, which: str = "best",
+                     save_json: bool = False) -> Dict[str, float]:
+    """Score a saved CC run on ``split`` (default ``cfg.eval_split``): its
+    ``best`` or ``latest`` weights, one caption row per image, the fp32
+    fused encoder and beam search at ``cfg.beam_size``, the caption metrics;
+    with ``save_json`` res.json / gts.json go to the run dir. ``run_dir``
+    defaults to the training loop's ``{save_dir}/{dataset}_cc_lr_{lr}``."""
+    resolve_device(cfg.device)
+    word_map = load_word_map(cfg)
+    run_dir = run_dir or os.path.join(cfg.save_dir, f"{cfg.dataset}_cc_lr_{cfg.lr}")
+    data = _EveryFifth(CaptionDataset(cfg.file_root, cfg.dataset, split or cfg.eval_split))
+    loader = make_data_loader(
+        "threaded", data, cfg.eval_batch_size, shuffle=False, num_workers=cfg.num_workers,
+        collate=caption_collate, pad_final=True,
+    )
+    model = build_caption_model(cfg, len(word_map), in_size=data.__getitem__(0)["pre"].shape[0])
+    model.load_state_dict(restore_run_state(run_dir, which))
+    return evaluate_captions(model, loader, word_map, cfg.beam_size,
+                             save_dir=run_dir if save_json else None)
+
+
 def _step_seed(seed: int, step: int) -> int:
     """The dropout generator's seed for optimizer step ``step``."""
     return ((seed + 1) << 32) | step
@@ -234,6 +266,8 @@ def _run_caption(cfg: CaptionRunConfig, logger, save_path: str,
     )
     in_size = train_data.__getitem__(0, np.random.default_rng(0))["pre"].shape[0]
     model = build_caption_model(cfg, len(word_map), in_size=in_size)
+    if cfg.pretrained:
+        load_pretrained_backbone(model, cfg.pretrained)
     steps_per_epoch = max(len(train_loader), 1)
     opt, schedule = _make_optimizer(cfg, model, steps_per_epoch)
     decode_fn = make_decode_fn(model, cfg.beam_size, word_map)

@@ -8,6 +8,10 @@ sidecar with the best value so far, and a final re-evaluation of the best
 weights. Every step's loss adds into one device scalar, so the
 host syncs once per epoch (and on the progress line every 50 steps).
 
+``pretrained`` starts the backbone from a Kinetics ``X3D_L.pyth``.
+``run_detection_eval`` scores a saved run (its best or latest weights) on
+any split through the same evaluation pass.
+
 SIGTERM is honoured between steps: the loop saves the full state (model,
 optimizer, step) and returns; ``--resume`` re-enters that epoch and skips
 the batches already trained, so a preempted-and-resumed run ends bit-for-bit
@@ -27,7 +31,12 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from change3d_tpu_torch.checkpoint.io import CheckpointManager
+from change3d_tpu_torch.checkpoint.convert import load_x3d_pretrained, merge_backbone_variables
+from change3d_tpu_torch.checkpoint.io import (
+    CheckpointManager,
+    restore_best_state,
+    restore_latest_state,
+)
 from change3d_tpu_torch.data.datasets import DATASETS
 from change3d_tpu_torch.data.pipeline import device_prefetch, make_data_loader, pair_collate
 from change3d_tpu_torch.data.transforms import make_transform_pipelines
@@ -65,6 +74,7 @@ class RunConfig:
     log_name: str = "train_val_log"
     compute_dtype: str = "bfloat16"
     device: str = "cuda"
+    pretrained: Optional[str] = None  # a Kinetics X3D_L.pyth for the backbone
 
 
 class PreemptionGuard:
@@ -124,6 +134,26 @@ def build_model(cfg: RunConfig) -> Change3D:
                     generator=torch.Generator().manual_seed(cfg.seed))
 
 
+def load_pretrained_backbone(model: torch.nn.Module, path: str) -> None:
+    """Load a Kinetics ``X3D_L.pyth`` into ``model``'s backbone (strict
+    conversion; the stages the task does not build and the head dropped)."""
+    backbone = load_x3d_pretrained(path, model.backbone_cfg)
+    model.load_state_dict(merge_backbone_variables(model.state_dict(), backbone))
+    print(f"Loaded pretrained backbone: {path}", flush=True)
+
+
+def restore_run_state(run_dir: str, which: str = "best") -> dict:
+    """A saved run's model state_dict: ``best`` (the metric-gated weights)
+    or ``latest`` (the newest checkpoint step)."""
+    if which == "best":
+        return restore_best_state(run_dir)
+    if which != "latest":
+        raise ValueError(f"which={which!r}: 'best' or 'latest'")
+    state, step = restore_latest_state(run_dir)
+    print(f"evaluating latest checkpoint (step {step})", flush=True)
+    return state
+
+
 def _make_meter(task: str, num_classes: int):
     if task == "bcd":
         return BinaryChangeMeter()
@@ -154,13 +184,37 @@ def _evaluate_split(cfg: RunConfig, model, loader, device, compute_dtype) -> Dic
     return scores
 
 
-def run_detection_training(cfg: RunConfig) -> Dict[str, Any]:
-    """Train and validate BCD, SCD or BDA; returns {'last', 'test_best'}
-    scores, or {'preempted_at_step'} after a SIGTERM."""
+def _check_config(cfg: RunConfig) -> None:
     if cfg.task not in DATASETS:
         raise ValueError(f"task {cfg.task!r}: one of {sorted(DATASETS)}")
     if cfg.compute_dtype not in _DTYPES:
         raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: one of {sorted(_DTYPES)}")
+
+
+def run_detection_eval(cfg: RunConfig, run_dir: Optional[str] = None, split: str = "test",
+                       which: str = "best") -> Dict[str, float]:
+    """Score a saved run on ``split`` without training: its ``best`` or
+    ``latest`` weights (``which``), the eval transform, ``cfg.batch_size``
+    with the last batch padded and masked, ``cfg.compute_dtype``, every
+    stride-1 block fused on the card. ``run_dir`` defaults to the training
+    loop's ``{save_dir}/{dataset}_iter_{max_steps}_lr_{lr}``."""
+    _check_config(cfg)
+    device = resolve_device(cfg.device)
+    run_dir = run_dir or os.path.join(cfg.save_dir, f"{cfg.dataset}_iter_{cfg.max_steps}_lr_{cfg.lr}")
+    _, eval_tf = make_transform_pipelines(cfg.task, cfg.in_width, cfg.in_height)
+    loader = make_data_loader(
+        "threaded", DATASETS[cfg.task](cfg.file_root, split, eval_tf), cfg.batch_size,
+        shuffle=False, num_workers=cfg.num_workers, collate=pair_collate, pad_final=True,
+    )
+    model = build_model(cfg)
+    model.load_state_dict(restore_run_state(run_dir, which))
+    return _evaluate_split(cfg, model, loader, device, _DTYPES[cfg.compute_dtype])
+
+
+def run_detection_training(cfg: RunConfig) -> Dict[str, Any]:
+    """Train and validate BCD, SCD or BDA; returns {'last', 'test_best'}
+    scores, or {'preempted_at_step'} after a SIGTERM."""
+    _check_config(cfg)
     save_path = os.path.join(cfg.save_dir, f"{cfg.dataset}_iter_{cfg.max_steps}_lr_{cfg.lr}")
     with setup_logger(save_path, dataclasses.asdict(cfg), cfg.log_name) as logger:
         return _run_detection(cfg, logger, save_path)
@@ -184,6 +238,8 @@ def _run_detection(cfg: RunConfig, logger, save_path: str) -> Dict[str, Any]:
     max_epochs = cfg.max_epochs or int(np.ceil(cfg.max_steps / max_batches))
 
     model = build_model(cfg)
+    if cfg.pretrained:
+        load_pretrained_backbone(model, cfg.pretrained)
     if cfg.lr_mode == "poly":
         schedule = poly_warmup_schedule(cfg.lr, max_batches * max_epochs, max_batches)
     else:

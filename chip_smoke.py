@@ -72,7 +72,23 @@ no result line):
    step 4; then ``cli cc`` (fp32, batch 32) on a synthetic 256² LEVIR-CC
    layout for 2 epochs with beam evaluation after each: 3 x (51 + 25)
    launches, the BLEU-4 gate, ``--resume`` at step 4 (without h5py, an
-   in-memory .npy reader stands in for the HDF5 one, and the line says so).
+   in-memory .npy reader stands in for the HDF5 one, and the line says so);
+10. deploy, in process at full width and 256²: a reference-named BCD
+   ``Trainer`` file made from a seeded port model (``reference_trainer_sd``,
+   the converter's key map inverted) through ``cli convert-reference``
+   (the weights come back exactly) and ``cli predict`` on a synthetic
+   LEVIR layout (2 x (37 + 18) launches, PNGs byte-equal to a direct
+   Predictor); a Kinetics X3D file through ``cli verify-checkpoint`` (exit
+   0, the report printed); ``cli eval`` of phase 9's ``cli bcd`` run (equal
+   to its final report); ``cli predict --tiled`` on a 1024² scene (37 + 18
+   launches per tile batch, byte-equal to a direct TiledPredictor, scene
+   ms); then ``PredictService`` + ``make_server`` on 127.0.0.1 in a thread,
+   BCD at batch 16 with buckets 4/8/16, warmed up: JSON, raw and bulk
+   requests through ``PredictClient`` byte-equal to ``predict_u8`` on the
+   same (padded) batch, 37 + 18 launches per dispatched batch, and a closed
+   loop of LOAD_CLIENTS x LOAD_REQUESTS raw requests (requests/s, p50/p99
+   from /metrics); and a CC server at batch 8, beam 1 (51 + 25 launches per
+   batch, captions equal to caption_u8's).
 
 The last lines are the kernels JSON, the card line from nvidia-smi, and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
@@ -86,6 +102,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -569,17 +586,18 @@ def write_layout(root, rs, task, n_train, n_test, hw):
                           labels[i, ..., c].astype(np.uint8))
 
 
-def phase_train_loop(fb, seed, task="bcd"):
+def phase_train_loop(fb, seed, task="bcd", keep=None):
     """``cli <task>`` in process on two train batches and one test batch at
     the task's default batch, 256², bf16, two epochs: epoch 1's validation
     and the best-model re-evaluation are one forward each, so 2 x (37 + 18)
-    fused launches; then ``--resume``."""
-    import tempfile
+    fused launches; then ``--resume``. With ``keep`` (a directory) the data
+    and the run stay there, and the stats name them."""
+    import contextlib
 
     from change3d_tpu_torch import cli
 
     batch = TRAIN_BATCH[task]
-    with tempfile.TemporaryDirectory() as tmp:
+    with (contextlib.nullcontext(keep) if keep else tempfile.TemporaryDirectory()) as tmp:
         root, save = os.path.join(tmp, "data"), os.path.join(tmp, "exp")
         write_layout(root, np.random.RandomState(seed + 3), task, 2 * batch, batch, 256)
         argv = [task, "--file_root", root, "--save_dir", save, "--max_epochs", "2",
@@ -614,6 +632,8 @@ def phase_train_loop(fb, seed, task="bcd"):
     stats = {"task": task, "batch": batch, "seconds": seconds, "launches": launches,
              "validation_forwards": forwards, "epoch1_val": val[0], "test_best": res["test_best"],
              "resumed_from_step": resumed["resumed_from_step"]}
+    if keep:
+        stats.update(run_dir=run_dir, file_root=root)
     print(f"train loop (cli {task}, 2 epochs): {json.dumps(stats)}", flush=True)
     return launches, stats
 
@@ -929,8 +949,6 @@ def phase_cc_loop(fb, seed):
     evaluation after each and a best-model re-evaluation: 3 x (51 + 25)
     fused launches; then ``--resume`` restores step 4. Without h5py the
     HDF5 reader is replaced by an in-memory .npy reader, said on the line."""
-    import tempfile
-
     from change3d_tpu_torch import cli
     from change3d_tpu_torch.train import caption_loop
 
@@ -984,6 +1002,350 @@ def phase_cc_loop(fb, seed):
              "resumed_from_step": resumed["resumed_from_step"]}
     print(f"train loop (cli cc, 2 epochs, {reader}): {json.dumps(stats)}", flush=True)
     return launches, stats
+
+
+# Kinetics head widths of X3D-L (pytorchvideo's create_x3d_head at 400 classes).
+KINETICS_HEAD, KINETICS_CLASSES = 2048, 400
+# Deploy phase: the served BCD buckets, the load's clients and requests per client.
+SERVE_BUCKETS = (4, 8, 16)
+LOAD_CLIENTS, LOAD_REQUESTS = 16, 32
+
+
+def kinetics_head(rs, cfg):
+    """Seeded Kinetics head weights under the port's converted names."""
+    c, ci = cfg.stage_dims[-1], cfg.stage_inner_dims[-1]
+    t = lambda *s: torch.from_numpy((0.05 * rs.randn(*s)).astype(np.float32))
+    return {"head.pre_conv": t(c, ci), "head.pre_bn.scale": 1 + t(ci), "head.pre_bn.bias": t(ci),
+            "head.pre_bn.mean": t(ci), "head.pre_bn.var": 1 + t(ci).abs(),
+            "head.post_conv": t(ci, KINETICS_HEAD),
+            "head.proj_w": t(KINETICS_HEAD, KINETICS_CLASSES), "head.proj_b": t(KINETICS_CLASSES)}
+
+
+def reference_x3d_sd(x3d, cfg):
+    """A port X3D state_dict (stages 1-4 and ``head.*``) under the
+    reference's pytorchvideo names: the inverse of convert.x3d_torch_key_map."""
+    from change3d_tpu_torch.checkpoint.convert import x3d_torch_key_map
+
+    sd = {}
+    for key, (port_key, kind) in x3d_torch_key_map(cfg).items():
+        if kind == "skip":
+            sd[key] = torch.tensor(0)
+            continue
+        v = x3d[port_key].detach().cpu().float()
+        if kind == "pointwise":
+            v = v.T[..., None, None, None]
+        elif kind == "dense":
+            v = v.T
+        sd[key] = v.contiguous().clone()
+    return sd
+
+
+def reference_trainer_sd(model, seed):
+    """A reference-named ``Trainer`` state_dict of a port BCD model: its own
+    weights, plus the stage 4 and Kinetics head the reference keeps resident
+    (seeded; the converter drops them for BCD)."""
+    from change3d_tpu_torch.models.x3d import X3D
+
+    st = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    cfg = model.backbone_cfg
+    x3d = {k[len("encoder.x3d."):]: v for k, v in st.items() if k.startswith("encoder.x3d.")}
+    extra = X3D(cfg, num_stages=4, generator=torch.Generator().manual_seed(seed + 1))
+    x3d.update({k: v for k, v in extra.state_dict().items() if k.startswith("stage4.")})
+    x3d.update(kinetics_head(np.random.RandomState(seed), cfg))
+    sd = {f"encoder.x3d.{k}": v for k, v in reference_x3d_sd(x3d, cfg).items()}
+    sd["encoder.perception_frames"] = st["encoder.perception_frames"].permute(0, 4, 1, 2, 3)
+    for i in range(4):
+        sd[f"encoder.fc.{i}.0.weight"] = st[f"encoder.fc{i}.conv"].T[:, :, None, None]
+    names = {"reduce": "0.weight", "up": "1.weight", "up_bias": "1.bias"}
+    for k, v in st.items():
+        if k == "decoder.final":
+            sd["decoder.up_c1.0.weight"] = v
+        elif k.startswith("decoder."):
+            _, block, name = k.split(".")
+            sd[f"decoder.{block}.{names[name]}"] = v
+    return {k: v.contiguous().clone() for k, v in sd.items()}
+
+
+def fused_counts(fb):
+    return {"fused_block_fwd": fb.fused_block_fwd.launches,
+            "fused_block_se_sums": fb.fused_block_se_sums.launches}
+
+
+def reset_counts(fb):
+    fb.fused_block_fwd.launches = 0
+    fb.fused_block_se_sums.launches = 0
+
+
+def want_counts(forwards, per=(37, 18)):
+    return {"fused_block_fwd": per[0] * forwards, "fused_block_se_sums": per[1] * forwards}
+
+
+def cli_quiet(cli, argv):
+    """``cli.main(argv)`` with its stdout captured: (result, printed text)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = cli.main(argv)
+    torch.cuda.synchronize()
+    return result, buf.getvalue()
+
+
+def phase_deploy_files(fb, dev, seed, tmp, bcd_loop):
+    """Checkpoints in and runs out, through the CLI on the card: a
+    reference-named BCD ``Trainer`` file -> ``convert-reference`` ->
+    ``predict`` (PNGs byte-equal to a direct Predictor); a Kinetics X3D file
+    -> ``verify-checkpoint`` (exit 0); ``eval`` of the ``cli bcd`` loop's run
+    (its final report); ``predict --tiled`` on a 1024² scene (37 + 18
+    launches per tile batch, byte-equal to a direct TiledPredictor)."""
+    from change3d_tpu_torch import cli
+    from change3d_tpu_torch.data.datasets import DATASETS
+    from change3d_tpu_torch.data.pipeline import DataLoader, pair_collate
+    from change3d_tpu_torch.data.png import encode_png_bytes, write_png
+    from change3d_tpu_torch.data.transforms import eval_normalize, make_transform_pipelines
+    from change3d_tpu_torch.inference import Predictor, TiledPredictor
+    from change3d_tpu_torch.models.trainer import Change3D, Task
+    from change3d_tpu_torch.models.x3d import X3D, x3d_l_config
+    from change3d_tpu_torch.serving import masks_to_arrays
+    from change3d_tpu_torch.utils.tiling import scene_offsets
+
+    stats = {}
+    model = Change3D(Task.BCD, device=dev, seed=seed + 5)
+    ref = os.path.join(tmp, "checkpoint.pth.tar")
+    torch.save({"state_dict": reference_trainer_sd(model, seed), "epoch": 3}, ref)
+    run = os.path.join(tmp, "converted")
+    rc, _ = cli_quiet(cli, ["convert-reference", "--model_task", "bcd", "--torch_checkpoint", ref,
+                            "--out", run])
+    saved = torch.load(os.path.join(run, "best", "model.pt"), map_location="cpu")
+    if rc != 0 or any(not torch.equal(saved[k], v.cpu()) for k, v in model.state_dict().items()):
+        raise AssertionError("convert-reference did not give back the model's weights")
+    data = os.path.join(tmp, "levir")
+    write_layout(data, np.random.RandomState(seed + 11), "bcd", 1, 20, 256)
+    out = os.path.join(tmp, "masks")
+    reset_counts(fb)
+    t0 = time.perf_counter()
+    rc, _ = cli_quiet(cli, ["predict", "--model_task", "bcd", "--checkpoint", run, "--file_root",
+                            data, "--out", out])
+    seconds = time.perf_counter() - t0
+    launches = fused_counts(fb)
+    if rc != 0 or launches != want_counts(2):
+        raise AssertionError(f"cli predict rc {rc}, launches {launches} for 2 batches")
+    pred = Predictor(model, compute_dtype=torch.bfloat16, device=dev)
+    _, eval_tf = make_transform_pipelines("bcd", 256, 256)
+    ds = DATASETS["bcd"](data, "test", eval_tf)
+    names = [os.path.splitext(os.path.basename(p))[0] for p in ds.pre_images]
+    idx = 0
+    for batch in DataLoader(ds, 16, num_workers=2, collate=pair_collate, pad_final=True):
+        valid = batch.pop("valid")
+        maps = pred.predict(batch["pre"], batch["post"])["change"]
+        for i in np.flatnonzero(valid):
+            with open(os.path.join(out, f"{names[idx]}.png"), "rb") as f:
+                if f.read() != encode_png_bytes(masks_to_arrays("bcd", {"change": maps[i]})[
+                        "change"]):
+                    raise AssertionError(f"cli predict mask {names[idx]} differs from Predictor's")
+            idx += 1
+    stats["convert_predict"] = {"pairs": idx, "batches": 2, "seconds": seconds,
+                                "launches": launches, "byte_equal_pngs": idx,
+                                "changed_fraction": float(np.mean(maps))}
+    print(f"deploy: convert-reference -> predict, {idx} masks byte-equal to a direct "
+          f"Predictor, {json.dumps(stats['convert_predict'])}", flush=True)
+
+    x3d = X3D(x3d_l_config(), num_stages=4, generator=torch.Generator().manual_seed(seed + 2))
+    pyth = os.path.join(tmp, "X3D_L.pyth")
+    torch.save({"model_state": reference_x3d_sd(
+        {**x3d.state_dict(), **kinetics_head(np.random.RandomState(seed + 2), x3d.cfg)},
+        x3d.cfg), "epoch": 0}, pyth)
+    report_path = os.path.join(tmp, "verify.json")
+    rc, text = cli_quiet(cli, ["verify-checkpoint", "--pretrained", pyth, "--report",
+                               report_path])
+    with open(report_path) as f:
+        report = json.load(f)
+    finite = all(math.isfinite(e["mean"]) and math.isfinite(e["std"])
+                 for e in report["blocks"].values())
+    if rc != 0 or not finite or "strict conversion: OK" not in text:
+        raise AssertionError(f"verify-checkpoint rc {rc}:\n{text}")
+    print(text, flush=True)
+    stats["verify_checkpoint"] = {"rc": rc, "n_params": report["n_params"],
+                                  "device": report["device"], "blocks": report["blocks"]}
+
+    rc, text = cli_quiet(cli, ["eval", "--model_task", "bcd", "--checkpoint",
+                               bcd_loop["run_dir"], "--file_root", bcd_loop["file_root"],
+                               "--compute_dtype", "bfloat16", "--batch_size",
+                               str(TRAIN_BATCH["bcd"]), "--json"])
+    scores = json.loads(text.strip().splitlines()[-1])
+    if rc != 0 or scores != bcd_loop["test_best"]:
+        raise AssertionError(f"cli eval {scores} != the loop's final report "
+                             f"{bcd_loop['test_best']}")
+    stats["eval"] = scores
+    print(f"deploy: cli eval of the cli bcd run equals its final report: {json.dumps(scores)}",
+          flush=True)
+
+    scene = os.path.join(tmp, "scene")
+    pre, post, change = synthetic_pairs(np.random.RandomState(seed + 12), 1, 1024)
+    for d, img in (("t1", pre[0]), ("t2", post[0]), ("label", change[0, ..., 0].astype(np.uint8))):
+        os.makedirs(os.path.join(scene, "test", d))
+        write_png(os.path.join(scene, "test", d, "0000.png"), img)
+    n_tiles = len(scene_offsets(1024, 1024, 256, 256, 32))
+    tile_batches = -(-n_tiles // 16)
+    tiled_out = os.path.join(tmp, "tiled")
+    reset_counts(fb)
+    t0 = time.perf_counter()
+    rc, _ = cli_quiet(cli, ["predict", "--model_task", "bcd", "--checkpoint", run, "--file_root",
+                            scene, "--out", tiled_out, "--tiled"])
+    cli_seconds = time.perf_counter() - t0
+    launches = fused_counts(fb)
+    if rc != 0 or launches != want_counts(tile_batches):
+        raise AssertionError(f"cli predict --tiled launches {launches} for {tile_batches} "
+                             "tile batches")
+    tiled = TiledPredictor(pred, overlap=32, batch_size=16)
+    img = eval_normalize(np.concatenate([pre[0], post[0]], axis=2))
+    want = tiled.predict_scene(img[..., :3], img[..., 3:])["change"]
+    with open(os.path.join(tiled_out, "0000.png"), "rb") as f:
+        if f.read() != encode_png_bytes(want.astype(np.uint8) * 255):
+            raise AssertionError("cli predict --tiled differs from a direct TiledPredictor")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        tiled.predict_scene(img[..., :3], img[..., 3:])
+        times.append((time.perf_counter() - t0) * 1e3)
+    stats["tiled"] = {"scene": [1024, 1024], "tiles": n_tiles, "tile_batches": tile_batches,
+                      "batch": 16, "overlap": 32, "launches": launches,
+                      "scene_ms": times, "cli_seconds": cli_seconds}
+    print(f"deploy: cli predict --tiled, 1024² scene: {json.dumps(stats['tiled'])}", flush=True)
+    return model, stats
+
+
+def phase_deploy_serve(fb, dev, model, seed, card):
+    """The HTTP service on 127.0.0.1 in this process: BCD at batch 16 with
+    buckets 4/8/16, warmed up, then the port's PredictClient: JSON, raw and
+    bulk requests byte-equal to predict_u8 on the same batch (every bucket,
+    a padded one too), 37 + 18 launches per dispatched batch, a closed loop
+    of LOAD_CLIENTS x LOAD_REQUESTS raw requests; then CC at batch 8, beam 1,
+    51 + 25 launches per batch and caption_u8's captions."""
+    import threading
+
+    from change3d_tpu_torch.client import PredictClient
+    from change3d_tpu_torch.inference import CaptionPredictor, Predictor
+    from change3d_tpu_torch.models.trainer import Change3D, Task
+    from change3d_tpu_torch.serving import PredictService, make_server
+
+    def start(service):
+        httpd = make_server(service, "127.0.0.1", 0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        return httpd, thread, PredictClient(f"http://127.0.0.1:{httpd.server_address[1]}")
+
+    def stop(httpd, thread, service):
+        httpd.shutdown()
+        httpd.server_close()
+        service.close()
+        thread.join(timeout=30)
+        if thread.is_alive():
+            raise AssertionError("server thread did not stop")
+
+    rs = np.random.RandomState(seed + 13)
+    pairs = lambda n: tuple(rs.randint(0, 256, (n, 256, 256, 3)).astype(np.uint8)
+                            for _ in range(2))
+    pred = Predictor(model, compute_dtype=torch.bfloat16, device=dev)
+    t0 = time.perf_counter()
+    service = PredictService("bcd", pred, batch_size=16, buckets=SERVE_BUCKETS, warmup=True)
+    stats = {"warmup_seconds": time.perf_counter() - t0}
+    httpd, thread, client = start(service)
+    try:
+        # Served first, counted alone; the direct forwards come after.
+        reset_counts(fb)
+        sent = []
+        for n in SERVE_BUCKETS + (3,):
+            pre, post = pairs(n)
+            sent.append(("bulk", pre, post,
+                         client.predict_raw_many(pre[..., ::-1], post[..., ::-1])["change"]))
+        for wire in ("json", "raw"):
+            for _ in range(2):
+                pre, post = pairs(1)
+                call = client.predict if wire == "json" else client.predict_raw
+                sent.append((wire, pre, post, call(pre[0, ..., ::-1], post[0, ..., ::-1])[
+                    "change"][None]))
+        launches, batches = fused_counts(fb), client.metrics()["batches_total"]
+        if launches != want_counts(batches) or batches != len(sent):
+            raise AssertionError(f"served launches {launches} over {batches} batches")
+        for wire, pre, post, got in sent:
+            n = len(pre)
+            bucket = min(b for b in SERVE_BUCKETS if b >= n)
+            pad = lambda a: np.concatenate([a, np.repeat(a[-1:], bucket - n, 0)])
+            want = pred.predict_u8(pad(pre), pad(post))["change"][:n].astype(np.uint8) * 255
+            if got.shape != want.shape or not np.array_equal(got, want):
+                raise AssertionError(f"served {wire} masks ({n} pairs) differ from predict_u8")
+        stats["agreement"] = {"requests": [[w, len(p)] for w, p, _, _ in sent],
+                              "byte_equal": True, "batches": batches, "launches": launches}
+        print(f"deploy: served masks byte-equal to predict_u8 on JSON, raw and bulk requests "
+              f"(buckets {SERVE_BUCKETS}, one padded); launches {launches} over {batches} "
+              f"batches", flush=True)
+
+        load = [pairs(1) for _ in range(LOAD_CLIENTS)]
+        errors = []
+
+        def closed_loop(i):
+            pre, post = load[i][0][0, ..., ::-1], load[i][1][0, ..., ::-1]
+            try:
+                for _ in range(LOAD_REQUESTS):
+                    client.predict_raw(pre, post)
+            except Exception as e:  # noqa: BLE001 — raised below
+                errors.append(e)
+
+        service.stats.reset()
+        reset_counts(fb)
+        threads = [threading.Thread(target=closed_loop, args=(i,)) for i in range(LOAD_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        seconds = time.perf_counter() - t0
+        snap = client.metrics()
+        launches = fused_counts(fb)
+        total = LOAD_CLIENTS * LOAD_REQUESTS
+        if (errors or any(t.is_alive() for t in threads) or snap["requests_total"] != total
+                or snap["errors_total"] or launches != want_counts(snap["batches_total"])):
+            raise AssertionError(f"load: errors {errors[:3]}, metrics {snap}, launches {launches}")
+        stats["load"] = {"clients": LOAD_CLIENTS, "requests": total, "seconds": seconds,
+                         "requests_per_s": total / seconds, "metrics": snap,
+                         "launches": launches, "card": card}
+        print(f"deploy: served BCD bf16 256², batch 16, buckets {SERVE_BUCKETS}: "
+              f"{total / seconds} requests/s, p50 {snap['latency_s']['p50']} s, p99 "
+              f"{snap['latency_s']['p99']} s, mean batch fill {snap['mean_batch_fill']} over "
+              f"{snap['batches_total']} batches ({LOAD_CLIENTS} clients x {LOAD_REQUESTS} raw "
+              f"requests, closed loop) ({card})", flush=True)
+    finally:
+        stop(httpd, thread, service)
+
+    words = cc_words()
+    cc = Change3D(Task.CC, vocab_size=len(words), device=dev, seed=seed + 6)
+    cpred = CaptionPredictor(cc, words, beam_size=1, compute_dtype=torch.bfloat16, device=dev)
+    service = PredictService("cc", cpred, batch_size=8, warmup=True)
+    httpd, thread, client = start(service)
+    try:
+        reset_counts(fb)
+        sent = []
+        for wire in ("raw", "raw", "json"):
+            pre, post = pairs(1)
+            call = client.predict if wire == "json" else client.predict_raw
+            sent.append((pre, post, call(pre[0, ..., ::-1], post[0, ..., ::-1])["caption"]))
+        launches, batches = fused_counts(fb), client.metrics()["batches_total"]
+        if launches != want_counts(batches, (51, 25)) or batches != len(sent):
+            raise AssertionError(f"served cc launches {launches} over {batches} batches")
+        for pre, post, got in sent:
+            want = cpred.caption_u8(np.repeat(pre, 8, 0), np.repeat(post, 8, 0))[0]
+            if got != want:
+                raise AssertionError(f"served caption {got!r} != caption_u8's {want!r}")
+        stats["cc"] = {"batch": 8, "beam": 1, "requests": len(sent), "batches": batches,
+                       "launches": launches, "captions_equal": True,
+                       "words": [len(c.split()) for _, _, c in sent]}
+        print(f"deploy: served CC captions equal caption_u8's: {json.dumps(stats['cc'])}",
+              flush=True)
+    finally:
+        stop(httpd, thread, service)
+    return stats
 
 
 def pairs_per_s(pred, pairs, batch, rounds=3):
@@ -1128,9 +1490,20 @@ def main(argv=None) -> int:
         train["times"][task] = phase_train_times(model, opt, data, card)
         del model, opt, data
     train["times"]["cc"] = phase_cc_train_times(dev, args.seed, card)
-    loops = {task: phase_train_loop(fb, args.seed, task) for task in TASKS}
-    loops["cc"] = phase_cc_loop(fb, args.seed)
-    train["loop"] = {task: loop[1] for task, loop in loops.items()}
+    with tempfile.TemporaryDirectory() as deploy_dir:
+        loops = {task: phase_train_loop(fb, args.seed, task,
+                                        keep=os.path.join(deploy_dir, "bcd_loop")
+                                        if task == "bcd" else None)
+                 for task in TASKS}
+        loops["cc"] = phase_cc_loop(fb, args.seed)
+        train["loop"] = {task: loop[1] for task, loop in loops.items()}
+        t0 = time.perf_counter()
+        deploy_model, deploy = phase_deploy_files(fb, dev, args.seed, deploy_dir,
+                                                  loops["bcd"][1])
+        deploy["serve"] = phase_deploy_serve(fb, dev, deploy_model, args.seed, card)
+        deploy["seconds"] = time.perf_counter() - t0
+        del deploy_model
+    print(f"deploy phase: {deploy['seconds']:.1f} s", flush=True)
     print(f"kernels vs plain versions, worst over every check: {json.dumps(worst)}", flush=True)
     for task in TASKS:
         runs, fwd_ms = times[task]
@@ -1160,6 +1533,12 @@ def main(argv=None) -> int:
             "launches_cc_forward": cc_launches[1][kernel],
             "launches_per_forward": forwards["bcd"]["launches_per_forward"],
             "launches_train_loop": {task: loop[0][kernel] for task, loop in loops.items()},
+            "launches_deploy": {
+                "cli_predict_2_batches": deploy["convert_predict"]["launches"][kernel],
+                "tiled_scene": deploy["tiled"]["launches"][kernel],
+                "served_bcd_batches": deploy["serve"]["agreement"]["launches"][kernel],
+                "served_load": deploy["serve"]["load"]["launches"][kernel],
+                "served_cc_batches": deploy["serve"]["cc"]["launches"][kernel]},
             "max_abs_err": worst_of("bfloat16", "max_abs_err"),
             "limit_used": worst_of("bfloat16", "limit_used"),
             "max_abs_err_fp32": worst_of("float32", "max_abs_err"),
@@ -1192,7 +1571,7 @@ def main(argv=None) -> int:
               "pairs_per_s": {task: times[task][0] for task in TASKS},
               "forward_ms": {task: times[task][1] for task in TASKS},
               "forward_check": forward_check, "cc_times": cc_times, "rows": rows,
-              "kernels": kernels, "train": train}
+              "kernels": kernels, "train": train, "deploy": deploy}
     if os.path.dirname(args.out):
         os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:

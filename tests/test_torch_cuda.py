@@ -344,3 +344,58 @@ def test_tiny_cc_model_fused_matches_plain_on_card(cuda):
     caption = lambda m: CaptionPredictor(m, words, beam_size=3, compute_dtype=torch.float32,
                                          device=cuda).caption_device(pre, post)[0]
     assert torch.equal(caption(fused), caption(plain))
+
+
+def test_async_launches_in_flight_equal_predict_u8(cuda):
+    """Two predict_u8_async launches in flight, finalized in reverse order,
+    give exactly what predict_u8 gives for each batch (every launch copies
+    into its own pinned buffers)."""
+    from change3d_tpu_torch.inference import Predictor
+    from change3d_tpu_torch.models.trainer import Change3D, Task
+
+    pred = Predictor(Change3D(Task.BDA, num_classes=5, device=cuda, seed=1), device=cuda)
+    rs = np.random.RandomState(6)
+    batches = [tuple(rs.randint(0, 256, (4, 256, 256, 3)).astype(np.uint8) for _ in range(2))
+               for _ in range(2)]
+    launches = [pred.predict_u8_async(*b) for b in batches]
+    assert all(launch.event is not None and launch.out["loc"].is_pinned() for launch in launches)
+    got = [pred.finalize_u8(launch) for launch in launches[::-1]][::-1]
+    for b, g in zip(batches, got):
+        want = pred.predict_u8(*b)
+        assert set(g) == set(want) == {"cls", "loc"}
+        for key in want:
+            np.testing.assert_array_equal(g[key], want[key])
+
+
+def test_served_batch_launches_37_and_18(cuda):
+    """A bulk request of 8 pairs to a warmed-up BCD server (buckets 2/4/8)
+    is one batch: 37 fused_block_fwd and 18 fused_block_se_sums launches,
+    and the masks predict_u8 gives for the same batch."""
+    import threading
+
+    from change3d_tpu_torch.client import PredictClient
+    from change3d_tpu_torch.inference import Predictor
+    from change3d_tpu_torch.models.trainer import Change3D, Task
+    from change3d_tpu_torch.serving import PredictService, make_server
+
+    pred = Predictor(Change3D(Task.BCD, device=cuda, seed=2), device=cuda)
+    service = PredictService("bcd", pred, batch_size=8, max_delay_ms=5, warmup=True)
+    httpd = make_server(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        rs = np.random.RandomState(7)
+        pres, posts = (rs.randint(0, 256, (8, 256, 256, 3)).astype(np.uint8) for _ in range(2))
+        client = PredictClient(f"http://127.0.0.1:{httpd.server_address[1]}")
+        before = fb.fused_block_fwd.launches, fb.fused_block_se_sums.launches
+        out = client.predict_raw_many(pres[..., ::-1], posts[..., ::-1])
+        assert (fb.fused_block_fwd.launches - before[0],
+                fb.fused_block_se_sums.launches - before[1]) == (37, 18)
+        assert client.metrics()["batches_total"] == 1
+        want = pred.predict_u8(pres, posts)["change"]
+        np.testing.assert_array_equal(out["change"], want.astype(np.uint8) * 255)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        service.close()
+        thread.join(timeout=10)
