@@ -9,12 +9,16 @@ backbone from Kinetics; ``--resume`` resumes):
   python -m change3d_tpu_torch.cli bda --file_root DATA --save_dir EXP  # xBD, 5 classes, batch 12
   python -m change3d_tpu_torch.cli cc  --file_root DATA --save_dir EXP  # LEVIR-CC, batch 32, fp32
 
+``--profile_dir DIR`` traces training steps 10-14 with torch.profiler.
+
 Using a saved run (a run dir holding ``best/model.pt``, from training or
 from ``convert-reference``):
 
   python -m change3d_tpu_torch.cli predict --model_task bcd --checkpoint RUN --file_root DATA --out OUT [--tiled]
   python -m change3d_tpu_torch.cli eval    --model_task bcd --checkpoint RUN --file_root DATA [--which latest]
   python -m change3d_tpu_torch.cli serve   --model_task bcd --checkpoint RUN [--port 8000]
+  python -m change3d_tpu_torch.cli export  --model_task bcd --checkpoint RUN --out bcd.pt2 [--batch 8]
+  python -m change3d_tpu_torch.cli serve   --model_task bcd --artifact bcd.pt2
   python -m change3d_tpu_torch.cli info    --model_task bcd
   python -m change3d_tpu_torch.cli convert-reference --model_task bcd --torch_checkpoint best_model.pth --out RUN
   python -m change3d_tpu_torch.cli verify-checkpoint --pretrained X3D_L.pyth [--trace ref_acts.npz]
@@ -39,11 +43,7 @@ from change3d_tpu_torch.train.loop import RunConfig, run_detection_training
 
 _MULTI_GPU = "multi-GPU runs arrive with the multi-GPU slice"
 _INT8 = "int8 quantisation arrives with the int8 slice"
-_EXPORT = ("export and the artifact predictors arrive with the export slice (the kernels as "
-           "torch.library custom ops)")
 _PACKED = "time-packed execution is never ported (the port holds the unpacked path)"
-_PROFILE = ("profiling arrives with the export and profiling slice; meanwhile "
-            "tools/profile_torch_bcd.py traces the card")
 _FUSED_HELP = "accepted and without effect: evaluation always runs the fused CUDA blocks"
 _NOT_PORTED = {
     "--remat": "activation rematerialisation is not ported",
@@ -51,7 +51,6 @@ _NOT_PORTED = {
     "--packed": _PACKED,
     "--no-packed": _PACKED,
     "--loader": "only the threaded loader is ported (the grain loader is not)",
-    "--profile_dir": _PROFILE,
     "--coordinator_address": _MULTI_GPU,
     "--num_processes": _MULTI_GPU,
     "--process_id": _MULTI_GPU,
@@ -77,7 +76,6 @@ _CC_NOT_PORTED = {
                              "with the multi-GPU slice",
     "--num_processes": _MULTI_GPU,
     "--process_id": _MULTI_GPU,
-    "--profile_dir": _PROFILE,
     "--platform": _NOT_PORTED["--platform"],
     "--packed": _PACKED,
     "--no-packed": _PACKED,
@@ -97,6 +95,15 @@ _USE_NOT_PORTED = {
     "--no-packed": _PACKED,
     "--platform": _NOT_PORTED["--platform"],
 }
+_EXPORT_NOT_PORTED = {
+    "--platforms": "use --device; load_exported(device=...) moves an artifact",
+    "--platform": "use --device; load_exported(device=...) moves an artifact",
+    "--quantized": _INT8,
+    "--quant_mode": _INT8,
+    "--calib_batches": _INT8,
+    "--calib_batch_size": _INT8,
+}
+_PROFILE_HELP = "write a torch.profiler trace of training steps 10-14 here"
 
 
 class _NotPorted(argparse.Action):
@@ -158,6 +165,7 @@ def _add_cc(sub) -> None:
     p.add_argument("--pretrained", default=None, help="a Kinetics X3D_L.pyth for the backbone")
     p.add_argument("--fused", action="store_true", help=_FUSED_HELP)
     p.add_argument("--compute_dtype", default="float32", choices=["float32", "bfloat16"])
+    p.add_argument("--profile_dir", default=None, help=_PROFILE_HELP)
     _device(p)
     _refuse(p, _CC_NOT_PORTED)
 
@@ -182,6 +190,7 @@ def _add_train(sub) -> None:
         p.add_argument("--max_epochs", type=int, default=None)
         p.add_argument("--max_steps", type=int, default=max_steps)
         p.add_argument("--compute_dtype", default="bfloat16", choices=["float32", "bfloat16"])
+        p.add_argument("--profile_dir", default=None, help=_PROFILE_HELP)
         _device(p)
         if num_class is not None:
             p.add_argument("--num_class", dest="num_classes", type=int, default=num_class,
@@ -234,10 +243,13 @@ def _add_use(sub) -> None:
     _device(p)
     _refuse(p, _USE_NOT_PORTED)
 
-    p = sub.add_parser("serve", help="HTTP batching prediction service for a saved run "
-                                     "(POST /v1/predict, GET /healthz, GET /metrics)")
+    p = sub.add_parser("serve", help="HTTP batching prediction service for a saved run or an "
+                                     "exported artifact (POST /v1/predict, GET /healthz, "
+                                     "GET /metrics)")
     p.add_argument("--model_task", required=True, choices=tasks)
-    p.add_argument("--checkpoint", required=True, help="run dir holding best/model.pt")
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--checkpoint", help="run dir holding best/model.pt")
+    src.add_argument("--artifact", help="an exported artifact (cli export)")
     p.add_argument("--file_root", default=None, help="(cc) dataset root for the word map")
     p.add_argument("--num_class", type=int, default=None)
     p.add_argument("--in_height", type=int, default=256)
@@ -261,7 +273,7 @@ def _add_use(sub) -> None:
     p.add_argument("--fused", action="store_true", help=_FUSED_HELP)
     _cc_model_flags(p)
     _device(p)
-    _refuse(p, {**_USE_NOT_PORTED, "--artifact": _EXPORT})
+    _refuse(p, _USE_NOT_PORTED)
 
     p = sub.add_parser("info", help="parameter counts and FLOPs of a task model, beside the "
                                     "reference's published numbers")
@@ -305,7 +317,24 @@ def _add_use(sub) -> None:
     _device(p)
     _refuse(p, {"--platform": _NOT_PORTED["--platform"]})
 
-    sub.add_parser("export", help="not ported yet: " + _EXPORT)
+    p = sub.add_parser("export", help="export a saved run to a torch.export artifact (.pt2; "
+                                      "weights inside, symbolic batch; served by serve "
+                                      "--artifact or export.load_exported). For cc the "
+                                      "artifact holds the encoder and the beam search")
+    p.add_argument("--model_task", required=True, choices=tasks)
+    p.add_argument("--checkpoint", required=True, help="run dir holding best/model.pt")
+    p.add_argument("--out", required=True, help="output artifact path")
+    p.add_argument("--num_class", type=int, default=None)
+    p.add_argument("--in_height", type=int, default=256)
+    p.add_argument("--in_width", type=int, default=256)
+    p.add_argument("--batch", type=int, default=None,
+                   help="pin the batch (default: symbolic, any batch)")
+    p.add_argument("--file_root", default=None, help="(cc) dataset root for the word map")
+    _cc_model_flags(p)
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="the device to export on (cuda, the default, raises without a card); "
+                        "the loaders move an artifact to theirs")
+    _refuse(p, _EXPORT_NOT_PORTED)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -452,24 +481,67 @@ def run_eval(args) -> int:
     return 0
 
 
+def _cc_word_map(args):
+    """CC's run config and word map (export, serve)."""
+    from change3d_tpu_torch.train.caption_loop import load_word_map
+
+    if not (args.file_root or args.word_map):
+        raise SystemExit(f"cc {args.task} needs --word_map (or --file_root to find it)")
+    cfg = _caption_config(args)
+    return cfg, load_word_map(cfg)
+
+
+def _cc_model(args, cfg, word_map):
+    """The CC model of ``args``' geometry (square inputs only)."""
+    from change3d_tpu_torch.train.caption_loop import build_caption_model
+
+    if args.in_width != args.in_height:
+        raise SystemExit(f"cc {args.task}: the caption model is square "
+                         "(--in_height = --in_width)")
+    return build_caption_model(cfg, len(word_map), in_size=args.in_height)
+
+
+def run_export(args) -> int:
+    """A saved run -> one artifact (``export.py``), exported on --device."""
+    from change3d_tpu_torch.checkpoint.io import restore_best_state
+    from change3d_tpu_torch.export import export_caption_model, export_from_checkpoint
+
+    if args.model_task == "cc":
+        cfg, word_map = _cc_word_map(args)
+        model = _cc_model(args, cfg, word_map)
+        model.load_state_dict(restore_best_state(args.checkpoint))
+        blob = export_caption_model(model, word_map, args.out, beam_size=args.beam_size,
+                                    batch=args.batch)
+    else:
+        from change3d_tpu_torch.train.loop import build_model
+
+        blob = export_from_checkpoint(build_model(_detection_config(args)), args.checkpoint,
+                                      args.out, batch=args.batch)
+    print(f"exported {len(blob)} bytes to {args.out}", flush=True)
+    return 0
+
+
 def build_service(args):
     """The PredictService ``serve`` runs (warmed up unless --no_warmup)."""
-    from change3d_tpu_torch.inference import CaptionPredictor, Predictor
+    from change3d_tpu_torch.inference import (
+        ArtifactPredictor,
+        CaptionArtifactPredictor,
+        CaptionPredictor,
+        Predictor,
+    )
     from change3d_tpu_torch.serving import PredictService
 
     if args.model_task == "cc":
-        from change3d_tpu_torch.train.caption_loop import build_caption_model, load_word_map
-
-        if not (args.file_root or args.word_map):
-            raise SystemExit("cc serve needs --word_map (or --file_root to find it)")
-        if args.in_width != args.in_height:
-            raise SystemExit("cc serve: the caption model is square (--in_height = --in_width)")
-        cfg = _caption_config(args)
-        word_map = load_word_map(cfg)
-        predictor = CaptionPredictor.from_checkpoint(
-            build_caption_model(cfg, len(word_map), in_size=args.in_height), args.checkpoint,
-            word_map=word_map, beam_size=args.beam_size, compute_dtype=_compute_dtype(args),
-            device=args.device)
+        cfg, word_map = _cc_word_map(args)
+        if args.artifact:
+            predictor = CaptionArtifactPredictor(args.artifact, word_map, device=args.device)
+        else:
+            predictor = CaptionPredictor.from_checkpoint(
+                _cc_model(args, cfg, word_map), args.checkpoint, word_map=word_map,
+                beam_size=args.beam_size, compute_dtype=_compute_dtype(args),
+                device=args.device)
+    elif args.artifact:
+        predictor = ArtifactPredictor(args.artifact, device=args.device)
     else:
         from change3d_tpu_torch.train.loop import build_model
 
@@ -554,7 +626,7 @@ def run_verify_checkpoint(args) -> int:
     return 0 if report["all_pass"] in (True, None) else 1
 
 
-_RUN = {"eval": run_eval, "serve": run_serve, "info": run_info,
+_RUN = {"eval": run_eval, "serve": run_serve, "info": run_info, "export": run_export,
         "convert-reference": run_convert_reference, "verify-checkpoint": run_verify_checkpoint}
 
 
@@ -563,10 +635,7 @@ def main(argv=None):
     dict; the others an exit status (verify-checkpoint: 1 on a failed
     comparison)."""
     parser = build_parser()
-    argv = sys.argv[1:] if argv is None else list(argv)
-    if argv[:1] == ["export"]:
-        parser.error(f"export is not ported yet: {_EXPORT}")
-    args = parser.parse_args(argv)
+    args = parser.parse_args(sys.argv[1:] if argv is None else list(argv))
     if args.task == "predict":
         return (run_predict_captions if args.model_task == "cc" else run_predict)(args)
     if args.task in _RUN:

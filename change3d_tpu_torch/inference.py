@@ -17,10 +17,16 @@ batches of model-sized tiles.
 ``CaptionPredictor`` wraps a CC model: the encoder (fused blocks on the
 card), then the KV-cached beam search; sentences out. ``from_checkpoint``
 builds either from a run's ``best/model.pt``.
+
+``ArtifactPredictor`` and ``CaptionArtifactPredictor`` serve an exported
+artifact (``export.py``) with the same ``predict`` / ``predict_probs`` /
+``caption`` surface, on normalised float inputs; ``fixed_batch`` is the
+batch an artifact was pinned to (None for a symbolic batch).
 """
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -29,6 +35,7 @@ import torch
 from change3d_tpu_torch.checkpoint.io import restore_best_state
 from change3d_tpu_torch.data.datasets import CaptionDataset
 from change3d_tpu_torch.device import resolve_device
+from change3d_tpu_torch.export import load_exported, load_exported_captioner
 from change3d_tpu_torch.models.caption_decoder import (
     MAX_CAPTION_LEN,
     beam_search_decode,
@@ -183,6 +190,32 @@ class Predictor:
         return self.finalize_u8(self.predict_u8_async(pre, post))
 
 
+def _artifact_geometry(fn):
+    """(a model stand-in with the artifact's in_height / in_width, its
+    pinned batch or None when the batch is symbolic)."""
+    b, h, w, _ = fn.input_shape
+    return SimpleNamespace(in_height=int(h), in_width=int(w)), (b if isinstance(b, int) else None)
+
+
+class ArtifactPredictor:
+    """``Predictor``'s float surface (``predict_probs``, ``predict``) over an
+    exported detection artifact (counterpart of the JAX
+    ``ArtifactPredictor``), so ``TiledPredictor`` and the server take either.
+    The input geometry is the artifact's; ``fixed_batch`` is its pinned
+    batch, or None when the batch is symbolic. Runs on ``device`` (CUDA by
+    default; raises without a card unless ``device="cpu"``)."""
+
+    def __init__(self, path_or_bytes, device="cuda"):
+        self._fn = load_exported(path_or_bytes, device)
+        self.model, self.fixed_batch = _artifact_geometry(self._fn)
+
+    def predict_probs(self, pre: np.ndarray, post: np.ndarray) -> Dict[str, np.ndarray]:
+        return postprocess_probs(self._fn(pre, post))
+
+    def predict(self, pre: np.ndarray, post: np.ndarray) -> Dict[str, np.ndarray]:
+        return Predictor.harden(self.predict_probs(pre, post))
+
+
 class TiledPredictor:
     """Full-scene inference (counterpart of the JAX ``TiledPredictor``):
     the model's (in_height, in_width) window slides over the scene with
@@ -291,4 +324,20 @@ class CaptionPredictor(Predictor):
     def caption_u8(self, pre: np.ndarray, post: np.ndarray) -> List[str]:
         """Raw uint8 [B, H, W, 3] pairs; only uint8 pixels go to the device."""
         tokens, _ = self.caption_device(self._put(pre), self._put(post))
+        return tokens_to_captions(tokens.cpu().numpy(), self.word_map)
+
+
+class CaptionArtifactPredictor:
+    """``caption()`` over an exported caption artifact (counterpart of the
+    JAX ``CaptionArtifactPredictor``): the encoder and the beam search are
+    baked in, the word map comes separately (ids are the vocabulary).
+    Inputs are ImageNet-normalised floats [B, H, W, 3]."""
+
+    def __init__(self, path_or_bytes, word_map: Dict[str, int], device="cuda"):
+        self._fn = load_exported_captioner(path_or_bytes, device)
+        self.word_map = word_map
+        self.model, self.fixed_batch = _artifact_geometry(self._fn)
+
+    def caption(self, pre: np.ndarray, post: np.ndarray) -> List[str]:
+        tokens, _ = self._fn(pre, post)
         return tokens_to_captions(tokens.cpu().numpy(), self.word_map)

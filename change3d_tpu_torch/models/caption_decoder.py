@@ -25,7 +25,7 @@ them.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -132,17 +132,18 @@ class CaptionDecoderLayer(nn.Module):
         ca = self.cross_attn(x1, memory, memory, generator=generator)
         return self.norm2(x1 + self._drop(ca, generator))
 
-    def step(self, x_t: torch.Tensor, memory_kv, cache: Dict[str, torch.Tensor], pos: int):
+    def step(self, x_t: torch.Tensor, memory_kv, cache: Dict[str, torch.Tensor],
+             pos: torch.Tensor, mask: torch.Tensor):
         """KV-cached single-token step (no dropout). x_t: [B, 1, E];
         memory_kv: this layer's projected cross-attention (k, v) [B, S, E];
-        cache {'k', 'v'} [B, Lmax, E], written in place at ``pos``. Returns
-        (y_t [B, 1, E], cache): column ``pos`` of the full re-decode."""
+        cache {'k', 'v'} [B, Lmax, E]; pos: a 0-d int64 tensor; mask: the
+        additive causal row [1, Lmax] (0 at positions <= pos, -inf after).
+        Returns (y_t [B, 1, E], the cache with column ``pos`` written, a new
+        dict of new tensors): column ``pos`` of the full re-decode."""
         k_t, v_t = self.self_attn.project_kv(x_t)
-        cache["k"][:, pos] = k_t[:, 0].to(cache["k"].dtype)
-        cache["v"][:, pos] = v_t[:, 0].to(cache["v"].dtype)
-        lmax = cache["k"].shape[1]
-        mask = torch.zeros((1, lmax), dtype=torch.float32, device=x_t.device)
-        mask[:, pos + 1:] = float("-inf")  # causal: positions <= pos only
+        idx = pos.reshape(1)
+        cache = {"k": cache["k"].index_copy(1, idx, k_t.to(cache["k"].dtype)),
+                 "v": cache["v"].index_copy(1, idx, v_t.to(cache["v"].dtype))}
         sa = self.self_attn.attend_step(x_t, cache["k"], cache["v"], attn_mask=mask)
         x1 = self.norm1(x_t + sa)
         mk, mv = memory_kv
@@ -160,6 +161,9 @@ class CaptionDecoder(nn.Module):
         self.vocab_embedding = nn.Parameter(uniform_init(generator, (vocab_size, embed_dim), 0.1))
         self.register_buffer("pe", sinusoidal_position_encoding(PE_ROWS, embed_dim),
                              persistent=False)
+        # Position ids on the model's device: an int position indexes a 0-d
+        # view of it, so a step never copies its position from the host.
+        self.register_buffer("positions", torch.arange(PE_ROWS), persistent=False)
         for i in range(num_layers):
             self.add_module(f"layer{i}", CaptionDecoderLayer(embed_dim, num_heads, dropout_rate,
                                                              generator))
@@ -204,16 +208,115 @@ class CaptionDecoder(nn.Module):
         """Each layer's cross-attention keys/values, projected once per decode."""
         return tuple(layer.cross_attn.project_kv(memory) for layer in self.layers())
 
-    def decode_step(self, tokens_t: torch.Tensor, memory_kv: MemoryKV, cache: Cache, pos: int):
-        """tokens_t: [B] tokens at position ``pos`` -> (logits [B, V] for
-        position pos + 1, cache): column ``pos`` of ``decode`` on the full
-        prefix at O(1) attention work per step."""
+    def decode_step(self, tokens_t: torch.Tensor, memory_kv: MemoryKV, cache: Cache, pos):
+        """tokens_t: [B] tokens at position ``pos`` (an int or a 0-d int64
+        tensor) -> (logits [B, V] for position pos + 1, the caches with
+        column ``pos`` written): column ``pos`` of ``decode`` on the full
+        prefix at O(1) attention work per step. The caches are written out
+        of place (``index_copy``), the position encoding read with
+        ``index_select`` and the causal row built once for every layer, so a
+        tensor position traces into one graph for every step
+        (``beam_search_loop``)."""
+        if not isinstance(pos, torch.Tensor):
+            pos = self.positions[pos]
         x = F.embedding(tokens_t.long(), self.vocab_embedding)[:, None]
         x = x.to(memory_kv[0][0].dtype)
-        x = x + self.pe[pos:pos + 1].to(x.dtype)[None]
+        x = x + self.pe.index_select(0, pos.reshape(1)).to(x.dtype)[None]
+        lmax = cache[0]["k"].shape[1]
+        mask = torch.where(self.positions[:lmax] > pos, float("-inf"), 0.0)[None]
+        new_cache = []
         for layer, mkv, c in zip(self.layers(), memory_kv, cache):
-            x, _ = layer.step(x, mkv, c, pos)
-        return linear(x[:, 0], self.out_w, self.out_b), cache
+            x, c = layer.step(x, mkv, c, pos, mask)
+            new_cache.append(c)
+        return linear(x[:, 0], self.out_w, self.out_b), tuple(new_cache)
+
+
+_NEG_INF = -1e9
+
+
+class _Beams(NamedTuple):
+    """The search's carry: tokens [B*k, L], cumulative scores [B*k], the
+    alive mask [B*k], live width per row [B], and the best completion so
+    far per row (tokens [B, L], score [B])."""
+
+    tokens: torch.Tensor
+    scores: torch.Tensor
+    alive: torch.Tensor
+    n_live: torch.Tensor
+    best_tokens: torch.Tensor
+    best_scores: torch.Tensor
+
+
+def _init_beams(b: int, k: int, max_len: int, start_token: int, pad_token: int,
+                dev) -> _Beams:
+    tokens = torch.full((b * k, max_len), pad_token, dtype=torch.int64, device=dev)
+    tokens[:, 0] = start_token
+    # Beam 0 live, the others at _NEG_INF, so the first expansion fans out of one beam.
+    first = torch.arange(k, device=dev) == 0
+    return _Beams(
+        tokens=tokens,
+        scores=torch.where(first, 0.0, _NEG_INF).to(torch.float32).repeat(b),
+        alive=first.repeat(b),
+        n_live=torch.full((b,), k, dtype=torch.int64, device=dev),
+        best_tokens=torch.full((b, max_len), pad_token, dtype=torch.int64, device=dev),
+        best_scores=torch.full((b,), _NEG_INF, dtype=torch.float32, device=dev),
+    )
+
+
+def _advance(beams: _Beams, logp: torch.Tensor, t: torch.Tensor, end_token: int,
+             batch_ids: torch.Tensor, slot: torch.Tensor) -> Tuple[_Beams, torch.Tensor]:
+    """One step of the search's bookkeeping, out of place: expand every live
+    beam by ``logp`` [B*k, V] (fp32 log-probs), keep the top k per row,
+    write the chosen tokens at position ``t`` (a 0-d int64 tensor), retire
+    the beams that chose <end> and update the running best. Returns the new
+    beams and the parent of each ([B*k] into the old beams; the caches
+    follow it)."""
+    b, k = batch_ids.shape[0], slot.shape[1]
+    max_len = beams.tokens.shape[1]
+    # Underflowed log-probs stay above the dead-slot sentinel.
+    logp = torch.clamp_min(logp, -1e6)
+    v = logp.shape[-1]
+    cand = torch.where(beams.alive[:, None], beams.scores[:, None] + logp, _NEG_INF)
+    cand = cand.reshape(b, k * v)
+    if k == 1:
+        top_idx = torch.argmax(cand, dim=-1, keepdim=True)  # first of equal maxima
+        top_scores = torch.gather(cand, 1, top_idx)
+        parent = batch_ids
+        tokens = beams.tokens.reshape(b, 1, max_len)
+    else:
+        # Stable descending sort: equal scores rank by lower index (jax.lax.top_k).
+        top_scores, top_idx = torch.sort(cand, dim=-1, descending=True, stable=True)
+        top_scores, top_idx = top_scores[:, :k], top_idx[:, :k]
+        parent = (top_idx // v + batch_ids[:, None] * k).reshape(-1)
+        tokens = beams.tokens[parent].reshape(b, k, max_len)
+    tok_idx = top_idx % v
+    tokens = tokens.index_copy(2, t.reshape(1), tok_idx[:, :, None])
+    kept = (slot < beams.n_live[:, None]) & (top_scores > _NEG_INF / 2)
+    done_now = kept & (tok_idx == end_token)
+    masked = torch.where(done_now, top_scores, _NEG_INF)
+    step_best, step_arg = masked.max(dim=1).values, torch.argmax(masked, dim=1)
+    improved = step_best > beams.best_scores
+    alive = (kept & ~done_now).reshape(-1)
+    return _Beams(
+        tokens=tokens.reshape(b * k, max_len),
+        scores=torch.where(alive, top_scores.reshape(-1), _NEG_INF),
+        alive=alive,
+        n_live=beams.n_live - done_now.sum(dim=1),
+        best_tokens=torch.where(improved[:, None], tokens[batch_ids, step_arg],
+                                beams.best_tokens),
+        best_scores=torch.where(improved, step_best, beams.best_scores),
+    ), parent
+
+
+def _result(beams: _Beams, batch_ids: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The best completion of each row; with none, its best live beam."""
+    b, max_len = batch_ids.shape[0], beams.tokens.shape[1]
+    any_done = beams.best_scores > _NEG_INF / 2
+    live_scores = torch.where(beams.alive, beams.scores, _NEG_INF).reshape(b, k)
+    fb = torch.argmax(live_scores, dim=1)
+    fb_tokens = beams.tokens.reshape(b, k, max_len)[batch_ids, fb]
+    return (torch.where(any_done[:, None], beams.best_tokens, fb_tokens),
+            torch.where(any_done, beams.best_scores, live_scores[batch_ids, fb]))
 
 
 def beam_search_decode(
@@ -250,22 +353,14 @@ def beam_search_decode(
     b = memory.shape[0]
     k = beam_size
     dev = memory.device
-    neg_inf = -1e9
     batch_ids = torch.arange(b, device=dev)
+    slot = torch.arange(k, device=dev)[None, :]
+    # Position t as a 0-d view of a device tensor: no copy from the host per step.
+    steps = torch.arange(max_len, device=dev)
+    beams = _init_beams(b, k, max_len, start_token, pad_token, dev)
 
     # k = 1 (greedy): every repeat and parent gather is the identity; skip them.
     mem = memory if k == 1 else memory.repeat_interleave(k, dim=0)  # [B*k, S, E]
-    tokens = torch.full((b * k, max_len), pad_token, dtype=torch.int64, device=dev)
-    tokens[:, 0] = start_token
-    # Beam 0 live, the others at neg_inf, so the first expansion fans out of one beam.
-    first = torch.arange(k, device=dev) == 0
-    scores = torch.where(first, 0.0, neg_inf).to(torch.float32).repeat(b)
-    alive = first.repeat(b)
-    n_live = torch.full((b,), k, dtype=torch.int64, device=dev)
-    best_tokens = torch.full((b, max_len), pad_token, dtype=torch.int64, device=dev)
-    best_scores = torch.full((b,), neg_inf, dtype=torch.float32, device=dev)
-    slot = torch.arange(k, device=dev)[None, :]
-
     if incremental is not None:
         precompute_fn, init_cache_fn, step_fn = incremental
         # Project from the un-repeated memory, then repeat the projections.
@@ -276,56 +371,83 @@ def beam_search_decode(
 
     t = 1
     while t < max_len:
-        if early_exit and t > 1 and not bool(alive.any()):
+        if early_exit and t > 1 and not bool(beams.alive.any()):
             break
         if incremental is not None:
-            step_logits, cache = step_fn(tokens[:, t - 1], mem_kv, cache, t - 1)
-            logp = torch.log_softmax(step_logits.float(), dim=-1)
+            step_logits, cache = step_fn(beams.tokens[:, t - 1], mem_kv, cache, t - 1)
         else:
-            logp = torch.log_softmax(apply_fn(tokens, mem)[:, t - 1].float(), dim=-1)
-        # Underflowed log-probs stay above the dead-slot sentinel.
-        logp = torch.clamp_min(logp, -1e6)
-        v = logp.shape[-1]
-        cand = torch.where(alive[:, None], scores[:, None] + logp, neg_inf).reshape(b, k * v)
-        if k == 1:
-            top_idx = torch.argmax(cand, dim=-1, keepdim=True)  # first of equal maxima
-            top_scores = torch.gather(cand, 1, top_idx)
-            tokens = tokens.reshape(b, 1, max_len)
-        else:
-            # Stable descending sort: equal scores rank by lower index (jax.lax.top_k).
-            top_scores, top_idx = torch.sort(cand, dim=-1, descending=True, stable=True)
-            top_scores, top_idx = top_scores[:, :k], top_idx[:, :k]
-            flat_idx = (top_idx // v + batch_ids[:, None] * k).reshape(-1)
-            tokens = tokens[flat_idx].reshape(b, k, max_len)
-        tok_idx = top_idx % v
-        tokens[:, :, t] = tok_idx
-        kept = (slot < n_live[:, None]) & (top_scores > neg_inf / 2)
-        done_now = kept & (tok_idx == end_token)
-        masked = torch.where(done_now, top_scores, neg_inf)
-        step_best, step_arg = masked.max(dim=1).values, torch.argmax(masked, dim=1)
-        improved = step_best > best_scores
-        best_scores = torch.where(improved, step_best, best_scores)
-        best_tokens = torch.where(improved[:, None], tokens[batch_ids, step_arg], best_tokens)
-        n_live = n_live - done_now.sum(dim=1)
-        alive = (kept & ~done_now).reshape(-1)
-        scores = torch.where(alive, top_scores.reshape(-1), neg_inf)
-        tokens = tokens.reshape(b * k, max_len)
+            step_logits = apply_fn(beams.tokens, mem)[:, t - 1]
+        beams, parent = _advance(beams, torch.log_softmax(step_logits.float(), dim=-1),
+                                 steps[t], end_token, batch_ids, slot)
         if incremental is not None and k > 1:
             # Beams follow their parents: the caches reorder with the gather.
-            cache = tuple({n: a[flat_idx] for n, a in c.items()} for c in cache)
+            cache = tuple({n: a[parent] for n, a in c.items()} for c in cache)
         t += 1
     beam_search_decode.steps = t - 1
-
-    any_done = best_scores > neg_inf / 2
-    live_scores = torch.where(alive, scores, neg_inf).reshape(b, k)
-    fb = torch.argmax(live_scores, dim=1)
-    fb_tokens = tokens.reshape(b, k, max_len)[batch_ids, fb]
-    out_tokens = torch.where(any_done[:, None], best_tokens, fb_tokens)
-    out_scores = torch.where(any_done, best_scores, live_scores[batch_ids, fb])
-    return out_tokens, out_scores
+    return _result(beams, batch_ids, k)
 
 
 beam_search_decode.steps = 0
+
+
+def beam_search_loop(
+    memory: torch.Tensor,
+    *,
+    beam_size: int,
+    start_token: int,
+    end_token: int,
+    incremental: Sequence[Callable],
+    pad_token: int = 0,
+    max_len: int = MAX_CAPTION_LEN,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``beam_search_decode``'s KV-cached search with early exit as one
+    ``while_loop`` (``torch._higher_order_ops``), as JAX runs it (one
+    ``lax.while_loop``): the loop runs while ``t < max_len`` and any beam
+    of the batch is alive, and its body is the search's bookkeeping
+    (``_advance``) after one ``step(tokens_t, memory_kv, cache, pos)`` at a
+    0-d tensor position. ``torch.export`` traces it into one graph whatever
+    the batch (``export.py``); its tokens and scores are the Python loop's.
+
+    The carry holds fixed shapes and dtypes, and the body returns new
+    tensors only (a carried input is never aliased). Run it traced; eagerly
+    ``while_loop`` compiles itself, so ``beam_search_decode`` serves there.
+    Returns (tokens [B, max_len] int64, scores [B] fp32).
+    """
+    from torch._higher_order_ops import while_loop
+
+    b = memory.shape[0]
+    k = beam_size
+    dev = memory.device
+    batch_ids = torch.arange(b, device=dev)
+    slot = torch.arange(k, device=dev)[None, :]
+    precompute_fn, init_cache_fn, step_fn = incremental
+    mem_kv = precompute_fn(memory)
+    if k > 1:
+        mem_kv = tuple(tuple(a.repeat_interleave(k, dim=0) for a in kv) for kv in mem_kv)
+    cache = init_cache_fn(b * k, max_len, memory.dtype)
+    names = [tuple(c) for c in cache]
+
+    def unflatten(flat):
+        it = iter(flat)
+        return tuple({n: next(it) for n in c} for c in names)
+
+    def cond(t, *carry):
+        return (t < max_len) & _Beams(*carry[:6]).alive.any()
+
+    def body(t, *carry):
+        beams, cache = _Beams(*carry[:6]), unflatten(carry[6:])
+        tokens_t = beams.tokens.index_select(1, (t - 1).reshape(1))[:, 0]
+        step_logits, cache = step_fn(tokens_t, mem_kv, cache, t - 1)
+        beams, parent = _advance(beams, torch.log_softmax(step_logits.float(), dim=-1), t,
+                                 end_token, batch_ids, slot)
+        if k > 1:
+            cache = tuple({n: a[parent] for n, a in c.items()} for c in cache)
+        return (t + 1, *beams, *(a for c in cache for a in c.values()))
+
+    t0 = torch.ones((), dtype=torch.int64, device=dev)
+    beams = _init_beams(b, k, max_len, start_token, pad_token, dev)
+    out = while_loop(cond, body, (t0, *beams, *(a for c in cache for a in c.values())))
+    return _result(_Beams(*out[1:7]), batch_ids, k)
 
 
 def incremental_fns(model) -> Tuple[Callable, Callable, Callable]:

@@ -115,5 +115,5 @@ class Change3D(nn.Module):
     def precompute_memory_kv(self, memory: torch.Tensor):
         return self.decoder.precompute_memory_kv(memory)
 
-    def decode_captions_step(self, tokens_t, memory_kv, cache, pos: int):
+    def decode_captions_step(self, tokens_t, memory_kv, cache, pos):
         return self.decoder.decode_step(tokens_t, memory_kv, cache, pos)

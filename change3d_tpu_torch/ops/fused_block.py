@@ -14,13 +14,16 @@ function:
 where round() is a cast to the activation dtype. Two kernels
 (``csrc/fused_block.cu``): ``fused_block_fwd`` computes y given the gate, and
 ``fused_block_se_sums`` the per-(sample, tile) sums of xb that the gate
-needs. Each wrapper takes its plain version for a CPU tensor, launches its
-kernel for a CUDA tensor (or raises), and counts its launches in
-``<wrapper>.launches``.
+needs. Each is a ``torch.library`` custom op (``c3d::fused_block_fwd``,
+``c3d::fused_block_se_sums``) whose CPU kernel is its plain version and
+whose CUDA kernel launches the CUDA kernel (or raises); the CUDA kernel
+counts its launches in ``<wrapper>.launches``. The fake kernels let
+``torch.export`` keep both as single graph nodes (``export.py``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -100,6 +103,12 @@ def plan_tiles(t: int, h: int, w: int, c: int, ci: int, itemsize: int):
             smem_sums = x_bytes + per_ck * ck
             return tile, ck, smem_sums + acc_bytes, smem_sums, n_tiles
     raise ValueError(f"no tile fits {SMEM_TARGET} B of shared memory for T={t} C={c} Ci={ci}")
+
+
+# The launches' plans: a model has a handful of block shapes, and every
+# launch plans one (the fake kernels call plan_tiles itself, on sizes that
+# may be symbolic and so unhashable).
+_launch_plan = functools.lru_cache(maxsize=None)(plan_tiles)
 
 
 # ---------------------------------------------------------------------------
@@ -203,13 +212,39 @@ def _front_args(x, w_a, a_a, b_a, w_dw, a_b, b_b):
     )
 
 
-def fused_block_se_sums(x, w_a, a_a, b_a, w_dw, a_b, b_b) -> torch.Tensor:
-    """Per-(sample, tile) sums of xb, [B, n_tiles, Ci] fp32."""
-    if x.device.type == "cpu":
-        return se_sums_reference(x, w_a, a_a, b_a, w_dw, a_b, b_b)
+# The two kernels are the custom ops ``c3d::fused_block_se_sums`` and
+# ``c3d::fused_block_fwd``: their CPU kernel is the plain version, their CUDA
+# kernel the ctypes launch, and their fake kernel gives the output's shape
+# from the static T, H, W, C and Ci (the batch may stay symbolic), so
+# ``torch.export`` puts one node per kernel launch into the graph whatever
+# device it traces on. No other device has a kernel: the dispatcher raises.
+
+_SE_SUMS_SCHEMA = ("(Tensor x, Tensor w_a, Tensor a_a, Tensor b_a, Tensor w_dw, Tensor a_b, "
+                   "Tensor b_b) -> Tensor")
+_FWD_SCHEMA = ("(Tensor x, Tensor w_a, Tensor a_a, Tensor b_a, Tensor w_dw, Tensor a_b, "
+               "Tensor b_b, Tensor w_c, Tensor a_c, Tensor b_c, Tensor? gate) -> Tensor")
+
+
+def _se_sums_cpu(x, w_a, a_a, b_a, w_dw, a_b, b_b):
+    return se_sums_reference(x, w_a, a_a, b_a, w_dw, a_b, b_b).contiguous()
+
+
+def _fwd_cpu(x, w_a, a_a, b_a, w_dw, a_b, b_b, w_c, a_c, b_c, gate):
+    return fused_block_fwd_reference(x, w_a, a_a, b_a, w_dw, a_b, b_b, w_c, a_c, b_c,
+                                     gate).contiguous()
+
+
+_se_sums_op = torch.library.custom_op("c3d::fused_block_se_sums", _se_sums_cpu, mutates_args=(),
+                                      device_types="cpu", schema=_SE_SUMS_SCHEMA)
+_fwd_op = torch.library.custom_op("c3d::fused_block_fwd", _fwd_cpu, mutates_args=(),
+                                  device_types="cpu", schema=_FWD_SCHEMA)
+
+
+@_se_sums_op.register_kernel("cuda")
+def _se_sums_cuda(x, w_a, a_a, b_a, w_dw, a_b, b_b):
     b, t, h, w, c, ci = _check_cuda_args(x, w_a)
     args = _front_args(x, w_a, a_a, b_a, w_dw, a_b, b_b)
-    tile, ck, _, smem, n_tiles = plan_tiles(t, h, w, c, ci, x.element_size())
+    tile, ck, _, smem, n_tiles = _launch_plan(t, h, w, c, ci, x.element_size())
     sums = torch.empty((b, n_tiles, ci), device=x.device, dtype=torch.float32)
     lib = cuda_build.load("fused_block")
     err = lib.c3d_fused_block_se_sums(
@@ -222,13 +257,8 @@ def fused_block_se_sums(x, w_a, a_a, b_a, w_dw, a_b, b_b) -> torch.Tensor:
     return sums
 
 
-fused_block_se_sums.launches = 0
-
-
-def fused_block_fwd(x, w_a, a_a, b_a, w_dw, a_b, b_b, w_c, a_c, b_c, gate=None) -> torch.Tensor:
-    """The block given its SE gate ([B, Ci] fp32, None for non-SE blocks)."""
-    if x.device.type == "cpu":
-        return fused_block_fwd_reference(x, w_a, a_a, b_a, w_dw, a_b, b_b, w_c, a_c, b_c, gate)
+@_fwd_op.register_kernel("cuda")
+def _fwd_cuda(x, w_a, a_a, b_a, w_dw, a_b, b_b, w_c, a_c, b_c, gate):
     b, t, h, w, c, ci = _check_cuda_args(x, w_a)
     if w_c.shape != (ci, c):
         raise ValueError(f"w_c {tuple(w_c.shape)} != {(ci, c)}")
@@ -241,7 +271,7 @@ def fused_block_fwd(x, w_a, a_a, b_a, w_dw, a_b, b_b, w_c, a_c, b_c, gate=None) 
         if gate.shape != (b, ci):
             raise ValueError(f"gate {tuple(gate.shape)} != {(b, ci)}")
         gate = _f32(gate, x, b * ci, "gate")
-    tile, ck, smem, _, _ = plan_tiles(t, h, w, c, ci, x.element_size())
+    tile, ck, smem, _, _ = _launch_plan(t, h, w, c, ci, x.element_size())
     out = torch.empty_like(args[0])
     lib = cuda_build.load("fused_block")
     err = lib.c3d_fused_block_fwd(
@@ -254,6 +284,34 @@ def fused_block_fwd(x, w_a, a_a, b_a, w_dw, a_b, b_b, w_c, a_c, b_c, gate=None) 
     cuda_build.check(lib, err, "fused_block_fwd")
     fused_block_fwd.launches += 1
     return out
+
+
+@_se_sums_op.register_fake
+def _se_sums_fake(x, w_a, a_a, b_a, w_dw, a_b, b_b):
+    t, h, w, c = x.shape[1:]
+    ci = w_a.shape[1]
+    n_tiles = plan_tiles(t, h, w, c, ci, x.element_size())[4]
+    return x.new_empty((x.shape[0], n_tiles, ci), dtype=torch.float32)
+
+
+@_fwd_op.register_fake
+def _fwd_fake(x, w_a, a_a, b_a, w_dw, a_b, b_b, w_c, a_c, b_c, gate):
+    return x.new_empty(x.shape)
+
+
+def fused_block_se_sums(x, w_a, a_a, b_a, w_dw, a_b, b_b) -> torch.Tensor:
+    """Per-(sample, tile) sums of xb, [B, n_tiles, Ci] fp32
+    (``c3d::fused_block_se_sums``)."""
+    return _se_sums_op(x, w_a, a_a, b_a, w_dw, a_b, b_b)
+
+
+fused_block_se_sums.launches = 0
+
+
+def fused_block_fwd(x, w_a, a_a, b_a, w_dw, a_b, b_b, w_c, a_c, b_c, gate=None) -> torch.Tensor:
+    """The block given its SE gate ([B, Ci] fp32, None for non-SE blocks)
+    (``c3d::fused_block_fwd``)."""
+    return _fwd_op(x, w_a, a_a, b_a, w_dw, a_b, b_b, w_c, a_c, b_c, gate)
 
 
 fused_block_fwd.launches = 0

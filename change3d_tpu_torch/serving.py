@@ -20,6 +20,10 @@
   then post, HWC, already in the task's channel order (RGB, BDA BGR). With
   ``Accept: application/octet-stream`` the masks come back as one uint8 body
   that ``X-Parts`` (``name:d0:d1[:d2],...``) describes.
+- **Artifacts**: an exported artifact's predictor (``inference.py``
+  ``ArtifactPredictor``, ``CaptionArtifactPredictor``) is served on the
+  float path (the host normalises, ``predict`` / ``caption`` run without
+  the pipelined launch); a pinned batch serves only that batch.
 - **Tiled mode** (``tiled=True``): native-size scenes through
   :class:`~change3d_tpu_torch.inference.TiledPredictor`, one scene at a time.
 - ``GET /healthz`` (readiness and configuration) and ``GET /metrics``
@@ -51,6 +55,7 @@ from typing import Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from change3d_tpu_torch.data.datasets import CaptionDataset
 from change3d_tpu_torch.data.png import decode_png_bytes, encode_png_bytes
 from change3d_tpu_torch.data.transforms import eval_normalize
 
@@ -283,12 +288,18 @@ class _BadRequest(ValueError):
 
 
 class PredictService:
-    """Task-aware request handling over a ``Predictor`` (BCD, SCD, BDA) or a
-    ``CaptionPredictor`` (CC). The detection path is uint8 end to end:
-    pixels go to the card, normalisation and hardening run there, and
-    bitpacked masks come back. ``warmup`` runs every bucket once (building
-    the kernels) and one request through the batcher, then zeroes the
-    statistics; start the HTTP server only after it."""
+    """Task-aware request handling over a ``Predictor`` (BCD, SCD, BDA), a
+    ``CaptionPredictor`` (CC) or an exported artifact's predictor
+    (``ArtifactPredictor``, ``CaptionArtifactPredictor``). A predictor with
+    ``predict_u8`` / ``caption_u8`` is served uint8 end to end: pixels go to
+    the card, normalisation and hardening run there, and bitpacked masks
+    come back (pipelined for detection). Any other is served on the float
+    path: the host normalises (``eval_normalize``; ImageNet's mean and std
+    for CC) and ``predict`` / ``caption`` run batch by batch. An artifact
+    pinned to a batch serves only that batch, in one bucket. ``warmup``
+    runs every bucket once (building the kernels) and one request through
+    the batcher, then zeroes the statistics; start the HTTP server only
+    after it."""
 
     def __init__(self, task: str, predictor, *, batch_size: int = 16,
                  max_delay_ms: float = 10.0, tiled: bool = False, tile_overlap: int = 32,
@@ -298,8 +309,12 @@ class PredictService:
         self.tiled = tiled
         self.batch_size = batch_size
         self.stats = _Stats()
+        fixed = getattr(predictor, "fixed_batch", None)
+        if fixed is not None and fixed != batch_size:
+            raise ValueError(f"artifact was exported with a pinned batch of {fixed}; serve it "
+                             f"with --batch_size {fixed} (got {batch_size})")
         if buckets is None:
-            buckets = ((batch_size,) if task == "cc" or tiled else
+            buckets = ((batch_size,) if fixed is not None or task == "cc" or tiled else
                        tuple(sorted({max(1, batch_size // 4), max(1, batch_size // 2),
                                      batch_size})))
         else:
@@ -311,6 +326,9 @@ class PredictService:
         self.in_hw = (predictor.model.in_height, predictor.model.in_width)
         self._tiled = None
         self._batcher = None
+        # Tile blending needs the soft float maps.
+        self._u8 = not tiled and hasattr(predictor,
+                                         "caption_u8" if task == "cc" else "predict_u8")
         if tiled:
             if task == "cc":
                 raise ValueError("tiled serving applies to detection tasks only")
@@ -320,25 +338,40 @@ class PredictService:
             # One scene at a time: handler threads must not drive the card together.
             self._tiled_lock = threading.Lock()
         else:
+            launch = finalize = None
             if task == "cc":
+                caption = predictor.caption_u8 if self._u8 else predictor.caption
+
                 def predict_batch(pre, post):
-                    return {"caption": np.array(predictor.caption_u8(pre, post), dtype=object)}
-                launch = finalize = None
-            else:
+                    return {"caption": np.array(caption(pre, post), dtype=object)}
+            elif self._u8:
                 predict_batch = predictor.predict_u8
                 launch, finalize = predictor.predict_u8_async, predictor.finalize_u8
+            else:
+                predict_batch = predictor.predict
             self._predict_batch = predict_batch
             self._batcher = _Batcher(predict_batch, batch_size, max_delay_ms / 1000.0,
                                      stats=self.stats, predict_async=launch, finalize=finalize,
                                      buckets=self.buckets)
         if warmup and not tiled:
+            dtype = np.uint8 if self._u8 else np.float32
             with torch.inference_mode():
                 for b in self.buckets:
-                    z = np.zeros((b,) + self.in_hw + (3,), np.uint8)
+                    z = np.zeros((b,) + self.in_hw + (3,), dtype)
                     self._predict_batch(z, z)
-            z = np.zeros(self.in_hw + (3,), np.uint8)
+            z = np.zeros(self.in_hw + (3,), dtype)
             self._batcher.submit(z, z)
             self.stats.reset()
+
+    def _norm(self, img: np.ndarray) -> np.ndarray:
+        """uint8 HWC in the task's channel order -> what the predictor takes:
+        the pixels themselves on the uint8 path, normalised floats on the
+        float path."""
+        if self._u8:
+            return np.ascontiguousarray(img)
+        if self.task == "cc":
+            return (img.astype(np.float32) / 255.0 - CaptionDataset.MEAN) / CaptionDataset.STD
+        return eval_normalize(img)
 
     def _predict_maps(self, pre: np.ndarray, post: np.ndarray) -> Dict[str, np.ndarray]:
         """uint8 HWC pairs in the task's channel order -> hardened maps."""
@@ -350,7 +383,7 @@ class PredictService:
         if pre.shape[:2] != self.in_hw:
             raise _BadRequest(f"image is {pre.shape[:2]}, model expects {self.in_hw} "
                               "(start the server with --tiled for native-size scenes)")
-        return self._batcher.submit(np.ascontiguousarray(pre), np.ascontiguousarray(post))
+        return self._batcher.submit(self._norm(pre), self._norm(post))
 
     def handle(self, body: dict) -> Dict[str, str]:
         """A JSON request body -> the JSON response fields."""
@@ -389,7 +422,8 @@ class PredictService:
                     else masks_to_arrays(self.task, out))
         if (h, w) != self.in_hw:
             raise _BadRequest(f"images are {(h, w)}, model expects {self.in_hw}")
-        outs = self._batcher.submit_many((pairs[i, 0], pairs[i, 1]) for i in range(n))
+        outs = self._batcher.submit_many((self._norm(pairs[i, 0]), self._norm(pairs[i, 1]))
+                                          for i in range(n))
         if self.task == "cc":
             return {"caption": [str(o["caption"]) for o in outs]}
         per_pair = [masks_to_arrays(self.task, o) for o in outs]

@@ -30,6 +30,7 @@ step leaves it unevaluated; the resumed run evaluates it first.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -56,6 +57,7 @@ from change3d_tpu_torch.train.loop import (
 from change3d_tpu_torch.train.lr import shrink_schedule
 from change3d_tpu_torch.train.optim import freeze_subtree, per_subtree_lr, torch_adam
 from change3d_tpu_torch.utils.logging import setup_logger
+from change3d_tpu_torch.utils.profiling import WindowTracer
 
 NOCHANGE_SENTENCES = [
     "the scene is the same as before",
@@ -92,6 +94,7 @@ class CaptionRunConfig:
     compute_dtype: str = "float32"  # the train step's activations; eval runs fp32
     device: str = "cuda"
     pretrained: Optional[str] = None  # a Kinetics X3D_L.pyth for the backbone
+    profile_dir: Optional[str] = None  # a torch.profiler trace of steps 10-14
 
 
 def load_word_map(cfg: CaptionRunConfig) -> Dict[str, int]:
@@ -307,7 +310,8 @@ def _run_caption(cfg: CaptionRunConfig, logger, save_path: str,
         validate(start_epoch - 1)
 
     host_step = resume_step
-    with PreemptionGuard() as guard:
+    tracer = WindowTracer(cfg.profile_dir, device=device)
+    with PreemptionGuard() as guard, contextlib.closing(tracer):
         for epoch in range(start_epoch, cfg.epochs):
             train_loader.set_epoch(epoch)
             t0 = time.time()
@@ -319,6 +323,7 @@ def _run_caption(cfg: CaptionRunConfig, logger, save_path: str,
             loss_sum = top1_sum = None
             n_steps = 0
             for i, batch in enumerate(device_prefetch(batches, device)):
+                tracer.tick(i)
                 batch.pop("all_captions", None)
                 generator.manual_seed(_step_seed(cfg.seed, host_step))
                 metrics = train_step(model, opt, schedule, batch, host_step,
@@ -337,6 +342,7 @@ def _run_caption(cfg: CaptionRunConfig, logger, save_path: str,
                     print(f"  [epoch {epoch}] iter {i}/{n_batches} loss "
                           f"{float(metrics['loss']):.4f} top1 {float(metrics['top1']):.2f} "
                           f"eta {eta:.0f}s", flush=True)
+            tracer.close()
             if guard.triggered:
                 ckpt.save(host_step, model, opt)
                 ckpt.save_meta({"best_val": best_bleu4, "preempted_at_step": host_step})

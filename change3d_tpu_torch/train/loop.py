@@ -21,6 +21,7 @@ step leaves that epoch unvalidated; the resumed run validates it first.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import signal
@@ -47,6 +48,7 @@ from change3d_tpu_torch.train.engine import eval_step, train_step
 from change3d_tpu_torch.train.lr import poly_warmup_schedule, step_schedule
 from change3d_tpu_torch.train.optim import torch_adam
 from change3d_tpu_torch.utils.logging import setup_logger
+from change3d_tpu_torch.utils.profiling import WindowTracer
 
 _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 BEST_METRIC = {"bcd": "F1", "scd": "IoU_mean", "bda": "overall_f1"}
@@ -75,6 +77,7 @@ class RunConfig:
     compute_dtype: str = "bfloat16"
     device: str = "cuda"
     pretrained: Optional[str] = None  # a Kinetics X3D_L.pyth for the backbone
+    profile_dir: Optional[str] = None  # a torch.profiler trace of steps 10-14
 
 
 class PreemptionGuard:
@@ -279,7 +282,8 @@ def _run_detection(cfg: RunConfig, logger, save_path: str) -> Dict[str, Any]:
         validate(start_epoch - 1)
 
     host_step = resume_step
-    with PreemptionGuard() as guard:
+    tracer = WindowTracer(cfg.profile_dir, device=device)
+    with PreemptionGuard() as guard, contextlib.closing(tracer):
         for epoch in range(start_epoch, max_epochs):
             train_loader.set_epoch(epoch)
             t0 = time.time()
@@ -290,6 +294,7 @@ def _run_detection(cfg: RunConfig, logger, save_path: str) -> Dict[str, Any]:
             batches = train_loader.iter_from(skip_batches if epoch == start_epoch else 0)
             loss_sum, n_steps = None, 0
             for i, batch in enumerate(device_prefetch(batches, device)):
+                tracer.tick(i)
                 metrics = train_step(model, opt, schedule, batch, host_step,
                                      compute_dtype=compute_dtype)
                 loss_sum = metrics["loss"] if loss_sum is None else loss_sum + metrics["loss"]
@@ -302,6 +307,7 @@ def _run_detection(cfg: RunConfig, logger, save_path: str) -> Dict[str, Any]:
                     eta = (time.time() - t0) / (i + 1) * (n_batches - i - 1)
                     print(f"  [epoch {epoch}] iter {i}/{n_batches} "
                           f"loss {float(metrics['loss']):.4f} eta {eta:.0f}s", flush=True)
+            tracer.close()
             if guard.triggered:
                 ckpt.save(host_step, model, opt)
                 ckpt.save_meta({"best_val": best_val, "preempted_at_step": host_step})

@@ -88,7 +88,26 @@ no result line):
    same (padded) batch, 37 + 18 launches per dispatched batch, and a closed
    loop of LOAD_CLIENTS x LOAD_REQUESTS raw requests (requests/s, p50/p99
    from /metrics); and a CC server at batch 8, beam 1 (51 + 25 launches per
-   batch, captions equal to caption_u8's).
+   batch, captions equal to caption_u8's);
+11. export, on phase 9's runs (``phase_export``), four ``cli export``
+   processes at once: the ``cli bcd`` run on the card with a symbolic batch
+   and on the CPU pinned to batch 8, the ``cli cc`` run at beam 1 on the CPU
+   and 3 on the card. ``ArtifactPredictor``:
+   masks equal to the live ``Predictor.predict`` on the same float batch at
+   batch 4, 8 and 16 from the one artifact, probabilities within the bf16
+   limit, exactly 37 + 18 fused launches per artifact forward; the
+   CPU-exported artifact moved to the card names only the card in its
+   graph, launches the same and is refused at --batch_size 16;
+   ``CaptionArtifactPredictor`` captions equal to ``CaptionPredictor``'s at
+   beam 1 and 3 with 51 + 25 launches per call; the symbolic BCD artifact
+   served in process (masks equal to ``ArtifactPredictor.predict`` on the
+   same batch, 37 + 18 launches per batch, a closed loop of
+   ARTIFACT_CLIENTS x ARTIFACT_REQUESTS raw requests for requests/s and
+   p50 / p99); artifact vs live float-path pairs/s at batch 8. While the
+   exports run, ``cli bcd --profile_dir`` trains on a 64² layout at batch 1
+   until its window (steps 10-14) closes, and its trace must hold CUDA
+   kernel events. Export seconds and artifact bytes are printed; details
+   under the ``export`` key.
 
 The last lines are the kernels JSON, the card line from nvidia-smi, and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
@@ -942,13 +961,17 @@ def npy_caption_dataset():
     return NpyCaptionDataset
 
 
-def phase_cc_loop(fb, seed):
+def phase_cc_loop(fb, seed, keep=None):
     """``cli cc`` in process on a synthetic 256² LEVIR-CC layout (13 train
     images = 65 caption rows, 2 steps per epoch at batch 32; 8 test images,
     one eval batch of 32) at the CLI defaults (fp32) for 2 epochs with beam-1
     evaluation after each and a best-model re-evaluation: 3 x (51 + 25)
     fused launches; then ``--resume`` restores step 4. Without h5py the
-    HDF5 reader is replaced by an in-memory .npy reader, said on the line."""
+    HDF5 reader is replaced by an in-memory .npy reader, said on the line.
+    With ``keep`` (a directory) the data and the run stay there, and the
+    stats name them."""
+    import contextlib
+
     from change3d_tpu_torch import cli
     from change3d_tpu_torch.train import caption_loop
 
@@ -958,7 +981,7 @@ def phase_cc_loop(fb, seed):
         h5py = None
     reader = "CaptionDataset (HDF5)" if h5py else "in-memory .npy stand-in for CaptionDataset"
     original = caption_loop.CaptionDataset
-    with tempfile.TemporaryDirectory() as tmp:
+    with (contextlib.nullcontext(keep) if keep else tempfile.TemporaryDirectory()) as tmp:
         root, save = os.path.join(tmp, "data"), os.path.join(tmp, "exp")
         write_cc_layout(root, np.random.RandomState(seed + 9), 13, 8, 256, h5py)
         argv = ["cc", "--file_root", root, "--dataset", "SYNTH", "--save_dir", save,
@@ -1000,6 +1023,8 @@ def phase_cc_loop(fb, seed):
              "launches": launches, "eval_forwards": forwards, "bleu4_gate_best": best,
              "eval": val, "test_best": res["test_best"],
              "resumed_from_step": resumed["resumed_from_step"]}
+    if keep:
+        stats.update(run_dir=run_dir, file_root=root)
     print(f"train loop (cli cc, 2 epochs, {reader}): {json.dumps(stats)}", flush=True)
     return launches, stats
 
@@ -1216,6 +1241,28 @@ def phase_deploy_files(fb, dev, seed, tmp, bcd_loop):
     return model, stats
 
 
+def start_server(service):
+    """``make_server`` on 127.0.0.1 in a thread: (server, thread, client)."""
+    import threading
+
+    from change3d_tpu_torch.client import PredictClient
+    from change3d_tpu_torch.serving import make_server
+
+    httpd = make_server(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    return httpd, thread, PredictClient(f"http://127.0.0.1:{httpd.server_address[1]}")
+
+
+def stop_server(httpd, thread, service):
+    httpd.shutdown()
+    httpd.server_close()
+    service.close()
+    thread.join(timeout=30)
+    if thread.is_alive():
+        raise AssertionError("server thread did not stop")
+
+
 def phase_deploy_serve(fb, dev, model, seed, card):
     """The HTTP service on 127.0.0.1 in this process: BCD at batch 16 with
     buckets 4/8/16, warmed up, then the port's PredictClient: JSON, raw and
@@ -1225,25 +1272,11 @@ def phase_deploy_serve(fb, dev, model, seed, card):
     51 + 25 launches per batch and caption_u8's captions."""
     import threading
 
-    from change3d_tpu_torch.client import PredictClient
     from change3d_tpu_torch.inference import CaptionPredictor, Predictor
     from change3d_tpu_torch.models.trainer import Change3D, Task
-    from change3d_tpu_torch.serving import PredictService, make_server
+    from change3d_tpu_torch.serving import PredictService
 
-    def start(service):
-        httpd = make_server(service, "127.0.0.1", 0)
-        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
-        thread.start()
-        return httpd, thread, PredictClient(f"http://127.0.0.1:{httpd.server_address[1]}")
-
-    def stop(httpd, thread, service):
-        httpd.shutdown()
-        httpd.server_close()
-        service.close()
-        thread.join(timeout=30)
-        if thread.is_alive():
-            raise AssertionError("server thread did not stop")
-
+    start, stop = start_server, stop_server
     rs = np.random.RandomState(seed + 13)
     pairs = lambda n: tuple(rs.randint(0, 256, (n, 256, 256, 3)).astype(np.uint8)
                             for _ in range(2))
@@ -1345,6 +1378,299 @@ def phase_deploy_serve(fb, dev, model, seed, card):
               flush=True)
     finally:
         stop(httpd, thread, service)
+    return stats
+
+
+# Export phase: the batches one symbolic BCD artifact runs at, the CC beams,
+# and the served artifact's closed loop (clients, requests per client).
+EXPORT_BATCHES = (4, 8, 16)
+EXPORT_BEAMS = (1, 3)
+ARTIFACT_CLIENTS, ARTIFACT_REQUESTS = 16, 16
+
+
+def start_cli(argv, log):
+    """``python -m change3d_tpu_torch.cli argv`` in a subprocess from the
+    repository root, its output to the file ``log``."""
+    with open(log, "w") as f:
+        return subprocess.Popen([sys.executable, "-m", "change3d_tpu_torch.cli", *argv],
+                                cwd=os.path.dirname(os.path.abspath(__file__)), stdout=f,
+                                stderr=subprocess.STDOUT)
+
+
+def program_devices(program):
+    """The device types an exported program names: weights, constants,
+    tensor metadata and device arguments, in every (loop body) graph."""
+    devs = {t.device.type for t in (*program.state_dict.values(), *program.constants.values())
+            if isinstance(t, torch.Tensor)}
+    for mod in program.graph_module.modules():
+        if isinstance(mod, torch.fx.GraphModule):
+            for node in mod.graph.nodes:
+                if isinstance(node.meta.get("val"), torch.Tensor):
+                    devs.add(node.meta["val"].device.type)
+                if "device" in node.kwargs:
+                    devs.add(torch.device(node.kwargs["device"]).type)
+    return sorted(devs)
+
+
+def float_pairs_per_s(pred, pairs, batch, rounds=3):
+    """End to end on the float path: normalised fp32 host arrays in,
+    hardened masks out (``predict``), host clock."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        for pre, post in pairs:
+            pred.predict(pre, post)
+    return rounds * len(pairs) * batch / (time.perf_counter() - t0)
+
+
+def phase_export(fb, dev, seed, tmp, bcd_loop, cc_loop, card):
+    """Export, the artifact predictors and profiling, on phase 9's runs.
+    Four ``cli export`` processes run at once: the ``cli bcd`` run on the
+    card (symbolic batch) and on the CPU pinned to batch 8, the ``cli cc``
+    run at beam 1 on the CPU and at beam 3 on the card. Meanwhile ``cli bcd
+    --profile_dir`` trains here on a small layout until its window closes,
+    and its trace must hold CUDA kernel events; then the BCD artifacts are
+    checked while the CC exports finish. ``ArtifactPredictor``: masks equal
+    to the live ``Predictor.predict`` on the same float batch at every
+    EXPORT_BATCHES size, probabilities within the bf16 limit, exactly 37 + 18
+    launches per artifact forward; the same for the CPU-exported artifact
+    moved to the card (only the card in its graph), which a PredictService
+    at --batch_size 16 refuses. ``CaptionArtifactPredictor``: captions equal
+    to ``CaptionPredictor``'s at each beam, 51 + 25 launches per call. Once
+    every export is done (a quiet host): the symbolic BCD artifact served in
+    process (masks equal to ``ArtifactPredictor.predict`` on the same batch,
+    a closed loop for requests/s and p50 / p99), and artifact vs live
+    float-path pairs/s at batch 8 in turns."""
+    import threading
+
+    from change3d_tpu_torch import cli
+    from change3d_tpu_torch.data.datasets import CaptionDataset
+    from change3d_tpu_torch.data.transforms import eval_normalize
+    from change3d_tpu_torch.inference import (
+        ArtifactPredictor,
+        CaptionArtifactPredictor,
+        CaptionPredictor,
+        Predictor,
+    )
+    from change3d_tpu_torch.models.trainer import Change3D, Task
+    from change3d_tpu_torch.serving import PredictService
+    from change3d_tpu_torch.train.caption_loop import (
+        CaptionRunConfig,
+        build_caption_model,
+        load_word_map,
+    )
+
+    rs = np.random.RandomState(seed + 14)
+    u8 = lambda n: rs.randint(0, 256, (n, 256, 256, 3)).astype(np.uint8)
+    bcd_argv = ["export", "--model_task", "bcd", "--checkpoint", bcd_loop["run_dir"]]
+    cc_argv = ["export", "--model_task", "cc", "--checkpoint", cc_loop["run_dir"], "--file_root",
+               cc_loop["file_root"], "--dataset", "SYNTH"]
+    exports = {"bcd": bcd_argv + ["--device", "cuda"],
+               "bcd_cpu_b8": bcd_argv + ["--device", "cpu", "--batch", "8"],
+               "cc_beam1": cc_argv + ["--device", "cpu", "--beam_size", "1"],
+               "cc_beam3": cc_argv + ["--device", "cuda", "--beam_size", "3"]}
+    out = {name: os.path.join(tmp, f"{name}.pt2") for name in exports}
+    stats = {"export_seconds": {}, "exported_on": {}, "artifact_bytes": {}}
+    t0 = time.perf_counter()
+    jobs = {name: start_cli(argv + ["--out", out[name]], out[name] + ".log")
+            for name, argv in exports.items()}
+
+    def finish(name):
+        """Wait for one export; check its exit and its line."""
+        jobs[name].wait(timeout=600)
+        stats["export_seconds"][name] = time.perf_counter() - t0
+        stats["exported_on"][name] = exports[name][exports[name].index("--device") + 1]
+        with open(out[name] + ".log") as f:
+            text = f.read()
+        if jobs[name].returncode != 0 or f"exported {os.path.getsize(out[name])} bytes to " \
+                                         f"{out[name]}" not in text.splitlines():
+            raise AssertionError(f"cli export {name} exited {jobs[name].returncode}:\n{text}")
+        stats["artifact_bytes"][name] = os.path.getsize(out[name])
+
+    try:
+        # The profiled run: 16 steps at batch 1 on a 64² layout (the trace
+        # is checked, not timed; it shares the host with the exports).
+        prof_root, prof_dir = os.path.join(tmp, "profile_data"), os.path.join(tmp, "profile")
+        write_layout(prof_root, np.random.RandomState(seed + 15), "bcd", 16, 1, 64)
+        t1 = time.perf_counter()
+        cli_quiet(cli, ["bcd", "--file_root", prof_root, "--save_dir",
+                        os.path.join(tmp, "profile_run"), "--in_height", "64", "--in_width", "64",
+                        "--max_epochs", "1", "--batch_size", "1", "--num_workers", "2",
+                        "--seed", str(seed), "--profile_dir", prof_dir])
+        profile_seconds = time.perf_counter() - t1
+
+        finish("bcd")
+        finish("bcd_cpu_b8")
+        live = Predictor.from_checkpoint(Change3D(Task.BCD, device=dev, seed=seed),
+                                         bcd_loop["run_dir"], compute_dtype=torch.bfloat16,
+                                         device=dev)
+        art = ArtifactPredictor(out["bcd"])
+        if art.fixed_batch is not None or (art.model.in_height, art.model.in_width) != (256, 256):
+            raise AssertionError(f"symbolic artifact reads batch {art.fixed_batch}")
+
+        def hold_artifact(pred, b, what):
+            pre, post = eval_normalize(u8(b)), eval_normalize(u8(b))
+            reset_counts(fb)
+            probs = pred.predict_probs(pre, post)  # fetched to the host: launches done
+            launches = fused_counts(fb)
+            want = live.predict_probs(pre, post)
+            ok, err, used = within(torch.from_numpy(probs["change"]),
+                                   torch.from_numpy(want["change"]), torch.bfloat16)
+            equal = np.array_equal(Predictor.harden(probs)["change"],
+                                   Predictor.harden(want)["change"])
+            if launches != want_counts(1) or not ok or not equal:
+                raise AssertionError(f"{what} batch {b}: launches {launches}, max |d| {err} "
+                                     f"({used} of the limit), masks equal {equal}")
+            return {"launches": launches, "max_abs_err": err, "limit_used": used,
+                    "masks_equal": equal}
+
+        stats["bcd"] = {str(b): hold_artifact(art, b, "symbolic BCD artifact")
+                        for b in EXPORT_BATCHES}
+        cpu_art = ArtifactPredictor(out["bcd_cpu_b8"])
+        devices = program_devices(cpu_art._fn.program)
+        if cpu_art.fixed_batch != 8 or devices != ["cuda"]:
+            raise AssertionError(f"CPU-exported artifact: batch {cpu_art.fixed_batch}, devices "
+                                 f"{devices}")
+        stats["bcd_cpu_b8"] = {"devices": devices, **hold_artifact(cpu_art, 8, "CPU-exported")}
+        try:
+            PredictService("bcd", cpu_art, batch_size=16)
+            raise AssertionError("a batch-8 artifact was served at --batch_size 16")
+        except ValueError as e:
+            if "pinned batch of 8" not in str(e):
+                raise
+            stats["bcd_cpu_b8"]["refusal"] = str(e)
+        del cpu_art
+        print(f"export: BCD artifact masks equal the live Predictor at batches "
+              f"{EXPORT_BATCHES}, 37 + 18 launches per forward; CPU-exported batch-8 artifact "
+              f"on the card: {json.dumps(stats['bcd_cpu_b8'])}", flush=True)
+
+        cfg = CaptionRunConfig(file_root=cc_loop["file_root"], dataset="SYNTH", device="cuda")
+        words = load_word_map(cfg)
+        norm = lambda a: (a.astype(np.float32) / 255.0 - CaptionDataset.MEAN) / CaptionDataset.STD
+        pre, post = norm(u8(8)), norm(u8(8))
+        stats["cc"] = {}
+        for beam in EXPORT_BEAMS:
+            finish(f"cc_beam{beam}")
+            cart = CaptionArtifactPredictor(out[f"cc_beam{beam}"], words)
+            devices = program_devices(cart._fn.program)
+            reset_counts(fb)
+            t1 = time.perf_counter()
+            caps = cart.caption(pre, post)
+            ms = (time.perf_counter() - t1) * 1e3
+            launches = fused_counts(fb)
+            live_cc = CaptionPredictor.from_checkpoint(
+                build_caption_model(cfg, len(words)), cc_loop["run_dir"], word_map=words,
+                beam_size=beam, compute_dtype=torch.bfloat16, device=dev)
+            want = live_cc.caption(pre, post)
+            if launches != want_counts(1, (51, 25)) or caps != want or devices != ["cuda"]:
+                raise AssertionError(f"cc beam {beam}: launches {launches}, devices {devices}, "
+                                     f"captions {caps} != {want}")
+            stats["cc"][str(beam)] = {"launches": launches, "captions_equal": True, "batch": 8,
+                                      "devices": devices, "first_call_ms": ms,
+                                      "exported_on": stats["exported_on"][f"cc_beam{beam}"],
+                                      "words": [len(c.split()) for c in caps]}
+            del cart, live_cc
+    finally:
+        for proc in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(f"export: cli export seconds (four processes together, each from their start) "
+          f"{json.dumps(stats['export_seconds'])}, artifact bytes "
+          f"{json.dumps(stats['artifact_bytes'])}", flush=True)
+    print(f"export: CC artifact captions equal CaptionPredictor's: {json.dumps(stats['cc'])}",
+          flush=True)
+
+    traces = os.listdir(prof_dir)
+    if len(traces) != 1 or not traces[0].startswith("steps_10-14."):
+        raise AssertionError(f"--profile_dir wrote {traces}")
+    with open(os.path.join(prof_dir, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        raise AssertionError("the profiler trace holds no CUDA kernel events")
+    by_name = {}
+    for e in kernels:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + float(e.get("dur", 0.0))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    stats["profile"] = {"trace": traces[0], "trace_bytes": os.path.getsize(
+        os.path.join(prof_dir, traces[0])), "seconds": profile_seconds,
+        "kernel_events": len(kernels), "kernel_us": sum(by_name.values()),
+        "top_kernels_us": [[n[:80], us] for n, us in top], "batch": 1, "hw": 64}
+    print(f"export: cli bcd --profile_dir (64², batch 1) traced steps 10-14: {len(kernels)} "
+          f"CUDA kernel events, {stats['profile']['kernel_us']:.0f} us of kernel time ({card})",
+          flush=True)
+
+    service = PredictService("bcd", art, batch_size=16, warmup=True)
+    httpd, thread, client = start_server(service)
+    try:
+        reset_counts(fb)
+        sent = []
+        for n in EXPORT_BATCHES + (3,):
+            p, q = u8(n), u8(n)
+            sent.append((p, q, client.predict_raw_many(p[..., ::-1], q[..., ::-1])["change"]))
+        for _ in range(2):
+            p, q = u8(1), u8(1)
+            sent.append((p, q, client.predict_raw(p[0, ..., ::-1], q[0, ..., ::-1])["change"][
+                None]))
+        launches, batches = fused_counts(fb), client.metrics()["batches_total"]
+        if launches != want_counts(batches) or batches != len(sent):
+            raise AssertionError(f"served artifact launches {launches} over {batches} batches")
+        for p, q, got in sent:
+            n = len(p)
+            bucket = min(b for b in service.buckets if b >= n)
+            pad = lambda a: eval_normalize(np.concatenate([a, np.repeat(a[-1:], bucket - n, 0)]))
+            want = art.predict(pad(p), pad(q))["change"][:n].astype(np.uint8) * 255
+            if not np.array_equal(got, want):
+                raise AssertionError(f"served artifact masks ({n} pairs) differ")
+        stats["served"] = {"buckets": list(service.buckets),
+                           "requests": [len(p) for p, _, _ in sent], "batches": batches,
+                           "launches": launches, "masks_equal": True}
+        load = [(u8(1)[0, ..., ::-1], u8(1)[0, ..., ::-1]) for _ in range(ARTIFACT_CLIENTS)]
+        errors = []
+
+        def closed_loop(i):
+            try:
+                for _ in range(ARTIFACT_REQUESTS):
+                    client.predict_raw(*load[i])
+            except Exception as e:  # noqa: BLE001 — raised below
+                errors.append(e)
+
+        service.stats.reset()
+        threads = [threading.Thread(target=closed_loop, args=(i,))
+                   for i in range(ARTIFACT_CLIENTS)]
+        t1 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        seconds = time.perf_counter() - t1
+        snap = client.metrics()
+        total = ARTIFACT_CLIENTS * ARTIFACT_REQUESTS
+        if errors or any(t.is_alive() for t in threads) or snap["requests_total"] != total \
+                or snap["errors_total"]:
+            raise AssertionError(f"artifact load: errors {errors[:3]}, metrics {snap}")
+        stats["served"]["load"] = {"clients": ARTIFACT_CLIENTS, "requests": total,
+                                   "seconds": seconds, "requests_per_s": total / seconds,
+                                   "metrics": snap, "card": card}
+        print(f"export: served BCD artifact (float path), bf16 256², batch 16, buckets "
+              f"{list(service.buckets)}: {total / seconds} requests/s, p50 "
+              f"{snap['latency_s']['p50']} s, p99 {snap['latency_s']['p99']} s, mean batch fill "
+              f"{snap['mean_batch_fill']} ({ARTIFACT_CLIENTS} clients x {ARTIFACT_REQUESTS} raw "
+              f"requests, closed loop); masks equal ArtifactPredictor.predict ({card})",
+              flush=True)
+    finally:
+        stop_server(httpd, thread, service)
+
+    pairs = [(eval_normalize(u8(8)), eval_normalize(u8(8))) for _ in range(2)]
+    for pred in (art, live):
+        pred.predict(*pairs[0])  # warm
+    rates = {"artifact": [], "live": []}
+    for name, pred in (("artifact", art), ("live", live), ("live", live), ("artifact", art)):
+        rates[name].append(float_pairs_per_s(pred, pairs, 8))
+    stats["float_pairs_per_s_batch8"] = {**rates, "card": card}
+    print(f"export: float-path predict pairs/s at batch 8 (turns artifact, live, live, "
+          f"artifact): artifact {rates['artifact']}, live {rates['live']} ({card})", flush=True)
     return stats
 
 
@@ -1495,7 +1821,7 @@ def main(argv=None) -> int:
                                         keep=os.path.join(deploy_dir, "bcd_loop")
                                         if task == "bcd" else None)
                  for task in TASKS}
-        loops["cc"] = phase_cc_loop(fb, args.seed)
+        loops["cc"] = phase_cc_loop(fb, args.seed, keep=os.path.join(deploy_dir, "cc_loop"))
         train["loop"] = {task: loop[1] for task, loop in loops.items()}
         t0 = time.perf_counter()
         deploy_model, deploy = phase_deploy_files(fb, dev, args.seed, deploy_dir,
@@ -1503,7 +1829,13 @@ def main(argv=None) -> int:
         deploy["serve"] = phase_deploy_serve(fb, dev, deploy_model, args.seed, card)
         deploy["seconds"] = time.perf_counter() - t0
         del deploy_model
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        export = phase_export(fb, dev, args.seed, deploy_dir, loops["bcd"][1], loops["cc"][1],
+                              card)
+        export["seconds"] = time.perf_counter() - t0
     print(f"deploy phase: {deploy['seconds']:.1f} s", flush=True)
+    print(f"export phase: {export['seconds']:.1f} s", flush=True)
     print(f"kernels vs plain versions, worst over every check: {json.dumps(worst)}", flush=True)
     for task in TASKS:
         runs, fwd_ms = times[task]
@@ -1539,6 +1871,13 @@ def main(argv=None) -> int:
                 "served_bcd_batches": deploy["serve"]["agreement"]["launches"][kernel],
                 "served_load": deploy["serve"]["load"]["launches"][kernel],
                 "served_cc_batches": deploy["serve"]["cc"]["launches"][kernel]},
+            "launches_export": {
+                **{f"artifact_forward_b{b}": export["bcd"][str(b)]["launches"][kernel]
+                   for b in EXPORT_BATCHES},
+                "cpu_exported_b8": export["bcd_cpu_b8"]["launches"][kernel],
+                **{f"cc_artifact_beam{k}": export["cc"][str(k)]["launches"][kernel]
+                   for k in EXPORT_BEAMS},
+                "served_artifact_batches": export["served"]["launches"][kernel]},
             "max_abs_err": worst_of("bfloat16", "max_abs_err"),
             "limit_used": worst_of("bfloat16", "limit_used"),
             "max_abs_err_fp32": worst_of("float32", "max_abs_err"),
@@ -1571,7 +1910,7 @@ def main(argv=None) -> int:
               "pairs_per_s": {task: times[task][0] for task in TASKS},
               "forward_ms": {task: times[task][1] for task in TASKS},
               "forward_check": forward_check, "cc_times": cc_times, "rows": rows,
-              "kernels": kernels, "train": train, "deploy": deploy}
+              "kernels": kernels, "train": train, "deploy": deploy, "export": export}
     if os.path.dirname(args.out):
         os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:

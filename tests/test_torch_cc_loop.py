@@ -216,7 +216,7 @@ def test_cli_cc_defaults_and_refusals(data_root, tmp_path, capsys):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main(["cc", "--file_root", data_root, "--dataset", "DS",
                       "--save_dir", str(tmp_path / "x")])
-    for flag, reason in (("--profile_dir", "profiling"), ("--coordinator_address", "multi-GPU"),
+    for flag, reason in (("--num_processes", "multi-GPU"), ("--coordinator_address", "multi-GPU"),
                          ("--loader", "grain"), ("--remat", "memory")):
         with pytest.raises(SystemExit):
             cli.main(["cc", "--file_root", data_root, flag, "x"])

@@ -399,3 +399,71 @@ def test_served_batch_launches_37_and_18(cuda):
         httpd.server_close()
         service.close()
         thread.join(timeout=10)
+
+
+def _program_devices(program):
+    """The device types a moved program's graph names: tensor metadata,
+    device arguments, weights and constants."""
+    devs = {t.device.type for t in (*program.state_dict.values(), *program.constants.values())
+            if isinstance(t, torch.Tensor)}
+    for mod in program.graph_module.modules():
+        if isinstance(mod, torch.fx.GraphModule):
+            for node in mod.graph.nodes:
+                if isinstance(node.meta.get("val"), torch.Tensor):
+                    devs.add(node.meta["val"].device.type)
+                if "device" in node.kwargs:
+                    devs.add(torch.device(node.kwargs["device"]).type)
+    return devs
+
+
+def test_cpu_exported_artifacts_run_the_kernels_on_the_card(cuda):
+    """TINY BCD and CC models exported on the CPU (symbolic batch), moved to
+    the card by the loaders: every op of the graph names the card, the
+    fused blocks launch the CUDA kernels (5 + 2 per BCD forward, 7 + 3 per
+    CC call) under inference mode, the BCD outputs equal the live fused
+    model's on the card and the beam-3 tokens the live CaptionPredictor's."""
+    from change3d_tpu_torch import export as ex
+    from change3d_tpu_torch.inference import CaptionPredictor
+    from change3d_tpu_torch.models.trainer import Change3D, Task
+    from change3d_tpu_torch.models.x3d import X3DConfig
+
+    tiny = dict(stem_dim_out=8, stage_dims=(8, 16, 24, 32), stage_inner_dims=(18, 36, 54, 72))
+    bcd = Change3D(Task.BCD, in_height=32, in_width=32,
+                   backbone_cfg=X3DConfig(**tiny, stage_depths=(2, 3, 3, 2)), device="cpu")
+    fn = ex.load_exported(ex.export_model(bcd, compute_dtype=torch.float32), device=cuda)
+    assert _program_devices(fn.program) == {"cuda"}
+    bcd = bcd.to(cuda).eval()
+    rs = np.random.RandomState(8)
+    for b in (3, 5):
+        pre, post = (torch.from_numpy(rs.randn(b, 32, 32, 3).astype(np.float32)).to(cuda)
+                     for _ in range(2))
+        before = fb.fused_block_fwd.launches, fb.fused_block_se_sums.launches
+        got = fn(pre, post)["change"]
+        torch.cuda.synchronize()
+        assert (fb.fused_block_fwd.launches - before[0],
+                fb.fused_block_se_sums.launches - before[1]) == (5, 2)
+        with torch.no_grad():
+            torch.testing.assert_close(got, bcd(pre, post)["change"], rtol=0, atol=0)
+
+    words = {"<pad>": 0, "<unk>": 1, "<start>": 2, "<end>": 3}
+    words.update({f"w{i}": i for i in range(4, 11)})
+    cc = Change3D(Task.CC, in_height=32, in_width=32, vocab_size=11, embed_dim=32, num_heads=4,
+                  num_layers=2, backbone_cfg=X3DConfig(**tiny, stage_depths=(2, 3, 3, 3)),
+                  device="cpu")
+    with torch.no_grad():
+        cc.decoder.out_b[3] += 2.0  # captions that end inside the 52 tokens
+    fn = ex.load_exported_captioner(
+        ex.export_caption_model(cc, words, beam_size=3, compute_dtype=torch.float32),
+        device=cuda)
+    assert _program_devices(fn.program) == {"cuda"}
+    pre, post = (torch.from_numpy(rs.randn(4, 32, 32, 3).astype(np.float32)).to(cuda)
+                 for _ in range(2))
+    before = fb.fused_block_fwd.launches, fb.fused_block_se_sums.launches
+    tokens, scores = fn(pre, post)
+    torch.cuda.synchronize()
+    assert (fb.fused_block_fwd.launches - before[0],
+            fb.fused_block_se_sums.launches - before[1]) == (7, 3)
+    live = CaptionPredictor(cc, words, beam_size=3, compute_dtype=torch.float32, device=cuda)
+    want_tokens, want_scores = live.caption_device(pre, post)
+    assert torch.equal(tokens.long(), want_tokens)
+    torch.testing.assert_close(scores, want_scores, rtol=1e-5, atol=0)

@@ -209,10 +209,12 @@ def test_refused_flags_name_their_slice(capsys):
           "--quantized"], "int8"),
         (["eval", "--model_task", "bcd", "--checkpoint", "c", "--file_root", "f",
           "--calib_batches", "8"], "int8"),
-        (["serve", "--model_task", "bcd", "--checkpoint", "c", "--artifact", "a"], "export"),
         (["serve", "--model_task", "bcd", "--checkpoint", "c", "--packed"], "never ported"),
-        (["export", "--model_task", "bcd", "--out", "x"], "export slice"),
-        (["bcd", "--file_root", "r", "--profile_dir", "p"], "profiling slice"),
+        (["export", "--model_task", "bcd", "--checkpoint", "c", "--out", "x", "--quantized"],
+         "int8"),
+        (["export", "--model_task", "bcd", "--checkpoint", "c", "--out", "x", "--platforms",
+          "cpu,tpu"], "--device"),
+        (["bcd", "--file_root", "r", "--loader", "grain"], "grain"),
         (["bcd", "--file_root", "r", "--num_processes", "2"], "multi-GPU"),
         (["info", "--model_task", "bcd", "--platform", "cpu"], "--device"),
     ]

@@ -143,7 +143,7 @@ def test_cli_defaults_follow_the_jax_cli(task, tmp_path, capsys):
     assert args.device == "cuda" and args.compute_dtype == "bfloat16"
     assert cli.build_parser().parse_args([task, "--file_root", "r", "--num_class", "7"]
                                          ).num_classes == 7
-    for flag in ("--profile_dir", "--packed", "--remat", "--loader"):
+    for flag in ("--coordinator_address", "--packed", "--remat", "--loader"):
         with pytest.raises(SystemExit):
             cli.main([task, "--file_root", "r", flag, "x"])
         assert f"{flag} is not ported yet" in capsys.readouterr().err
