@@ -9,6 +9,11 @@
 Every file is written to a temporary name and renamed, so a reader never
 sees half a checkpoint. Tensors are saved on the CPU and restored onto the
 model's own device.
+
+In a multi-process run every process calls the same methods with the same
+(replicated) state: process 0 writes, and every process then waits at a
+barrier, so a file is whole before any process reads it or goes on.
+Every process restores.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ import shutil
 from typing import Optional
 
 import torch
+
+from change3d_tpu_torch.parallel import distributed
 
 
 def _cpu_state(state):
@@ -35,6 +42,13 @@ def _save_atomic(obj, path: str) -> None:
     tmp = path + ".tmp"
     torch.save(obj, tmp)
     os.replace(tmp, path)
+
+
+def _primary_writes(write):
+    """Run ``write`` on process 0 only, then wait for every process."""
+    if distributed.is_primary():
+        write()
+    distributed.barrier()
 
 
 class CheckpointManager:
@@ -56,13 +70,17 @@ class CheckpointManager:
     def save(self, step: int, model: torch.nn.Module, opt: torch.optim.Optimizer) -> None:
         """Checkpoint the model, the optimizer and ``step``; drop the oldest
         steps beyond ``max_to_keep``."""
-        step_dir = os.path.join(self.dir, str(step))
-        os.makedirs(step_dir, exist_ok=True)
-        _save_atomic({"step": step, "model": _cpu_state(model.state_dict()),
-                      "optimizer": _cpu_state(opt.state_dict())},
-                     os.path.join(step_dir, "state.pt"))
-        for old in self.steps()[:-self.max_to_keep]:
-            shutil.rmtree(os.path.join(self.dir, str(old)))
+
+        def write():
+            step_dir = os.path.join(self.dir, str(step))
+            os.makedirs(step_dir, exist_ok=True)
+            _save_atomic({"step": step, "model": _cpu_state(model.state_dict()),
+                          "optimizer": _cpu_state(opt.state_dict())},
+                         os.path.join(step_dir, "state.pt"))
+            for old in self.steps()[:-self.max_to_keep]:
+                shutil.rmtree(os.path.join(self.dir, str(old)))
+
+        _primary_writes(write)
 
     def restore(self, model: torch.nn.Module, opt: torch.optim.Optimizer) -> int:
         """Load the newest checkpoint into ``model`` and ``opt``; returns its
@@ -76,8 +94,11 @@ class CheckpointManager:
         return int(state["step"])
 
     def save_best(self, model: torch.nn.Module) -> None:
-        os.makedirs(self.best_dir, exist_ok=True)
-        _save_atomic(_cpu_state(model.state_dict()), os.path.join(self.best_dir, "model.pt"))
+        def write():
+            os.makedirs(self.best_dir, exist_ok=True)
+            _save_atomic(_cpu_state(model.state_dict()), os.path.join(self.best_dir, "model.pt"))
+
+        _primary_writes(write)
 
     def restore_best(self, model: torch.nn.Module) -> None:
         """Load the best weights into ``model``; FileNotFoundError when no
@@ -89,10 +110,13 @@ class CheckpointManager:
         return os.path.join(self.dir, "train_meta.json")
 
     def save_meta(self, meta: dict) -> None:
-        tmp = self._meta_path + ".tmp"
-        with open(tmp, "w") as f:
-            json.dump(meta, f)
-        os.replace(tmp, self._meta_path)
+        def write():
+            tmp = self._meta_path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(meta, f)
+            os.replace(tmp, self._meta_path)
+
+        _primary_writes(write)
 
     def load_meta(self) -> dict:
         try:

@@ -11,6 +11,16 @@ backbone from Kinetics; ``--resume`` resumes):
 
 ``--profile_dir DIR`` traces training steps 10-14 with torch.profiler.
 
+Multi-GPU training, one process per card (N commands, i = 0 .. N-1; on the
+CPU add ``--device cpu`` and the processes use gloo)::
+
+  python -m change3d_tpu_torch.cli bcd --file_root DATA --save_dir EXP \
+      --coordinator_address 127.0.0.1:29500 --num_processes N --process_id i
+
+``--batch_size`` is the global batch (rounded up to a multiple of N); every
+process shares one ``--save_dir``. ``predict`` and ``serve`` take
+``--shard`` to spread each batch over every local card in one process.
+
 Using a saved run (a run dir holding ``best/model.pt``, from training or
 from ``convert-reference``):
 
@@ -41,7 +51,6 @@ import sys
 from change3d_tpu_torch.train.caption_loop import CaptionRunConfig, run_caption_training
 from change3d_tpu_torch.train.loop import RunConfig, run_detection_training
 
-_MULTI_GPU = "multi-GPU runs arrive with the multi-GPU slice"
 _INT8 = "int8 quantisation arrives with the int8 slice"
 _PACKED = "time-packed execution is never ported (the port holds the unpacked path)"
 _FUSED_HELP = "accepted and without effect: evaluation always runs the fused CUDA blocks"
@@ -51,9 +60,6 @@ _NOT_PORTED = {
     "--packed": _PACKED,
     "--no-packed": _PACKED,
     "--loader": "only the threaded loader is ported (the grain loader is not)",
-    "--coordinator_address": _MULTI_GPU,
-    "--num_processes": _MULTI_GPU,
-    "--process_id": _MULTI_GPU,
     "--platform": "use --device {cuda,cpu}",
     "--num_class": "BCD has one sigmoid output",
 }
@@ -72,10 +78,6 @@ _CC_NOT_PORTED = {
                "(PERF.md)",
     "--no-remat": "activation rematerialisation is not ported",
     "--loader": _NOT_PORTED["--loader"],
-    "--coordinator_address": "multi-GPU CC training, with its allgathered evaluation, arrives "
-                             "with the multi-GPU slice",
-    "--num_processes": _MULTI_GPU,
-    "--process_id": _MULTI_GPU,
     "--platform": _NOT_PORTED["--platform"],
     "--packed": _PACKED,
     "--no-packed": _PACKED,
@@ -87,7 +89,6 @@ _CC_NOT_PORTED = {
 }
 # Flags of the JAX CLI's other subcommands that belong to later slices.
 _USE_NOT_PORTED = {
-    "--shard": _MULTI_GPU,
     "--quantized": _INT8,
     "--quant_mode": _INT8,
     "--calib_batches": _INT8,
@@ -124,6 +125,21 @@ def _refuse(p, flags) -> None:
 def _device(p) -> None:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda (default; raises without a card) or cpu")
+
+
+def _processes(p) -> None:
+    """The JAX CLI's multi-process flags (training subcommands)."""
+    p.add_argument("--coordinator_address", default=None,
+                   help="host:port of process 0 for a multi-process run (one process per "
+                        "card: NCCL on cuda, gloo on cpu); single-process runs leave it unset")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
+
+
+def _shard(p) -> None:
+    p.add_argument("--shard", action="store_true",
+                   help="spread each batch over every local card, one model replica per card "
+                        "(the batch size must be a multiple of the card count)")
 
 
 def _cc_model_flags(p) -> None:
@@ -167,6 +183,7 @@ def _add_cc(sub) -> None:
     p.add_argument("--compute_dtype", default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--profile_dir", default=None, help=_PROFILE_HELP)
     _device(p)
+    _processes(p)
     _refuse(p, _CC_NOT_PORTED)
 
 
@@ -192,6 +209,7 @@ def _add_train(sub) -> None:
         p.add_argument("--compute_dtype", default="bfloat16", choices=["float32", "bfloat16"])
         p.add_argument("--profile_dir", default=None, help=_PROFILE_HELP)
         _device(p)
+        _processes(p)
         if num_class is not None:
             p.add_argument("--num_class", dest="num_classes", type=int, default=num_class,
                            help="semantic classes of the class heads")
@@ -220,6 +238,7 @@ def _add_use(sub) -> None:
     p.add_argument("--tile_overlap", type=int, default=32)
     _cc_model_flags(p)
     _device(p)
+    _shard(p)
     _refuse(p, _USE_NOT_PORTED)
 
     p = sub.add_parser("eval", help="score a saved run (best or latest weights) on a split")
@@ -273,6 +292,7 @@ def _add_use(sub) -> None:
     p.add_argument("--fused", action="store_true", help=_FUSED_HELP)
     _cc_model_flags(p)
     _device(p)
+    _shard(p)
     _refuse(p, _USE_NOT_PORTED)
 
     p = sub.add_parser("info", help="parameter counts and FLOPs of a task model, beside the "
@@ -385,7 +405,8 @@ def run_predict(args) -> int:
 
     task = args.model_task
     predictor = Predictor.from_checkpoint(build_model(_detection_config(args)), args.checkpoint,
-                                          compute_dtype=_compute_dtype(args), device=args.device)
+                                          compute_dtype=_compute_dtype(args), device=args.device,
+                                          shard=args.shard)
     os.makedirs(args.out, exist_ok=True)
     suffixes = {"bcd": {"change": ""}, "scd": {"pre": "_pre", "post": "_post",
                                                "change": "_change"},
@@ -441,7 +462,7 @@ def run_predict_captions(args) -> int:
     model = build_caption_model(cfg, len(word_map), in_size=ds.__getitem__(0)["pre"].shape[0])
     predictor = CaptionPredictor.from_checkpoint(
         model, args.checkpoint, word_map=word_map, beam_size=args.beam_size,
-        compute_dtype=_compute_dtype(args), device=args.device)
+        compute_dtype=_compute_dtype(args), device=args.device, shard=args.shard)
     loader = DataLoader(ds, args.batch_size, num_workers=2, collate=caption_collate,
                         pad_final=True)
     captions = []
@@ -531,6 +552,9 @@ def build_service(args):
     )
     from change3d_tpu_torch.serving import PredictService
 
+    if args.shard and args.artifact:
+        raise SystemExit("--shard applies to checkpoint-backed serving (artifacts bake their "
+                         "own single-device program; export per device instead)")
     if args.model_task == "cc":
         cfg, word_map = _cc_word_map(args)
         if args.artifact:
@@ -539,7 +563,7 @@ def build_service(args):
             predictor = CaptionPredictor.from_checkpoint(
                 _cc_model(args, cfg, word_map), args.checkpoint, word_map=word_map,
                 beam_size=args.beam_size, compute_dtype=_compute_dtype(args),
-                device=args.device)
+                device=args.device, shard=args.shard)
     elif args.artifact:
         predictor = ArtifactPredictor(args.artifact, device=args.device)
     else:
@@ -547,7 +571,7 @@ def build_service(args):
 
         predictor = Predictor.from_checkpoint(build_model(_detection_config(args)),
                                               args.checkpoint, compute_dtype=_compute_dtype(args),
-                                              device=args.device)
+                                              device=args.device, shard=args.shard)
     return PredictService(
         args.model_task, predictor, batch_size=args.batch_size, max_delay_ms=args.max_delay_ms,
         tiled=args.tiled, tile_overlap=args.tile_overlap, warmup=not args.no_warmup,
@@ -636,6 +660,11 @@ def main(argv=None):
     comparison)."""
     parser = build_parser()
     args = parser.parse_args(sys.argv[1:] if argv is None else list(argv))
+    if getattr(args, "coordinator_address", None) or getattr(args, "num_processes", None):
+        from change3d_tpu_torch.parallel.distributed import initialize
+
+        initialize(args.coordinator_address, args.num_processes, args.process_id,
+                   device=args.device)
     if args.task == "predict":
         return (run_predict_captions if args.model_task == "cc" else run_predict)(args)
     if args.task in _RUN:
@@ -647,5 +676,8 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from change3d_tpu_torch.parallel.distributed import shutdown
+
     result = main()
+    shutdown()
     sys.exit(result if isinstance(result, int) else 0)

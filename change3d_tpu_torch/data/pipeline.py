@@ -7,8 +7,15 @@ from ``np.random.default_rng((seed, epoch, batch, slot))`` with the global
 batch index, training drops the incomplete final batch and eval pads it
 (repeating the last index) with a ``valid`` mask. So batch k of an epoch is
 the same whether the epoch started at 0 or was resumed at k
-(``DataLoader.iter_from``). The process-sharded loader and the grain loader
-arrive with the multi-GPU slice.
+(``DataLoader.iter_from``).
+
+Multi-process runs shard it as JAX does: ``batch_size`` is the global batch,
+every process computes the same global batches and decodes only its
+contiguous ``batch_size // num_shards`` slice of each, and a sample's rng is
+seeded by its global slot, so the global batch of a sharded run is sample
+for sample the single-process batch. ``make_data_loader`` shards by process
+when a process group of more than one process is up. The grain loader is
+not ported.
 """
 
 from __future__ import annotations
@@ -23,6 +30,8 @@ from typing import Callable, Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from change3d_tpu_torch.parallel import distributed
+
 # Batches the workers may assemble ahead of the consumer.
 _PREFETCH = 4
 
@@ -32,19 +41,32 @@ class DataLoader:
 
     ``dataset`` exposes ``__len__`` and ``__getitem__(idx, rng)``; batches
     are what ``collate`` makes of a list of samples (a dict of stacked numpy
-    arrays)."""
+    arrays). With ``num_shards`` > 1 it yields this shard's slice of every
+    global batch of ``batch_size``; a ragged final batch cannot be split, so
+    sharding needs ``drop_last`` or ``pad_final``."""
 
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = False, seed: int = 16,
                  drop_last: Optional[bool] = None, num_workers: int = 4, pad_final: bool = False,
-                 collate: Optional[Callable] = None):
+                 collate: Optional[Callable] = None, num_shards: int = 1, shard_index: int = 0):
+        if batch_size % max(num_shards, 1) != 0:
+            raise ValueError(
+                f"global batch_size {batch_size} must divide over {num_shards} processes")
+        drop_last = shuffle if drop_last is None else drop_last
+        if num_shards > 1 and not (drop_last or pad_final):
+            raise ValueError(
+                "sharded DataLoader needs drop_last=True or pad_final=True "
+                "(a ragged final batch cannot be split across processes)")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
-        self.drop_last = shuffle if drop_last is None else drop_last
+        self.drop_last = drop_last
         self.num_workers = max(1, num_workers)
         self.pad_final = pad_final
         self.collate = collate or pair_collate
+        self.num_shards = max(num_shards, 1)
+        self.shard_index = shard_index
+        self.local_batch_size = batch_size // self.num_shards
         self._epoch = 0
 
     def __len__(self) -> int:
@@ -80,7 +102,9 @@ class DataLoader:
     def iter_from(self, skip_batches: int) -> Iterator:
         """Iterate from batch ``skip_batches`` of this epoch; the skipped
         prefix is never decoded."""
-        batches = self._index_batches()
+        lo = self.shard_index * self.local_batch_size
+        hi = lo + self.local_batch_size
+        batches = [(idxs[lo:hi], valid) for idxs, valid in self._index_batches()]
         if skip_batches:
             if skip_batches >= len(batches):
                 raise RuntimeError(
@@ -119,7 +143,7 @@ class DataLoader:
                         nxt = next(it, None)
                         if nxt is not None:
                             bi, (idxs, valid) = nxt
-                            window.append(([pool.submit(load_sample, bi, j, idx)
+                            window.append(([pool.submit(load_sample, bi, lo + j, idx)
                                             for j, idx in enumerate(idxs)], valid))
 
                     submit()
@@ -130,7 +154,8 @@ class DataLoader:
                         submit()
                         batch = self.collate(samples)
                         if self.pad_final:
-                            batch["valid"] = np.arange(self.batch_size) < valid
+                            # By global position, cut to this shard's rows.
+                            batch["valid"] = (np.arange(self.batch_size) < valid)[lo:hi]
                         if not offer(batch):
                             return
             except Exception as e:  # handed to the consumer, which raises it
@@ -153,10 +178,13 @@ class DataLoader:
 
 
 def make_data_loader(kind: str, dataset, batch_size: int, **kwargs) -> DataLoader:
-    """Loader factory; ``kind`` is 'threaded' (the grain loader arrives with
-    the multi-GPU slice)."""
+    """Loader factory; ``kind`` is 'threaded' (the grain loader is not
+    ported). Under a process group of more than one process the loader is
+    sharded by process unless ``num_shards`` is given."""
     if kind != "threaded":
         raise NotImplementedError(f"loader {kind!r} is not ported; use 'threaded'")
+    if "num_shards" not in kwargs and distributed.world_size() > 1:
+        kwargs.update(num_shards=distributed.world_size(), shard_index=distributed.rank())
     return DataLoader(dataset, batch_size, **kwargs)
 
 

@@ -18,6 +18,14 @@ batches of model-sized tiles.
 card), then the KV-cached beam search; sentences out. ``from_checkpoint``
 builds either from a run's ``best/model.pt``.
 
+With ``shard=True`` (every local card) or an explicit ``devices`` list, a
+Predictor or CaptionPredictor holds one replica of the model per device and
+splits each batch into equal slices, one per device: each slice is launched
+on its device's current stream before any result is fetched, and the
+results come back in order (counterpart of the JAX ``shard=True``). The
+batch must divide by ``batch_divisor``, the number of devices; eval BN is
+per sample, so the results are the single-device predictor's.
+
 ``ArtifactPredictor`` and ``CaptionArtifactPredictor`` serve an exported
 artifact (``export.py``) with the same ``predict`` / ``predict_probs`` /
 ``caption`` surface, on normalised float inputs; ``fixed_batch`` is the
@@ -26,8 +34,10 @@ batch an artifact was pinned to (None for a symbolic batch).
 
 from __future__ import annotations
 
+import contextlib
+import copy
 from types import SimpleNamespace
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +52,7 @@ from change3d_tpu_torch.models.caption_decoder import (
     incremental_fns,
 )
 from change3d_tpu_torch.models.trainer import Change3D
+from change3d_tpu_torch.parallel.mesh import local_device_count
 
 _CLASS_KEYS = ("pre", "post", "cls")
 _BINARY_KEYS = ("change", "loc")
@@ -64,24 +75,54 @@ class U8Launch(NamedTuple):
     """A launched ``predict_u8`` forward: the hardened masks (bitpacked
     binary masks, uint8 class maps) in pinned host tensors that the copies
     still fill, the event recorded after those copies (None on the CPU,
-    where everything is done), and the input width for the unpacking."""
+    where everything is done), the input width for the unpacking, and a
+    sharded predictor's events on its other cards."""
 
     out: Dict[str, torch.Tensor]
     event: Optional[torch.cuda.Event]
     width: int
+    more_events: Tuple[torch.cuda.Event, ...] = ()
+
+
+def _on(device: torch.device):
+    """``device`` made current for CUDA launches (nothing for the CPU)."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def _concat(parts: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
+    if len(parts) == 1:
+        return parts[0]
+    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
 
 
 class Predictor:
     def __init__(self, model: Change3D, *, compute_dtype: torch.dtype = torch.bfloat16,
-                 device="cuda"):
+                 device="cuda", shard: bool = False, devices: Optional[Sequence] = None):
         """Runs ``model`` in eval mode on ``device`` (CUDA by default; raises
         without a card unless ``device="cpu"``) with activations in
-        ``compute_dtype``."""
-        self.device = resolve_device(device)
+        ``compute_dtype``. ``devices`` (or ``shard=True``: every local card,
+        or the CPU once for ``device="cpu"``) spreads each batch over one
+        replica per device; ``model`` is the first."""
+        if devices is None:
+            dev = resolve_device(device)
+            devices = ([torch.device("cuda", i) for i in range(local_device_count())]
+                       if shard and dev.type == "cuda" else [dev])
+        self.devices = [resolve_device(d) for d in devices]
+        if not self.devices:
+            raise ValueError("a Predictor needs at least one device")
+        # A card named without its index is the current one, fixed now.
+        self.devices = [torch.device("cuda", torch.cuda.current_device())
+                        if d.type == "cuda" and d.index is None else d for d in self.devices]
+        self.device = self.devices[0]
         self.model = model.to(self.device).eval()
+        self.replicas = [self.model] + [copy.deepcopy(self.model).to(d)
+                                        for d in self.devices[1:]]
+        # Every batch splits into equal slices over the devices; the server
+        # keeps only the buckets this divides.
+        self.batch_divisor = len(self.devices)
         self.compute_dtype = compute_dtype
         pows = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32)
-        self._pows = pows.to(self.device)
+        self._pows = {d: pows.to(d) for d in self.devices}
 
     @classmethod
     def from_checkpoint(cls, model: Change3D, run_dir: str, **kw) -> "Predictor":
@@ -90,18 +131,39 @@ class Predictor:
         model.load_state_dict(restore_best_state(run_dir))
         return cls(model, **kw)
 
-    def _put(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+    def _put(self, arr, device: Optional[torch.device] = None) -> torch.Tensor:
+        """A numpy array (or a tensor) on ``device`` (default: the first)."""
+        if isinstance(arr, np.ndarray):
+            arr = torch.from_numpy(np.ascontiguousarray(arr))
+        return arr.to(device or self.device)
+
+    def _run_shards(self, fn, *arrays) -> list:
+        """``fn(device, replica, *slices)`` for every device's equal slice of
+        the arrays, in turn, with that device current; the results in
+        device order."""
+        n, b = len(self.devices), arrays[0].shape[0]
+        if b % n:
+            raise ValueError(f"batch {b} does not split over the predictor's {n} devices")
+        k = b // n
+        outs = []
+        for i, (dev, model) in enumerate(zip(self.devices, self.replicas)):
+            with _on(dev):
+                outs.append(fn(dev, model, *(a[i * k:(i + 1) * k] for a in arrays)))
+        return outs
 
     @torch.inference_mode()
-    def _forward(self, pre: torch.Tensor, post: torch.Tensor) -> Dict[str, torch.Tensor]:
-        return self.model(pre.to(self.compute_dtype), post.to(self.compute_dtype))
+    def _forward(self, pre: torch.Tensor, post: torch.Tensor, model=None
+                 ) -> Dict[str, torch.Tensor]:
+        model = model or self.model
+        return model(pre.to(self.compute_dtype), post.to(self.compute_dtype))
 
     def predict_probs(self, pre: np.ndarray, post: np.ndarray) -> Dict[str, np.ndarray]:
         """Soft maps: binary heads ('change', 'loc') as sigmoid
         probabilities [B,H,W,1], class heads ('pre', 'post', 'cls') as
         softmax probabilities [B,H,W,C]."""
-        return postprocess_probs(self._forward(self._put(pre), self._put(post)))
+        outs = self._run_shards(lambda dev, model, a, b: self._forward(
+            self._put(a, dev), self._put(b, dev), model), pre, post)
+        return _concat([postprocess_probs(o) for o in outs])
 
     @staticmethod
     def harden(probs: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
@@ -128,14 +190,27 @@ class Predictor:
         """uint8 [B,H,W,3] device tensors -> hardened masks on the device.
         Class maps come back as uint8 argmax ids; binary masks bitpacked
         (uint8, 8 pixels per byte, np.unpackbits order) when the width is a
-        multiple of 8."""
+        multiple of 8. A sharded predictor copies each slice to its card and
+        gathers the masks on the first."""
+        outs = self._u8_shards(pre, post)
+        if len(outs) == 1:
+            return outs[0]
+        return {k: torch.cat([o[k].to(self.device) for o in outs]) for k in outs[0]}
+
+    def _u8_shards(self, pre, post) -> List[Dict[str, torch.Tensor]]:
+        """Every device's hardened masks of its slice, on that device."""
+        return self._run_shards(lambda dev, model, a, b: self._u8_on(
+            model, self._put(a, dev), self._put(b, dev)), pre, post)
+
+    def _u8_on(self, model, pre: torch.Tensor, post: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """``predict_u8_device`` on one replica and its device's tensors."""
 
         def norm(a):
             # fp32 first with eval_normalize's op sequence, then the cast: the
             # model sees the same inputs as on the host-normalized float path.
             return ((a.float() / 255.0 - 0.5) / 0.5).to(self.compute_dtype)
 
-        out = self.model(norm(pre), norm(post))
+        out = model(norm(pre), norm(post))
         hard = {}
         for key, val in out.items():
             if key in _BINARY_KEYS:
@@ -143,7 +218,7 @@ class Predictor:
                 b, h, w = mask.shape
                 if w % 8 == 0:
                     grouped = mask.reshape(b, h, w // 8, 8).to(torch.int32)
-                    mask = (grouped * self._pows).sum(-1).to(torch.uint8)
+                    mask = (grouped * self._pows[mask.device]).sum(-1).to(torch.uint8)
                 hard[key] = mask
             elif key in _CLASS_KEYS:
                 hard[key] = torch.argmax(val, dim=-1).to(torch.uint8)
@@ -157,24 +232,30 @@ class Predictor:
         its hardened masks into freshly pinned host tensors, record an event
         after them and return without waiting; :meth:`finalize_u8` waits.
         Each call has its own host buffers, so launches may overlap. On the
-        CPU the work is done on return."""
-        out = self.predict_u8_device(self._put(pre), self._put(post))
+        CPU the work is done on return. A sharded predictor launches every
+        card's slice, and each card copies its masks into its rows."""
         if self.device.type != "cuda":
-            return U8Launch(out, None, pre.shape[2])
-        host = {}
-        for key, val in out.items():
-            host[key] = torch.empty(val.shape, dtype=val.dtype, pin_memory=True)
-            host[key].copy_(val, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        return U8Launch(host, event, pre.shape[2])
+            return U8Launch(self.predict_u8_device(pre, post), None, pre.shape[2])
+        outs = self._u8_shards(pre, post)
+        host = {key: torch.empty((len(pre),) + val.shape[1:], dtype=val.dtype, pin_memory=True)
+                for key, val in outs[0].items()}
+        k, events = len(pre) // len(outs), []
+        for i, (dev, out) in enumerate(zip(self.devices, outs)):
+            with _on(dev):
+                for key, val in out.items():
+                    host[key][i * k:(i + 1) * k].copy_(val, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record()
+                events.append(event)
+        return U8Launch(host, events[0], pre.shape[2], tuple(events[1:]))
 
     @staticmethod
     def finalize_u8(launch: U8Launch) -> Dict[str, np.ndarray]:
         """Wait for a :meth:`predict_u8_async` launch and unpack its masks:
         bool binary masks [B, H, W] and uint8 class ids."""
-        if launch.event is not None:
-            launch.event.synchronize()
+        for event in (launch.event,) + launch.more_events:
+            if event is not None:
+                event.synchronize()
         fetched = {}
         for key, val in launch.out.items():
             arr = val.numpy()
@@ -278,36 +359,43 @@ def tokens_to_captions(tokens, word_map: Dict[str, int]) -> List[str]:
 class CaptionPredictor(Predictor):
     """Captions for image pairs from a CC ``Change3D``: the encoder in
     ``compute_dtype``, then ``beam_search_decode`` with ``beam_size`` beams
-    over the KV-cached decode step, at most MAX_CAPTION_LEN tokens."""
+    over the KV-cached decode step, at most MAX_CAPTION_LEN tokens.
+    ``shard`` / ``devices`` as for ``Predictor`` (``caption`` and
+    ``caption_u8`` split the batch; ``caption_device`` runs the first)."""
 
     def __init__(self, model: Change3D, word_map: Dict[str, int], *, beam_size: int = 1,
-                 compute_dtype: torch.dtype = torch.bfloat16, device="cuda"):
-        super().__init__(model, compute_dtype=compute_dtype, device=device)
+                 compute_dtype: torch.dtype = torch.bfloat16, device="cuda", shard: bool = False,
+                 devices: Optional[Sequence] = None):
+        super().__init__(model, compute_dtype=compute_dtype, device=device, shard=shard,
+                         devices=devices)
         self.word_map = word_map
         self.beam_size = beam_size
-        self._mean = torch.from_numpy(CaptionDataset.MEAN).to(self.device)
-        self._std = torch.from_numpy(CaptionDataset.STD).to(self.device)
+        mean, std = torch.from_numpy(CaptionDataset.MEAN), torch.from_numpy(CaptionDataset.STD)
+        self._mean_std = {d: (mean.to(d), std.to(d)) for d in self.devices}
 
     @torch.inference_mode()
-    def encode(self, pre: torch.Tensor, post: torch.Tensor) -> torch.Tensor:
+    def encode(self, pre: torch.Tensor, post: torch.Tensor, model=None) -> torch.Tensor:
         """Device tensors [B, H, W, 3] -> the image memory [B, h*w, C] in
         ``compute_dtype``. uint8 pixels are normalised here with ImageNet's
         mean and std (``CaptionDataset``'s), in fp32 before the cast; float
-        images are taken as normalised."""
+        images are taken as normalised. ``model``: a replica (default: the
+        first) on the tensors' device."""
         if pre.dtype == torch.uint8:
-            norm = lambda a: (a.float() / 255.0 - self._mean) / self._std
+            mean, std = self._mean_std[pre.device]
+            norm = lambda a: (a.float() / 255.0 - mean) / std
             pre, post = norm(pre), norm(post)
-        return self.model(pre.to(self.compute_dtype), post.to(self.compute_dtype))["memory"]
+        model = model or self.model
+        return model(pre.to(self.compute_dtype), post.to(self.compute_dtype))["memory"]
 
     @torch.inference_mode()
-    def decode(self, memory: torch.Tensor, **kw) -> Tuple[torch.Tensor, torch.Tensor]:
+    def decode(self, memory: torch.Tensor, model=None, **kw) -> Tuple[torch.Tensor, torch.Tensor]:
         """Beam search over ``memory``: (tokens [B, MAX_CAPTION_LEN],
         scores [B]) on the device; ``kw`` goes to ``beam_search_decode``."""
-        wm = self.word_map
+        wm, model = self.word_map, model or self.model
         return beam_search_decode(
-            self.model.decode_captions, memory, beam_size=self.beam_size,
+            model.decode_captions, memory, beam_size=self.beam_size,
             start_token=wm["<start>"], end_token=wm["<end>"], pad_token=wm.get("<pad>", 0),
-            max_len=MAX_CAPTION_LEN, incremental=incremental_fns(self.model), **kw)
+            max_len=MAX_CAPTION_LEN, incremental=incremental_fns(model), **kw)
 
     def caption_device(self, pre: torch.Tensor, post: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -315,16 +403,18 @@ class CaptionPredictor(Predictor):
         on the device out."""
         return self.decode(self.encode(pre, post))
 
+    def _caption_shards(self, pre: np.ndarray, post: np.ndarray) -> List[str]:
+        tokens = self._run_shards(lambda dev, model, a, b: self.decode(
+            self.encode(self._put(a, dev), self._put(b, dev), model), model)[0], pre, post)
+        return tokens_to_captions(torch.cat([t.cpu() for t in tokens]).numpy(), self.word_map)
+
     def caption(self, pre: np.ndarray, post: np.ndarray) -> List[str]:
         """Normalised float [B, H, W, 3] pairs -> one sentence per pair."""
-        tokens, _ = self.caption_device(self._put(pre.astype(np.float32)),
-                                        self._put(post.astype(np.float32)))
-        return tokens_to_captions(tokens.cpu().numpy(), self.word_map)
+        return self._caption_shards(pre.astype(np.float32), post.astype(np.float32))
 
     def caption_u8(self, pre: np.ndarray, post: np.ndarray) -> List[str]:
         """Raw uint8 [B, H, W, 3] pairs; only uint8 pixels go to the device."""
-        tokens, _ = self.caption_device(self._put(pre), self._put(post))
-        return tokens_to_captions(tokens.cpu().numpy(), self.word_map)
+        return self._caption_shards(pre, post)
 
 
 class CaptionArtifactPredictor:

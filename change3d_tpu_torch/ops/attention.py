@@ -23,6 +23,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from change3d_tpu_torch.ops.layers import linear
+from change3d_tpu_torch.parallel import distributed
 
 Params = Dict[str, torch.Tensor]
 
@@ -30,10 +31,19 @@ Params = Dict[str, torch.Tensor]
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
     """Inverted dropout: keep with probability 1 - rate, scaled by
     1 / (1 - rate) in x's dtype, drawn from ``generator`` (on x's device;
-    None takes torch's default generator there)."""
+    None takes torch's default generator there).
+
+    Under a process group of more than one process, axis 0 of x is this
+    process's slice of the global batch: the mask is drawn at the global
+    batch's shape and cut to the slice, so a generator seeded alike on every
+    process gives the single-process run's masks."""
     if rate <= 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    world, b = distributed.world_size(), x.shape[0]
+    u = torch.rand((world * b,) + tuple(x.shape[1:]), generator=generator, device=x.device)
+    if world > 1:
+        u = u[distributed.rank() * b:(distributed.rank() + 1) * b]
+    keep = u < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -218,6 +218,9 @@ def _front_args(x, w_a, a_a, b_a, w_dw, a_b, b_b):
 # from the static T, H, W, C and Ci (the batch may stay symbolic), so
 # ``torch.export`` puts one node per kernel launch into the graph whatever
 # device it traces on. No other device has a kernel: the dispatcher raises.
+# The CUDA kernels launch with x's card as the current device: the C side
+# sets attributes and launches on whatever card is current, which in a
+# process that drives several cards need not be x's.
 
 _SE_SUMS_SCHEMA = ("(Tensor x, Tensor w_a, Tensor a_a, Tensor b_a, Tensor w_dw, Tensor a_b, "
                    "Tensor b_b) -> Tensor")
@@ -247,11 +250,12 @@ def _se_sums_cuda(x, w_a, a_a, b_a, w_dw, a_b, b_b):
     tile, ck, _, smem, n_tiles = _launch_plan(t, h, w, c, ci, x.element_size())
     sums = torch.empty((b, n_tiles, ci), device=x.device, dtype=torch.float32)
     lib = cuda_build.load("fused_block")
-    err = lib.c3d_fused_block_se_sums(
-        _DTYPES[x.dtype], args[0].data_ptr(), sums.data_ptr(),
-        *(a.data_ptr() for a in args[1:]),
-        b, t, h, w, c, ci, tile, ck, smem, torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    with torch.cuda.device(x.device):
+        err = lib.c3d_fused_block_se_sums(
+            _DTYPES[x.dtype], args[0].data_ptr(), sums.data_ptr(),
+            *(a.data_ptr() for a in args[1:]),
+            b, t, h, w, c, ci, tile, ck, smem, torch.cuda.current_stream(x.device).cuda_stream,
+        )
     cuda_build.check(lib, err, "fused_block_se_sums")
     fused_block_se_sums.launches += 1
     return sums
@@ -274,13 +278,14 @@ def _fwd_cuda(x, w_a, a_a, b_a, w_dw, a_b, b_b, w_c, a_c, b_c, gate):
     tile, ck, smem, _, _ = _launch_plan(t, h, w, c, ci, x.element_size())
     out = torch.empty_like(args[0])
     lib = cuda_build.load("fused_block")
-    err = lib.c3d_fused_block_fwd(
-        _DTYPES[x.dtype], args[0].data_ptr(), out.data_ptr(),
-        *(a.data_ptr() for a in args[1:]),
-        None if gate is None else gate.data_ptr(),
-        *(a.data_ptr() for a in back),
-        b, t, h, w, c, ci, tile, ck, smem, torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    with torch.cuda.device(x.device):
+        err = lib.c3d_fused_block_fwd(
+            _DTYPES[x.dtype], args[0].data_ptr(), out.data_ptr(),
+            *(a.data_ptr() for a in args[1:]),
+            None if gate is None else gate.data_ptr(),
+            *(a.data_ptr() for a in back),
+            b, t, h, w, c, ci, tile, ck, smem, torch.cuda.current_stream(x.device).cuda_stream,
+        )
     cuda_build.check(lib, err, "fused_block_fwd")
     fused_block_fwd.launches += 1
     return out

@@ -10,8 +10,16 @@ over the n = B*T*H*W values per channel. The running update happens under
 ``eval()`` mode only the running statistics are used. Either way a/b are
 folded in fp32 and applied in the activation dtype.
 
+Under a process group of more than one process, train mode takes the
+global batch's statistics, as the JAX step over a sharded batch does: the
+per-channel sums of x and x^2 are summed over the processes
+(``all_reduce_sum``, whose backward sums too) and divided by the global
+count n (every process holds an equal slice, so n is the local count times
+the world size); the same formula follows, and the running statistics move
+identically on every process.
+
 ``F.batch_norm`` is not used: its variance rounds differently from the JAX
-formula this module is held to.
+formula this module is held to (and ``nn.SyncBatchNorm`` likewise).
 """
 
 from __future__ import annotations
@@ -20,6 +28,8 @@ from typing import Tuple
 
 import torch
 from torch import nn
+
+from change3d_tpu_torch.parallel import distributed
 
 
 class BatchNorm(nn.Module):
@@ -45,8 +55,16 @@ class BatchNorm(nn.Module):
         x32 = x.float()
         dims = tuple(range(x.dim() - 1))
         n = x.numel() // x.shape[-1]
-        mean = x32.mean(dims)
-        var = torch.clamp_min(x32.square().mean(dims) - mean.square(), 0.0)
+        world = distributed.world_size()
+        if world == 1:
+            mean = x32.mean(dims)
+            mean_sq = x32.square().mean(dims)
+        else:
+            n *= world
+            sums = distributed.all_reduce_sum(torch.stack([x32.sum(dims),
+                                                           x32.square().sum(dims)]))
+            mean, mean_sq = sums[0] / n, sums[1] / n
+        var = torch.clamp_min(mean_sq - mean.square(), 0.0)
         with torch.no_grad():
             m = self.momentum
             self.mean.copy_((1.0 - m) * self.mean + m * mean)

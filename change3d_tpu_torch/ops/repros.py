@@ -139,7 +139,8 @@ def dot_1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     x, w = cuda_build.aligned(x), cuda_build.aligned(w)
     out = torch.empty((r, n), device=x.device, dtype=torch.bfloat16)
     lib = cuda_build.load("repros")
-    err = lib.c3d_dot_1d(x.data_ptr(), w.data_ptr(), out.data_ptr(), r, c, n, _stream(x))
+    with torch.cuda.device(x.device):  # the launch goes to the current device
+        err = lib.c3d_dot_1d(x.data_ptr(), w.data_ptr(), out.data_ptr(), r, c, n, _stream(x))
     cuda_build.check(lib, err, "dot_1d")
     dot_1d.launches += 1
     return out
@@ -167,7 +168,8 @@ def manual_dma(x: torch.Tensor) -> torch.Tensor:
     x = cuda_build.aligned(x)
     out = torch.empty_like(x)
     lib = cuda_build.load("repros")
-    err = lib.c3d_manual_dma(x.data_ptr(), out.data_ptr(), n, r, c, *plan, _stream(x))
+    with torch.cuda.device(x.device):
+        err = lib.c3d_manual_dma(x.data_ptr(), out.data_ptr(), n, r, c, *plan, _stream(x))
     cuda_build.check(lib, err, "manual_dma")
     manual_dma.launches += 1
     return out

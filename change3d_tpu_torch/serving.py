@@ -296,8 +296,10 @@ class PredictService:
     come back (pipelined for detection). Any other is served on the float
     path: the host normalises (``eval_normalize``; ImageNet's mean and std
     for CC) and ``predict`` / ``caption`` run batch by batch. An artifact
-    pinned to a batch serves only that batch, in one bucket. ``warmup``
-    runs every bucket once (building the kernels) and one request through
+    pinned to a batch serves only that batch, in one bucket. A sharded
+    predictor (``batch_divisor`` devices) serves only the buckets that
+    divide over its devices, and refuses a ``batch_size`` that does not.
+    ``warmup`` runs every bucket once (building the kernels) and one request through
     the batcher, then zeroes the statistics; start the HTTP server only
     after it."""
 
@@ -322,7 +324,17 @@ class PredictService:
             if not buckets or buckets[0] < 1 or buckets[-1] != batch_size:
                 raise ValueError(f"buckets {buckets} must be positive and include batch_size "
                                  f"{batch_size} as the largest")
-        self.buckets = buckets
+        # A sharded predictor splits every batch over its devices.
+        divisor = getattr(predictor, "batch_divisor", 1)
+        if batch_size % divisor != 0:
+            raise ValueError(f"batch_size {batch_size} must be divisible by the sharded "
+                             f"predictor's device count ({divisor})")
+        kept = tuple(b for b in buckets if b % divisor == 0)
+        if kept != buckets:
+            print(f"[serving] dropping buckets {sorted(set(buckets) - set(kept))}: not divisible "
+                  f"by the sharded predictor's device count ({divisor}); keeping {kept}",
+                  flush=True)
+        self.buckets = kept
         self.in_hw = (predictor.model.in_height, predictor.model.in_width)
         self._tiled = None
         self._batcher = None

@@ -26,6 +26,16 @@ batches already trained. Dropout draws from a generator re-seeded from
 (seed, step) before each step, so a preempted-and-resumed run ends
 bit-for-bit where an uninterrupted one does. A preemption on an epoch's last
 step leaves it unevaluated; the resumed run evaluates it first.
+
+Under a process group the loop runs as the detection loop does
+(``train/loop.py``): global batches rounded to the world size, sharded
+loaders, the global step, process 0 writing, agreement on SIGTERM. The
+dropout generator is seeded alike on every process and draws at the global
+batch's shape (``ops/attention.dropout``), so N processes train as one does
+with dropout on. Each process decodes its slice of every evaluation batch;
+the hypotheses and references are gathered to every process and put back in
+the single-process order, so every process scores the same set and the
+BLEU-4 gate agrees.
 """
 
 from __future__ import annotations
@@ -47,10 +57,12 @@ from change3d_tpu_torch.device import resolve_device
 from change3d_tpu_torch.inference import CaptionPredictor
 from change3d_tpu_torch.metrics.caption import eval_caption_scores
 from change3d_tpu_torch.models.trainer import Change3D, Task
+from change3d_tpu_torch.parallel import distributed
 from change3d_tpu_torch.train.engine import train_step
 from change3d_tpu_torch.train.loop import (
     _DTYPES,
     PreemptionGuard,
+    _global_batch,
     load_pretrained_backbone,
     restore_run_state,
 )
@@ -142,28 +154,65 @@ def save_caption_json(save_dir: str, word_map: Dict[str, int], hypotheses, refer
         json.dump(gts, f)
 
 
+def _allgather_caption_results(hypotheses, references, positions):
+    """Every process's hypotheses and references on every process, in the
+    single-process order: token lists padded into int32 arrays (-1 beyond
+    a list's end), gathered in process order (``allgather_padded``),
+    unpacked, and sorted by each sample's global position. Alone, the lists
+    themselves."""
+    if distributed.world_size() == 1:
+        return hypotheses, references
+    n = len(hypotheses)
+    cpi = max((len(r) for r in references), default=0)
+    width = max([len(h) for h in hypotheses] + [len(t) for r in references for t in r] + [1])
+    hyp = np.full((n, width), -1, np.int32)
+    ref = np.full((n, cpi, width), -1, np.int32)
+    ref_count = np.asarray([len(r) for r in references], np.int32)
+    for i, (h, refs) in enumerate(zip(hypotheses, references)):
+        hyp[i, :len(h)] = h
+        for j, t in enumerate(refs):
+            ref[i, j, :len(t)] = t
+    gathered = [distributed.allgather_padded(a) for a in
+                (hyp, ref, ref_count, np.asarray(positions, np.int64))]
+    rows = []
+    for g_hyp, g_ref, g_count, g_pos in zip(*gathered):
+        for i in range(len(g_pos)):
+            rows.append((int(g_pos[i]), [int(t) for t in g_hyp[i] if t >= 0],
+                         [[int(t) for t in r if t >= 0] for r in g_ref[i, :g_count[i]]]))
+    rows.sort(key=lambda row: row[0])
+    return [r[1] for r in rows], [r[2] for r in rows]
+
+
 def evaluate_captions(model: Change3D, loader, word_map: Dict[str, int], beam_size: int = 1,
                       save_dir: Optional[str] = None, decode_fn=None) -> Dict[str, float]:
     """Batched beam-search evaluation, the caption metrics, and the change /
-    no-change split. Pass one ``make_decode_fn`` per run as ``decode_fn``."""
+    no-change split. Pass one ``make_decode_fn`` per run as ``decode_fn``.
+    Under a process group ``loader`` yields this process's contiguous slice
+    of each global batch (the sharded ``DataLoader``); every process returns
+    the scores of the whole set, and process 0 writes the JSON files."""
     rev = {v: k for k, v in word_map.items()}
     special = {word_map["<start>"], word_map["<end>"], word_map.get("<pad>", 0)}
     decode = decode_fn or make_decode_fn(model, beam_size, word_map)
     device = next(model.parameters()).device
+    world, rank = distributed.world_size(), distributed.rank()
     references: List[List[List[int]]] = []
     hypotheses: List[List[int]] = []
-    for batch in loader:
+    positions: List[int] = []
+    for bi, batch in enumerate(loader):
         valid = batch.get("valid", np.ones(len(batch["pre"]), bool))
         pre, post = (torch.from_numpy(np.ascontiguousarray(batch[k])).to(device)
                      for k in ("pre", "post"))
         tokens = decode(pre, post)[0].cpu().numpy()
-        for i in range(len(tokens)):
+        b = len(tokens)
+        for i in range(b):
             if not valid[i]:
                 continue
+            positions.append((bi * world + rank) * b + i)
             hypotheses.append([int(t) for t in tokens[i] if int(t) not in special])
             references.append([[int(t) for t in cap if int(t) not in special]
                                for cap in batch["all_captions"][i]])
-    if save_dir:
+    hypotheses, references = _allgather_caption_results(hypotheses, references, positions)
+    if save_dir and distributed.is_primary():
         save_caption_json(save_dir, word_map, hypotheses, references)
     scores = eval_caption_scores(references, hypotheses)
 
@@ -206,6 +255,7 @@ def run_caption_eval(cfg: CaptionRunConfig, run_dir: Optional[str] = None,
     with ``save_json`` res.json / gts.json go to the run dir. ``run_dir``
     defaults to the training loop's ``{save_dir}/{dataset}_cc_lr_{lr}``."""
     resolve_device(cfg.device)
+    cfg = _global_batch(cfg, "eval_batch_size")
     word_map = load_word_map(cfg)
     run_dir = run_dir or os.path.join(cfg.save_dir, f"{cfg.dataset}_cc_lr_{cfg.lr}")
     data = _EveryFifth(CaptionDataset(cfg.file_root, cfg.dataset, split or cfg.eval_split))
@@ -230,6 +280,7 @@ def run_caption_training(cfg: CaptionRunConfig) -> Dict[str, Any]:
     SIGTERM."""
     if cfg.compute_dtype not in _DTYPES:
         raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: one of {sorted(_DTYPES)}")
+    cfg = _global_batch(cfg, "batch_size", "eval_batch_size")
     word_map = load_word_map(cfg)
     save_path = os.path.join(cfg.save_dir, f"{cfg.dataset}_cc_lr_{cfg.lr}")
     with setup_logger(save_path, dataclasses.asdict(cfg)) as logger:
@@ -335,7 +386,7 @@ def _run_caption(cfg: CaptionRunConfig, logger, save_path: str,
                 n_steps += 1
                 host_step += 1
                 guard.tick(host_step)
-                if guard.triggered:
+                if guard.agreed():
                     break
                 if i % 50 == 0 and i:
                     eta = (time.time() - t0) / (i + 1) * (n_batches - i - 1)

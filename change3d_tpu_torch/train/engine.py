@@ -22,6 +22,17 @@ the ``generator`` passed to ``train_step``.
 With ``compute_dtype`` the images enter the model in that dtype; the
 parameters stay fp32 and each op casts them to the activation dtype, BN
 statistics stay fp32.
+
+Under a process group of more than one process each process holds its slice
+of the global batch and both steps are the global batch's, as JAX's step
+over a sharded batch is: BN statistics and the losses are summed over the
+processes (``ops/norm.py``, ``train/losses.py``), so every process
+backpropagates the same global loss; the gradients are then averaged over
+the processes in flat all-reduces of at most ``GRAD_BUCKET_BYTES`` (each
+process's gradient is the world size times its share, see
+``all_reduce_sum``), so parameters and Adam state stay equal on every
+process. The count metrics (confusion matrices, SCD's accuracy counts) are
+summed over the processes; CC's top-1 is global already.
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ import torch
 
 from change3d_tpu_torch.metrics.confusion import confusion_matrix
 from change3d_tpu_torch.models.trainer import Task
+from change3d_tpu_torch.parallel import distributed
 from change3d_tpu_torch.train.losses import (
     bce_dice_loss,
     caption_cross_entropy,
@@ -42,6 +54,10 @@ from change3d_tpu_torch.train.losses import (
 from change3d_tpu_torch.train.optim import set_lr
 
 Metrics = Dict[str, torch.Tensor]
+
+GRAD_BUCKET_BYTES = 32 << 20
+# Metrics that are counts over the batch: summed over the processes.
+_COUNT_METRICS = ("cm", "acc_correct", "acc_total", "loc_cm", "cls_cm")
 
 
 def _valid_gt(batch: Dict[str, torch.Tensor], gt: torch.Tensor) -> torch.Tensor:
@@ -124,6 +140,34 @@ _TASK_FNS = {Task.BCD: _bcd_loss_metrics, Task.SCD: _scd_loss_metrics,
              Task.BDA: _bda_loss_metrics, Task.CC: _cc_loss_metrics}
 
 
+def average_gradients(model: torch.nn.Module) -> None:
+    """Replace every gradient by its mean over the processes, in flat
+    all-reduces of at most GRAD_BUCKET_BYTES of one dtype; a no-op alone."""
+    world = distributed.world_size()
+    if world == 1:
+        return
+    buckets, size = [[]], 0
+    for p in model.parameters():
+        if p.grad is None:
+            continue
+        nbytes = p.grad.numel() * p.grad.element_size()
+        if buckets[-1] and size + nbytes > GRAD_BUCKET_BYTES:
+            buckets.append([])
+            size = 0
+        buckets[-1].append(p.grad)
+        size += nbytes
+    for bucket in buckets:
+        distributed.reduce_sum_(bucket)
+        for g in bucket:
+            g.div_(world)
+
+
+def _sum_counts(metrics: Metrics) -> Metrics:
+    """The count metrics summed over the processes (one all-reduce)."""
+    distributed.reduce_sum_([metrics[k] for k in _COUNT_METRICS if k in metrics])
+    return metrics
+
+
 def train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
                schedule: Callable[[int], Union[float, Mapping[str, float]]],
                batch: Dict[str, torch.Tensor], step: int, *,
@@ -139,8 +183,9 @@ def train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
     outputs = _forward(model, batch, compute_dtype, generator)
     loss, metrics = _TASK_FNS[model.task](outputs, batch)
     loss.backward()
+    average_gradients(model)
     opt.step()
-    return dict(metrics, loss=loss.detach())
+    return dict(_sum_counts(metrics), loss=loss.detach())
 
 
 @torch.no_grad()
@@ -150,4 +195,4 @@ def eval_step(model: torch.nn.Module, batch: Dict[str, torch.Tensor], *,
     loss averages over the whole batch, as in JAX)."""
     model.eval()
     loss, metrics = _TASK_FNS[model.task](_forward(model, batch, compute_dtype), batch)
-    return dict(metrics, loss=loss)
+    return dict(_sum_counts(metrics), loss=loss)

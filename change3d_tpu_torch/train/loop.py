@@ -17,6 +17,14 @@ optimizer, step) and returns; ``--resume`` re-enters that epoch and skips
 the batches already trained, so a preempted-and-resumed run ends bit-for-bit
 where an uninterrupted one does. A preemption that lands on an epoch's last
 step leaves that epoch unvalidated; the resumed run validates it first.
+
+Under a process group (``parallel/distributed.py``) every process runs this
+loop on its slice of each global batch: ``batch_size`` is the global batch,
+rounded up to a multiple of the world size; the loaders shard by process;
+the steps are the global batch's (``train/engine.py``), so every process
+holds the same weights and scores; process 0 writes the logs and
+checkpoints while the others wait; every process restores on ``resume``;
+and a SIGTERM on any process stops every process after the same step.
 """
 
 from __future__ import annotations
@@ -44,6 +52,8 @@ from change3d_tpu_torch.data.transforms import make_transform_pipelines
 from change3d_tpu_torch.device import resolve_device
 from change3d_tpu_torch.metrics.confusion import BDAMeter, BinaryChangeMeter, SCDMeter
 from change3d_tpu_torch.models.trainer import Change3D, Task
+from change3d_tpu_torch.parallel import distributed
+from change3d_tpu_torch.parallel.mesh import multiple_of_devices
 from change3d_tpu_torch.train.engine import eval_step, train_step
 from change3d_tpu_torch.train.lr import poly_warmup_schedule, step_schedule
 from change3d_tpu_torch.train.optim import torch_adam
@@ -89,6 +99,11 @@ class PreemptionGuard:
 
     ``CHANGE3D_PREEMPT_AFTER_STEP=N`` raises SIGTERM in process after the
     Nth optimizer step (``tick``): the real signal path at a fixed point.
+
+    The loops ask ``agreed()`` after each step: true on every process of a
+    group once any process has been signalled, so all stop after the same
+    step (a process that stopped alone would leave the others waiting in
+    the next collective).
     """
 
     def __init__(self):
@@ -126,6 +141,13 @@ class PreemptionGuard:
     @property
     def triggered(self) -> bool:
         return self._flag.is_set()
+
+    def agreed(self) -> bool:
+        """Whether any process of the group has been signalled (this one
+        alone without a group); sets the flag here when one has."""
+        if distributed.any_process(self.triggered):
+            self._flag.set()
+        return self.triggered
 
 
 def build_model(cfg: RunConfig) -> Change3D:
@@ -187,11 +209,27 @@ def _evaluate_split(cfg: RunConfig, model, loader, device, compute_dtype) -> Dic
     return scores
 
 
-def _check_config(cfg: RunConfig) -> None:
+def _check_config(cfg: RunConfig) -> RunConfig:
+    """``cfg`` with its batch rounded up to a multiple of the world size."""
     if cfg.task not in DATASETS:
         raise ValueError(f"task {cfg.task!r}: one of {sorted(DATASETS)}")
     if cfg.compute_dtype not in _DTYPES:
         raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: one of {sorted(_DTYPES)}")
+    return _global_batch(cfg, "batch_size")
+
+
+def _global_batch(cfg, *fields):
+    """``cfg`` with each named batch size rounded up to a multiple of the
+    world size (said when it changes)."""
+    n = distributed.world_size()
+    for field in fields:
+        size = getattr(cfg, field)
+        rounded = multiple_of_devices(size, n)
+        if rounded != size:
+            print(f"{field} {size} rounded up to {rounded} (must divide over {n} processes)",
+                  flush=True)
+            cfg = dataclasses.replace(cfg, **{field: rounded})
+    return cfg
 
 
 def run_detection_eval(cfg: RunConfig, run_dir: Optional[str] = None, split: str = "test",
@@ -201,7 +239,7 @@ def run_detection_eval(cfg: RunConfig, run_dir: Optional[str] = None, split: str
     with the last batch padded and masked, ``cfg.compute_dtype``, every
     stride-1 block fused on the card. ``run_dir`` defaults to the training
     loop's ``{save_dir}/{dataset}_iter_{max_steps}_lr_{lr}``."""
-    _check_config(cfg)
+    cfg = _check_config(cfg)
     device = resolve_device(cfg.device)
     run_dir = run_dir or os.path.join(cfg.save_dir, f"{cfg.dataset}_iter_{cfg.max_steps}_lr_{cfg.lr}")
     _, eval_tf = make_transform_pipelines(cfg.task, cfg.in_width, cfg.in_height)
@@ -217,7 +255,7 @@ def run_detection_eval(cfg: RunConfig, run_dir: Optional[str] = None, split: str
 def run_detection_training(cfg: RunConfig) -> Dict[str, Any]:
     """Train and validate BCD, SCD or BDA; returns {'last', 'test_best'}
     scores, or {'preempted_at_step'} after a SIGTERM."""
-    _check_config(cfg)
+    cfg = _check_config(cfg)
     save_path = os.path.join(cfg.save_dir, f"{cfg.dataset}_iter_{cfg.max_steps}_lr_{cfg.lr}")
     with setup_logger(save_path, dataclasses.asdict(cfg), cfg.log_name) as logger:
         return _run_detection(cfg, logger, save_path)
@@ -301,7 +339,7 @@ def _run_detection(cfg: RunConfig, logger, save_path: str) -> Dict[str, Any]:
                 n_steps += 1
                 host_step += 1
                 guard.tick(host_step)
-                if guard.triggered:
+                if guard.agreed():
                     break
                 if i % 50 == 0 and i:
                     eta = (time.time() - t0) / (i + 1) * (n_batches - i - 1)

@@ -9,6 +9,8 @@ import os
 import time
 from typing import Any, Dict, Optional
 
+from change3d_tpu_torch.parallel import distributed
+
 
 class MetricLogger:
     def __init__(self, save_dir: str, name: str = "train_val_log"):
@@ -85,12 +87,13 @@ class NullLogger:
 
 
 def setup_logger(save_dir: str, config: Optional[Dict[str, Any]] = None,
-                 name: str = "train_val_log", *, primary: bool = True):
-    """A MetricLogger that has logged ``config``, or a NullLogger when this
-    process is not the primary one."""
-    if not primary:
-        return NullLogger()
-    logger = MetricLogger(save_dir, name)
-    if config:
+                 name: str = "train_val_log"):
+    """A MetricLogger that has logged ``config``, or a NullLogger on every
+    process of a group but process 0. Every process waits until process 0
+    has made ``save_dir`` and written the config."""
+    primary = distributed.is_primary()
+    logger = MetricLogger(save_dir, name) if primary else NullLogger()
+    if primary and config:
         logger.log_config(config)
+    distributed.barrier()
     return logger

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of change3d_tpu_torch on one NVIDIA GPU (built for the H100).
 
-    python3 chip_smoke.py [--batch 8] [--batches 3] [--seed 0]
+    python3 chip_smoke.py [--batch 8] [--batches 3] [--seed 0] [--multi-gpu-only]
 
 Run from the repository root. Phases (any failure exits non-zero and prints
 no result line):
@@ -107,7 +107,22 @@ no result line):
    exports run, ``cli bcd --profile_dir`` trains on a 64² layout at batch 1
    until its window (steps 10-14) closes, and its trace must hold CUDA
    kernel events. Export seconds and artifact bytes are printed; details
-   under the ``export`` key.
+   under the ``export`` key;
+12. multi-GPU (``phase_multi_gpu``): ``cli bcd`` and then ``cli cc`` on
+   phase 9's layouts as N = torch.cuda.device_count() processes, one per
+   card, with ``--coordinator_address 127.0.0.1:PORT --num_processes N
+   --process_id i`` (this script's ``--rank-worker``, each process's fused
+   launch counts set to 0 just before its run and read just after): NCCL
+   up at world N on card i, 2 x (37 + 18) launches per BCD process and 3 x
+   (51 + 25) per CC process, every process's report equal, then
+   ``--resume`` at step 4 (one more evaluation forward each); then a
+   ``shard=True`` Predictor over every card on SHARD_PAIRS_PER_CARD x N
+   pairs against one card's on the same slices of SHARD_PAIRS_PER_CARD:
+   masks equal, (37 + 18) launches per card. Details under the ``multi_gpu`` key.
+
+``--multi-gpu-only`` builds the kernels and runs phase 12 alone on freshly
+written layouts (the proof on several cards), its details beside ``--out``
+as ``chip_smoke_multi_gpu.json``.
 
 The last lines are the kernels JSON, the card line from nvidia-smi, and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
@@ -1674,6 +1689,188 @@ def phase_export(fb, dev, seed, tmp, bcd_loop, cc_loop, card):
     return stats
 
 
+# Phase 12: the deadline of its processes, and the pairs of the sharded
+# predictor's check per card.
+MULTI_GPU_TIMEOUT, SHARD_PAIRS_PER_CARD = 240, 8
+
+
+def rank_worker(spec_path) -> int:
+    """One process of phase 12: ``cli.main`` for each argv of the spec in
+    turn, the fused launch counts set to 0 just before each and read just
+    after, then what the process group says; all of it to the spec's
+    ``out``."""
+    import torch.distributed as dist
+
+    from change3d_tpu_torch import cli
+    from change3d_tpu_torch.ops import fused_block as fb
+    from change3d_tpu_torch.train import caption_loop
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    if spec["npy_reader"]:
+        caption_loop.CaptionDataset = npy_caption_dataset()
+    runs = []
+    for argv in spec["runs"]:
+        reset_counts(fb)
+        t0 = time.perf_counter()
+        result = cli.main(argv)
+        torch.cuda.synchronize()
+        runs.append({"result": result, "launches": fused_counts(fb),
+                     "seconds": time.perf_counter() - t0})
+    info = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+            "rank": dist.get_rank(), "device": torch.cuda.current_device(), "runs": runs}
+    dist.destroy_process_group()
+    with open(spec["out"], "w") as f:
+        json.dump(info, f)
+    return 0
+
+
+def start_ranks(tmp, name, argv, n, npy_reader):
+    """``n`` processes of this script's ``--rank-worker``, process i running
+    ``argv`` and then ``argv --resume`` as process i of n over NCCL."""
+    port = free_port()
+    procs = []
+    for i in range(n):
+        flags = ["--coordinator_address", f"127.0.0.1:{port}", "--num_processes", str(n),
+                 "--process_id", str(i)]
+        spec = {"runs": [argv + flags, argv + flags + ["--resume"]], "npy_reader": npy_reader,
+                "out": os.path.join(tmp, f"{name}-{i}.json")}
+        spec_path = os.path.join(tmp, f"{name}-{i}.spec.json")
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        log = open(os.path.join(tmp, f"{name}-{i}.log"), "w")
+        procs.append((subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                        "--rank-worker", spec_path],
+                                       cwd=os.path.dirname(os.path.abspath(__file__)),
+                                       stdout=log, stderr=subprocess.STDOUT), log, spec["out"]))
+    return procs
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def wait_ranks(procs, deadline):
+    """Every process's info; raises (with the end of its log) if one fails
+    or outlives ``deadline`` (every process is stopped first)."""
+    failed = []
+    for proc, log, _ in procs:
+        try:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            failed.append(log.name)
+        else:
+            if proc.returncode != 0:
+                failed.append(log.name)
+    for proc, log, _ in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    if failed:
+        tails = []
+        for name in failed:
+            with open(name) as f:
+                tails.append(f"{name}:\n" + "".join(f.readlines()[-30:]))
+        raise AssertionError("phase 12 processes failed or hung:\n" + "\n".join(tails))
+    infos = []
+    for _, _, out in procs:
+        with open(out) as f:
+            infos.append(json.load(f))
+    return infos
+
+
+def phase_multi_gpu(fb, dev, seed, tmp, bcd_root, cc_root):
+    """``cli bcd`` and ``cli cc`` as N = torch.cuda.device_count()
+    processes, one per card, over NCCL (this script's ``--rank-worker``),
+    the N of one task at once: phase 9's layouts at 256², bf16 BCD at batch
+    16 and fp32 CC at batch 32 (global), two epochs, then ``--resume``. Each
+    process: NCCL up with world N on card i, (37 + 18) fused launches per
+    validation forward (2 forwards) and 1 for the resumed run's
+    re-evaluation, (51 + 25) per CC evaluation (3, then 1), every
+    process's report equal, resumed at step 4. Then a ``shard=True``
+    Predictor over every card against the single-device one on the same
+    per-card slices: masks equal, (37 + 18) launches per card per batch."""
+    from change3d_tpu_torch.inference import Predictor
+    from change3d_tpu_torch.models.trainer import Change3D, Task
+
+    t0 = time.perf_counter()
+    n = torch.cuda.device_count()
+    try:
+        import h5py  # noqa: F401
+        npy_reader = False
+    except ImportError:
+        npy_reader = True
+    bcd_argv = ["bcd", "--file_root", bcd_root, "--save_dir", os.path.join(tmp, "mg_bcd"),
+                "--max_epochs", "2", "--compute_dtype", "bfloat16", "--num_workers", "4",
+                "--seed", str(seed)]
+    cc_argv = ["cc", "--file_root", cc_root, "--dataset", "SYNTH", "--save_dir",
+               os.path.join(tmp, "mg_cc"), "--epochs", "2", "--num_workers", "4",
+               "--seed", str(seed)]
+    torch.cuda.empty_cache()
+    parent_gb = torch.cuda.memory_reserved() / 1e9
+    # One task at a time: CC's fp32 step alone peaks near 53 GB per card.
+    infos = []
+    for name, argv in (("mg_bcd", bcd_argv), ("mg_cc", cc_argv)):
+        infos += wait_ranks(start_ranks(tmp, name, argv, n, npy_reader),
+                            time.monotonic() + MULTI_GPU_TIMEOUT)
+    stats = {"processes": n, "parent_reserved_gb": parent_gb,
+             "reader": "in-memory .npy stand-in for CaptionDataset"
+             if npy_reader else "CaptionDataset (HDF5)"}
+    for name, forwards, per in (("bcd", (2, 1), (37, 18)), ("cc", (3, 1), (51, 25))):
+        mine = infos[:n] if name == "bcd" else infos[n:]
+        for i, info in enumerate(mine):
+            if (info["backend"], info["world"], info["rank"], info["device"]) != (
+                    "nccl", n, i, i % n):
+                raise AssertionError(f"{name} process {i}: {info['backend']} world "
+                                     f"{info['world']} rank {info['rank']} card {info['device']}")
+            for run, k in zip(info["runs"], forwards):
+                if run["launches"] != want_counts(k, per):
+                    raise AssertionError(f"{name} process {i} launches {run['launches']}, want "
+                                         f"{want_counts(k, per)}")
+            if info["runs"][0]["result"].get("steps") != 4 or \
+                    info["runs"][1]["result"]["resumed_from_step"] != 4:
+                raise AssertionError(f"{name} process {i}: {info['runs']}")
+            for run, first in zip(info["runs"], mine[0]["runs"]):
+                if run["result"] != first["result"]:
+                    raise AssertionError(f"{name} process {i} reports {run['result']}, "
+                                         f"process 0 {first['result']}")
+        stats[name] = {"launches": [info["runs"][0]["launches"] for info in mine],
+                       "resume_launches": [info["runs"][1]["launches"] for info in mine],
+                       "seconds": [info["runs"][0]["seconds"] for info in mine],
+                       "test_best": mine[0]["runs"][0]["result"]["test_best"]}
+
+    model = Change3D(Task.BCD, device=dev, seed=seed)
+    single = Predictor(model, device=dev)
+    sharded = Predictor(Change3D(Task.BCD, device=dev, seed=seed), shard=True)
+    if sharded.batch_divisor != n or len(sharded.replicas) != n:
+        raise AssertionError(f"shard=True holds {len(sharded.replicas)} replicas, want {n}")
+    k = SHARD_PAIRS_PER_CARD
+    pre, post, _ = synthetic_pairs(np.random.RandomState(seed + 12), k * n, 256)
+    # One card on the same slices: at another batch the bf16 convs may take
+    # other algorithms and flip a pixel at the threshold.
+    parts = [single.predict_u8(pre[i * k:(i + 1) * k], post[i * k:(i + 1) * k]) for i in range(n)]
+    want = {key: np.concatenate([p[key] for p in parts]) for key in parts[0]}
+    reset_counts(fb)
+    got = sharded.predict_u8(pre, post)
+    for d in sharded.devices:
+        torch.cuda.synchronize(d)
+    launches = fused_counts(fb)
+    if launches != want_counts(n):
+        raise AssertionError(f"sharded predictor launches {launches}, want {want_counts(n)}")
+    if not all(np.array_equal(got[key], want[key]) for key in want):
+        raise AssertionError("the sharded predictor's masks differ from the single device's")
+    stats["shard"] = {"cards": n, "batch": k * n, "launches": launches, "masks_equal": True}
+    stats["seconds"] = time.perf_counter() - t0
+    print(f"multi-GPU ({n} process(es), NCCL, {stats['reader']}): {json.dumps(stats)}",
+          flush=True)
+    return stats
+
+
 def pairs_per_s(pred, pairs, batch, rounds=3):
     """End to end: uint8 host arrays in, masks and class maps out, host clock."""
     torch.cuda.synchronize()
@@ -1748,12 +1945,40 @@ def per_forward(rows, kernel, t, batch, launches="launches_per_forward"):
             "launches_per_forward": sum(r[launches] for r in mine)}
 
 
+def multi_gpu_only(fb, dev, args, card) -> int:
+    """``--multi-gpu-only``: phase 12 on freshly written 256² layouts (as
+    phase 9 writes them), details to ``{args.out}`` with ``_multi_gpu``
+    before its extension."""
+    try:
+        import h5py
+    except ImportError:
+        h5py = None
+    with tempfile.TemporaryDirectory() as tmp:
+        bcd_root, cc_root = os.path.join(tmp, "bcd"), os.path.join(tmp, "cc")
+        write_layout(bcd_root, np.random.RandomState(args.seed + 3), "bcd", 32, 16, 256)
+        write_cc_layout(cc_root, np.random.RandomState(args.seed + 9), 13, 8, 256, h5py)
+        stats = phase_multi_gpu(fb, dev, args.seed, tmp, bcd_root, cc_root)
+    out = os.path.splitext(args.out)[0] + "_multi_gpu.json"
+    if os.path.dirname(out):
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out, "w") as f:
+        json.dump({"card": card, "multi_gpu": stats}, f, indent=1)
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=8, help="pairs per forward for the timings")
     ap.add_argument("--batches", type=int, default=3, help="forwards in the launch-count run")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=os.path.join("chiprun_out", "chip_smoke.json"))
+    ap.add_argument("--multi-gpu-only", action="store_true",
+                    help="build the kernels and run phase 12 alone, on every card")
+    ap.add_argument("--rank-worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1761,6 +1986,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.rank_worker:
+        return rank_worker(args.rank_worker)
     from change3d_tpu_torch.device import resolve_device
     from change3d_tpu_torch.inference import Predictor
     from change3d_tpu_torch.models.trainer import Change3D, Task
@@ -1782,6 +2009,8 @@ def main(argv=None) -> int:
     print(f"build: {sorted(cuda_build.SIGNATURES)} in {time.perf_counter() - t0:.1f} s", flush=True)
     card = card_line()
     print(f"card: {card}", flush=True)
+    if args.multi_gpu_only:
+        return multi_gpu_only(fb, dev, args, card)
 
     seeds = list(range(args.seed, args.seed + KERNEL_SEEDS))
     worst = phase_kernels(fb, dev, seeds, args.batch)
@@ -1834,8 +2063,11 @@ def main(argv=None) -> int:
         export = phase_export(fb, dev, args.seed, deploy_dir, loops["bcd"][1], loops["cc"][1],
                               card)
         export["seconds"] = time.perf_counter() - t0
+        multi_gpu = phase_multi_gpu(fb, dev, args.seed, deploy_dir,
+                                    loops["bcd"][1]["file_root"], loops["cc"][1]["file_root"])
     print(f"deploy phase: {deploy['seconds']:.1f} s", flush=True)
     print(f"export phase: {export['seconds']:.1f} s", flush=True)
+    print(f"multi-GPU phase: {multi_gpu['seconds']:.1f} s", flush=True)
     print(f"kernels vs plain versions, worst over every check: {json.dumps(worst)}", flush=True)
     for task in TASKS:
         runs, fwd_ms = times[task]
@@ -1878,6 +2110,10 @@ def main(argv=None) -> int:
                 **{f"cc_artifact_beam{k}": export["cc"][str(k)]["launches"][kernel]
                    for k in EXPORT_BEAMS},
                 "served_artifact_batches": export["served"]["launches"][kernel]},
+            "launches_multi_gpu": {
+                "cli_bcd_per_process": [c[kernel] for c in multi_gpu["bcd"]["launches"]],
+                "cli_cc_per_process": [c[kernel] for c in multi_gpu["cc"]["launches"]],
+                "shard_predictor_batch": multi_gpu["shard"]["launches"][kernel]},
             "max_abs_err": worst_of("bfloat16", "max_abs_err"),
             "limit_used": worst_of("bfloat16", "limit_used"),
             "max_abs_err_fp32": worst_of("float32", "max_abs_err"),
@@ -1910,7 +2146,8 @@ def main(argv=None) -> int:
               "pairs_per_s": {task: times[task][0] for task in TASKS},
               "forward_ms": {task: times[task][1] for task in TASKS},
               "forward_check": forward_check, "cc_times": cc_times, "rows": rows,
-              "kernels": kernels, "train": train, "deploy": deploy, "export": export}
+              "kernels": kernels, "train": train, "deploy": deploy, "export": export,
+              "multi_gpu": multi_gpu}
     if os.path.dirname(args.out):
         os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:

@@ -216,9 +216,14 @@ def test_cli_cc_defaults_and_refusals(data_root, tmp_path, capsys):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main(["cc", "--file_root", data_root, "--dataset", "DS",
                       "--save_dir", str(tmp_path / "x")])
-    for flag, reason in (("--num_processes", "multi-GPU"), ("--coordinator_address", "multi-GPU"),
-                         ("--loader", "grain"), ("--remat", "memory")):
+    for flag, reason in (("--loader", "grain"), ("--remat", "memory")):
         with pytest.raises(SystemExit):
             cli.main(["cc", "--file_root", data_root, flag, "x"])
         err = capsys.readouterr().err
         assert f"{flag} is not ported yet" in err and reason in err
+    # The multi-process flags are ported: they parse.
+    args = cli.build_parser().parse_args(["cc", "--file_root", "r", "--coordinator_address",
+                                          "127.0.0.1:1", "--num_processes", "2",
+                                          "--process_id", "0"])
+    assert (args.coordinator_address, args.num_processes, args.process_id) == (
+        "127.0.0.1:1", 2, 0)

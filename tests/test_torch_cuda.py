@@ -467,3 +467,55 @@ def test_cpu_exported_artifacts_run_the_kernels_on_the_card(cuda):
     want_tokens, want_scores = live.caption_device(pre, post)
     assert torch.equal(tokens.long(), want_tokens)
     torch.testing.assert_close(scores, want_scores, rtol=1e-5, atol=0)
+
+
+@pytest.fixture
+def two_cards(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs (a launch on the second card from the first)")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_kernels_launch_on_their_tensors_card(two_cards, dtype):
+    """Operands on card 1 from a process whose current card is 0: each
+    wrapper launches on card 1 and agrees with the plain version there."""
+    first, second = two_cards
+    torch.cuda.set_device(first)
+    ops, se = _operands(0, second, dtype, *SHAPES["ragged"], True)
+    got = fb.fused_bottleneck_block(*ops, se)
+    x, w, xd = repros.repro_operands(0, second)
+    got_dot, got_dma = repros.dot_1d(x, w), repros.manual_dma(xd)
+    torch.cuda.synchronize(second)
+    assert torch.cuda.current_device() == 0
+    assert got.device == got_dot.device == got_dma.device == second
+    tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(got.float(), fb.fused_block_reference(*ops, se).float(), **tol)
+    assert repros.bf16_ulps_used(got_dot, repros.dot_1d_reference(x, w)) <= 1.0
+    assert torch.equal(got_dma, repros.manual_dma_reference(xd))
+
+
+def test_sharded_predictor_spreads_over_every_card(two_cards):
+    """``Predictor(shard=True)`` over every card: one replica and one
+    (37 + 18)-launch forward per card, masks equal to one card's on the
+    same slices."""
+    from change3d_tpu_torch.inference import Predictor
+    from change3d_tpu_torch.models.trainer import Change3D, Task
+
+    n = torch.cuda.device_count()
+    one = Predictor(Change3D(Task.BCD, in_height=64, in_width=64, device="cuda:0", seed=0))
+    all_cards = Predictor(Change3D(Task.BCD, in_height=64, in_width=64, device="cuda:0", seed=0),
+                          shard=True)
+    assert all_cards.devices == [torch.device("cuda", i) for i in range(n)]
+    rs = np.random.RandomState(0)
+    pre, post = (rs.randint(0, 256, (2 * n, 64, 64, 3)).astype(np.uint8) for _ in range(2))
+    # One card on the same slices of 2 (another batch may take other conv
+    # algorithms in bf16).
+    parts = [one.predict_u8(pre[i:i + 2], post[i:i + 2]) for i in range(0, 2 * n, 2)]
+    want = {key: np.concatenate([p[key] for p in parts]) for key in parts[0]}
+    before = (fb.fused_block_fwd.launches, fb.fused_block_se_sums.launches)
+    got = all_cards.predict_u8(pre, post)
+    after = (fb.fused_block_fwd.launches, fb.fused_block_se_sums.launches)
+    assert (after[0] - before[0], after[1] - before[1]) == (37 * n, 18 * n)
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)

@@ -203,8 +203,6 @@ def test_pretrained_starts_training_from_the_kinetics_backbone(data_root, tmp_pa
 
 def test_refused_flags_name_their_slice(capsys):
     cases = [
-        (["predict", "--model_task", "bcd", "--checkpoint", "c", "--file_root", "f", "--out",
-          "o", "--shard"], "multi-GPU"),
         (["eval", "--model_task", "bcd", "--checkpoint", "c", "--file_root", "f",
           "--quantized"], "int8"),
         (["eval", "--model_task", "bcd", "--checkpoint", "c", "--file_root", "f",
@@ -215,7 +213,8 @@ def test_refused_flags_name_their_slice(capsys):
         (["export", "--model_task", "bcd", "--checkpoint", "c", "--out", "x", "--platforms",
           "cpu,tpu"], "--device"),
         (["bcd", "--file_root", "r", "--loader", "grain"], "grain"),
-        (["bcd", "--file_root", "r", "--num_processes", "2"], "multi-GPU"),
+        (["bcd", "--file_root", "r", "--remat"], "rematerialisation"),
+        (["cc", "--file_root", "r", "--loader", "grain"], "grain"),
         (["info", "--model_task", "bcd", "--platform", "cpu"], "--device"),
     ]
     for argv, reason in cases:
@@ -223,6 +222,15 @@ def test_refused_flags_name_their_slice(capsys):
             cli.main(argv)
         err = capsys.readouterr().err
         assert "is not ported yet" in err and reason in err, (argv, err)
+    # The multi-GPU flags are ported: they parse (and --shard is refused
+    # only beside --artifact, tests/test_torch_parallel_predict.py).
+    parser = cli.build_parser()
+    assert parser.parse_args(["predict", "--model_task", "bcd", "--checkpoint", "c",
+                              "--file_root", "f", "--out", "o", "--shard"]).shard
+    assert parser.parse_args(["serve", "--model_task", "bcd", "--checkpoint", "c",
+                              "--shard"]).shard
+    assert parser.parse_args(["bcd", "--file_root", "r", "--num_processes", "2"]
+                             ).num_processes == 2
     # --fused is accepted and changes nothing: evaluation always runs fused.
     args = cli.build_parser().parse_args(["eval", "--model_task", "bcd", "--checkpoint", "c",
                                           "--file_root", "f", "--fused"])

@@ -143,10 +143,16 @@ def test_cli_defaults_follow_the_jax_cli(task, tmp_path, capsys):
     assert args.device == "cuda" and args.compute_dtype == "bfloat16"
     assert cli.build_parser().parse_args([task, "--file_root", "r", "--num_class", "7"]
                                          ).num_classes == 7
-    for flag in ("--coordinator_address", "--packed", "--remat", "--loader"):
+    for flag in ("--packed", "--remat", "--loader"):
         with pytest.raises(SystemExit):
             cli.main([task, "--file_root", "r", flag, "x"])
         assert f"{flag} is not ported yet" in capsys.readouterr().err
+    # The multi-process flags are ported: they parse.
+    args = cli.build_parser().parse_args([task, "--file_root", "r", "--coordinator_address",
+                                          "127.0.0.1:1", "--num_processes", "2",
+                                          "--process_id", "1"])
+    assert (args.coordinator_address, args.num_processes, args.process_id) == (
+        "127.0.0.1:1", 2, 1)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main([task, "--file_root", str(tmp_path), "--save_dir", str(tmp_path / "x")])
