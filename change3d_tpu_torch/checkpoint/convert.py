@@ -1,9 +1,11 @@
 """Weight bridges into this port's state_dict: from the JAX package's
 variables, and from the reference's torch checkpoints (below).
 
-``from_jax_variables`` takes the ``{'params', 'batch_stats'}`` tree of a
-``change3d_tpu`` Change3D (or bare X3D) as numpy arrays and returns the
-state_dict of the matching port module. It un-stacks the scan layout
+``from_jax_variables`` takes the ``{'params', 'batch_stats'[, 'quant']}``
+tree of a ``change3d_tpu`` Change3D (or bare X3D) as numpy arrays and
+returns the state_dict of the matching port module; a 'quant' collection
+(calibrated int8 ranges) gives the ``...bottleneck.amax_{a,c}`` buffers,
+which ``inference.set_quant_scales`` loads. It un-stacks the scan layout
 (``stageK/pairs/{a,b}`` carry a leading axis: a[p] is block 2p+1, b[p] block
 2p+2; a trailing odd block stays ``block{depth-1}``) and transposes conv
 kernels to the port's layouts:
@@ -64,14 +66,15 @@ def _convert_leaf(path, v: np.ndarray) -> np.ndarray:
 
 
 def from_jax_variables(variables: Mapping, cfg: Optional[X3DConfig] = None) -> Dict[str, torch.Tensor]:
-    """JAX ``{'params', 'batch_stats'}`` (numpy leaves) -> port state_dict.
+    """JAX ``{'params', 'batch_stats'[, 'quant']}`` (numpy leaves) -> port
+    state_dict (with the ``amax_*`` ranges of a 'quant' collection).
 
     Raises if a stage present in the tree does not hold exactly
     ``cfg.stage_depths`` blocks."""
     cfg = cfg or x3d_l_config()
     out: Dict[str, torch.Tensor] = {}
     blocks: Dict[str, set] = {}
-    for collection in ("params", "batch_stats"):
+    for collection in ("params", "batch_stats", "quant"):
         for path, value in _walk(variables.get(collection, {})):
             if "head" in path:
                 continue

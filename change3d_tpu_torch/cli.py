@@ -9,7 +9,9 @@ backbone from Kinetics; ``--resume`` resumes):
   python -m change3d_tpu_torch.cli bda --file_root DATA --save_dir EXP  # xBD, 5 classes, batch 12
   python -m change3d_tpu_torch.cli cc  --file_root DATA --save_dir EXP  # LEVIR-CC, batch 32, fp32
 
-``--profile_dir DIR`` traces training steps 10-14 with torch.profiler.
+``--profile_dir DIR`` traces training steps 10-14 with torch.profiler;
+``--remat`` recomputes the backbone's block pairs in the backward (off by
+default, unlike the JAX CLI: the card holds the default steps without it).
 
 Multi-GPU training, one process per card (N commands, i = 0 .. N-1; on the
 CPU add ``--device cpu`` and the processes use gloo)::
@@ -30,14 +32,19 @@ from ``convert-reference``):
   python -m change3d_tpu_torch.cli export  --model_task bcd --checkpoint RUN --out bcd.pt2 [--batch 8]
   python -m change3d_tpu_torch.cli serve   --model_task bcd --artifact bcd.pt2
   python -m change3d_tpu_torch.cli info    --model_task bcd
+  python -m change3d_tpu_torch.cli predict --model_task bcd ... --quantized [--quant_mode static]
   python -m change3d_tpu_torch.cli convert-reference --model_task bcd --torch_checkpoint best_model.pth --out RUN
   python -m change3d_tpu_torch.cli verify-checkpoint --pretrained X3D_L.pyth [--trace ref_acts.npz]
 
 Every subcommand runs on the card (``--device cuda``, the default; it
 raises without one) unless given ``--device cpu``, which runs the plain
 PyTorch versions on the host; nothing falls back from one to the other. The
-defaults are the JAX CLI's. Flags of the JAX CLI that belong to later
-slices are refused with the reason.
+defaults are the JAX CLI's (but ``--remat``). ``predict``, ``eval`` and
+``export`` take ``--quantized`` (int8 pointwise convs, fusion off) with
+``--quant_mode dynamic`` or ``static`` (ranges calibrated on
+``--calib_batches`` train batches; cc takes dynamic only), ``serve`` takes
+``--quantized``. Flags of the JAX CLI that belong to later slices are
+refused with the reason.
 """
 
 from __future__ import annotations
@@ -51,12 +58,9 @@ import sys
 from change3d_tpu_torch.train.caption_loop import CaptionRunConfig, run_caption_training
 from change3d_tpu_torch.train.loop import RunConfig, run_detection_training
 
-_INT8 = "int8 quantisation arrives with the int8 slice"
 _PACKED = "time-packed execution is never ported (the port holds the unpacked path)"
 _FUSED_HELP = "accepted and without effect: evaluation always runs the fused CUDA blocks"
 _NOT_PORTED = {
-    "--remat": "activation rematerialisation is not ported",
-    "--no-remat": "activation rematerialisation is not ported",
     "--packed": _PACKED,
     "--no-packed": _PACKED,
     "--loader": "only the threaded loader is ported (the grain loader is not)",
@@ -74,9 +78,6 @@ _HELP = {"bcd": "binary change detection", "scd": "semantic change detection",
 _NUM_CLASS = {"bcd": 1, "scd": 6, "bda": 5, "cc": 1}
 _CC_IGNORED = "the JAX CLI accepts it for cc and ignores it; drop the flag"
 _CC_NOT_PORTED = {
-    "--remat": "not needed: CC training at the defaults peaks well inside the card's memory "
-               "(PERF.md)",
-    "--no-remat": "activation rematerialisation is not ported",
     "--loader": _NOT_PORTED["--loader"],
     "--platform": _NOT_PORTED["--platform"],
     "--packed": _PACKED,
@@ -89,9 +90,6 @@ _CC_NOT_PORTED = {
 }
 # Flags of the JAX CLI's other subcommands that belong to later slices.
 _USE_NOT_PORTED = {
-    "--quantized": _INT8,
-    "--quant_mode": _INT8,
-    "--calib_batches": _INT8,
     "--packed": _PACKED,
     "--no-packed": _PACKED,
     "--platform": _NOT_PORTED["--platform"],
@@ -99,12 +97,11 @@ _USE_NOT_PORTED = {
 _EXPORT_NOT_PORTED = {
     "--platforms": "use --device; load_exported(device=...) moves an artifact",
     "--platform": "use --device; load_exported(device=...) moves an artifact",
-    "--quantized": _INT8,
-    "--quant_mode": _INT8,
-    "--calib_batches": _INT8,
-    "--calib_batch_size": _INT8,
 }
 _PROFILE_HELP = "write a torch.profiler trace of training steps 10-14 here"
+_CC_STATIC = {"predict": "cc predict supports dynamic int8 only",
+              "eval": "cc eval supports dynamic int8 only (static calibration is wired for the "
+                      "detection tasks)"}
 
 
 class _NotPorted(argparse.Action):
@@ -140,6 +137,19 @@ def _shard(p) -> None:
     p.add_argument("--shard", action="store_true",
                    help="spread each batch over every local card, one model replica per card "
                         "(the batch size must be a multiple of the card count)")
+
+
+def _quant(p, calibrates: bool = True) -> None:
+    """The JAX CLI's int8 flags (predict, eval, export; serve: --quantized)."""
+    p.add_argument("--quantized", action="store_true",
+                   help="int8 pointwise convs at eval (serving-grade approximate numerics; the "
+                        "fused blocks then stay off)")
+    if calibrates:
+        p.add_argument("--quant_mode", default="dynamic", choices=["dynamic", "static"],
+                       help="int8 activation scales: per sample on the fly, or ranges "
+                            "calibrated on train-split batches (detection tasks)")
+        p.add_argument("--calib_batches", type=int, default=8,
+                       help="train batches that calibrate --quant_mode static")
 
 
 def _cc_model_flags(p) -> None:
@@ -182,6 +192,9 @@ def _add_cc(sub) -> None:
     p.add_argument("--fused", action="store_true", help=_FUSED_HELP)
     p.add_argument("--compute_dtype", default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--profile_dir", default=None, help=_PROFILE_HELP)
+    p.add_argument("--remat", action=argparse.BooleanOptionalAction, default=False,
+                   help="accepted and without effect, as in the JAX CLI (its caption loop "
+                        "never reads it)")
     _device(p)
     _processes(p)
     _refuse(p, _CC_NOT_PORTED)
@@ -208,6 +221,10 @@ def _add_train(sub) -> None:
         p.add_argument("--max_steps", type=int, default=max_steps)
         p.add_argument("--compute_dtype", default="bfloat16", choices=["float32", "bfloat16"])
         p.add_argument("--profile_dir", default=None, help=_PROFILE_HELP)
+        p.add_argument("--remat", action=argparse.BooleanOptionalAction, default=False,
+                       help="recompute the backbone's block pairs in the backward (less "
+                            "memory, one more forward of them; off by default, unlike the JAX "
+                            "CLI, whose default-on was sized for a TPU's memory)")
         _device(p)
         _processes(p)
         if num_class is not None:
@@ -236,6 +253,7 @@ def _add_use(sub) -> None:
                    help="native-size scenes: slide the model's window over them and blend "
                         "the overlaps (detection tasks)")
     p.add_argument("--tile_overlap", type=int, default=32)
+    _quant(p)
     _cc_model_flags(p)
     _device(p)
     _shard(p)
@@ -258,6 +276,7 @@ def _add_use(sub) -> None:
     p.add_argument("--json", action="store_true", help="print the scores as JSON")
     p.add_argument("--save_json", action="store_true",
                    help="CC: also write res.json / gts.json into the run dir")
+    _quant(p)
     _cc_model_flags(p)
     _device(p)
     _refuse(p, _USE_NOT_PORTED)
@@ -290,6 +309,7 @@ def _add_use(sub) -> None:
                    help="skip running every bucket at start-up (the first request then "
                         "builds the kernels)")
     p.add_argument("--fused", action="store_true", help=_FUSED_HELP)
+    _quant(p, calibrates=False)
     _cc_model_flags(p)
     _device(p)
     _shard(p)
@@ -349,7 +369,11 @@ def _add_use(sub) -> None:
     p.add_argument("--in_width", type=int, default=256)
     p.add_argument("--batch", type=int, default=None,
                    help="pin the batch (default: symbolic, any batch)")
-    p.add_argument("--file_root", default=None, help="(cc) dataset root for the word map")
+    p.add_argument("--file_root", default=None,
+                   help="dataset root: (cc) for the word map, (--quant_mode static) for the "
+                        "train batches that calibrate")
+    _quant(p)
+    p.add_argument("--calib_batch_size", type=int, default=8)
     _cc_model_flags(p)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="the device to export on (cuda, the default, raises without a card); "
@@ -371,8 +395,36 @@ def _num_class(args) -> int:
 
 
 def _detection_config(args, **kw) -> RunConfig:
+    """The RunConfig of a detection subcommand, with its int8 flags."""
     return RunConfig(task=args.model_task, num_classes=_num_class(args),
-                     in_height=args.in_height, in_width=args.in_width, device=args.device, **kw)
+                     in_height=args.in_height, in_width=args.in_width, device=args.device,
+                     quantized=getattr(args, "quantized", False),
+                     quant_mode=getattr(args, "quant_mode", "dynamic"),
+                     calib_batches=getattr(args, "calib_batches", 8), **kw)
+
+
+def _detection_model(args, cfg: RunConfig):
+    """``cfg``'s model with the run's best weights; a static int8 model is
+    calibrated on ``cfg``'s train split."""
+    from change3d_tpu_torch.checkpoint.io import restore_best_state
+    from change3d_tpu_torch.train.loop import build_model, calibrate_from_train_split
+
+    model = build_model(cfg)
+    model.load_state_dict(restore_best_state(args.checkpoint))
+    if cfg.quantized and cfg.quant_mode == "static":
+        calibrate_from_train_split(cfg, model)
+    return model
+
+
+def _cc_backbone(args):
+    """CC's backbone config: X3D-L, int8 with --quantized (dynamic only)."""
+    from change3d_tpu_torch.models.x3d import x3d_l_config
+
+    if not getattr(args, "quantized", False):
+        return None
+    if getattr(args, "quant_mode", "dynamic") == "static":
+        raise SystemExit(_CC_STATIC[args.task])
+    return x3d_l_config(quantized_eval=True)
 
 
 def _caption_config(args, **kw) -> CaptionRunConfig:
@@ -401,12 +453,11 @@ def run_predict(args) -> int:
     from change3d_tpu_torch.data.transforms import eval_normalize, make_transform_pipelines
     from change3d_tpu_torch.inference import Predictor, TiledPredictor
     from change3d_tpu_torch.serving import masks_to_arrays
-    from change3d_tpu_torch.train.loop import build_model
 
     task = args.model_task
-    predictor = Predictor.from_checkpoint(build_model(_detection_config(args)), args.checkpoint,
-                                          compute_dtype=_compute_dtype(args), device=args.device,
-                                          shard=args.shard)
+    cfg = _detection_config(args, file_root=args.file_root, batch_size=args.batch_size)
+    predictor = Predictor(_detection_model(args, cfg), compute_dtype=_compute_dtype(args),
+                          device=args.device, shard=args.shard)
     os.makedirs(args.out, exist_ok=True)
     suffixes = {"bcd": {"change": ""}, "scd": {"pre": "_pre", "post": "_post",
                                                "change": "_change"},
@@ -456,10 +507,12 @@ def run_predict_captions(args) -> int:
         load_word_map,
     )
 
+    backbone = _cc_backbone(args)
     cfg = _caption_config(args)
     word_map = load_word_map(cfg)
     ds = _EveryFifth(CaptionDataset(args.file_root, args.dataset, args.split.upper()))
-    model = build_caption_model(cfg, len(word_map), in_size=ds.__getitem__(0)["pre"].shape[0])
+    model = build_caption_model(cfg, len(word_map), in_size=ds.__getitem__(0)["pre"].shape[0],
+                                backbone_cfg=backbone)
     predictor = CaptionPredictor.from_checkpoint(
         model, args.checkpoint, word_map=word_map, beam_size=args.beam_size,
         compute_dtype=_compute_dtype(args), device=args.device, shard=args.shard)
@@ -483,10 +536,12 @@ def run_eval(args) -> int:
     if args.model_task == "cc":
         from change3d_tpu_torch.train.caption_loop import run_caption_eval
 
+        backbone = _cc_backbone(args)
         cfg = _caption_config(args, eval_batch_size=args.batch_size,
                               num_workers=args.num_workers)
         scores = run_caption_eval(cfg, run_dir=args.checkpoint, split=args.split,
-                                  which=args.which, save_json=args.save_json)
+                                  which=args.which, save_json=args.save_json,
+                                  backbone_cfg=backbone)
     else:
         from change3d_tpu_torch.train.loop import run_detection_eval
 
@@ -512,32 +567,39 @@ def _cc_word_map(args):
     return cfg, load_word_map(cfg)
 
 
-def _cc_model(args, cfg, word_map):
+def _cc_model(args, cfg, word_map, backbone_cfg=None):
     """The CC model of ``args``' geometry (square inputs only)."""
     from change3d_tpu_torch.train.caption_loop import build_caption_model
 
     if args.in_width != args.in_height:
         raise SystemExit(f"cc {args.task}: the caption model is square "
                          "(--in_height = --in_width)")
-    return build_caption_model(cfg, len(word_map), in_size=args.in_height)
+    return build_caption_model(cfg, len(word_map), in_size=args.in_height,
+                               backbone_cfg=backbone_cfg)
 
 
 def run_export(args) -> int:
-    """A saved run -> one artifact (``export.py``), exported on --device."""
+    """A saved run -> one artifact (``export.py``), exported on --device;
+    ``--quantized --quant_mode static`` calibrates on ``--calib_batches``
+    train batches of ``--calib_batch_size`` and bakes the ranges in."""
     from change3d_tpu_torch.checkpoint.io import restore_best_state
-    from change3d_tpu_torch.export import export_caption_model, export_from_checkpoint
+    from change3d_tpu_torch.export import export_caption_model, export_model
 
     if args.model_task == "cc":
+        if args.quantized:
+            raise SystemExit("cc export: --quantized applies to the detection tasks (the JAX "
+                             "CLI ignores it for cc)")
         cfg, word_map = _cc_word_map(args)
         model = _cc_model(args, cfg, word_map)
         model.load_state_dict(restore_best_state(args.checkpoint))
         blob = export_caption_model(model, word_map, args.out, beam_size=args.beam_size,
                                     batch=args.batch)
     else:
-        from change3d_tpu_torch.train.loop import build_model
-
-        blob = export_from_checkpoint(build_model(_detection_config(args)), args.checkpoint,
-                                      args.out, batch=args.batch)
+        if args.quantized and args.quant_mode == "static" and not args.file_root:
+            raise SystemExit("static export needs --file_root for calibration")
+        cfg = _detection_config(args, file_root=args.file_root or "",
+                                batch_size=args.calib_batch_size, num_workers=2)
+        blob = export_model(_detection_model(args, cfg), args.out, batch=args.batch)
     print(f"exported {len(blob)} bytes to {args.out}", flush=True)
     return 0
 
@@ -555,15 +617,18 @@ def build_service(args):
     if args.shard and args.artifact:
         raise SystemExit("--shard applies to checkpoint-backed serving (artifacts bake their "
                          "own single-device program; export per device instead)")
+    if args.quantized and args.artifact:
+        raise SystemExit("--quantized applies to checkpoint-backed serving (an artifact is "
+                         "what it was exported as; export with --quantized instead)")
     if args.model_task == "cc":
         cfg, word_map = _cc_word_map(args)
         if args.artifact:
             predictor = CaptionArtifactPredictor(args.artifact, word_map, device=args.device)
         else:
             predictor = CaptionPredictor.from_checkpoint(
-                _cc_model(args, cfg, word_map), args.checkpoint, word_map=word_map,
-                beam_size=args.beam_size, compute_dtype=_compute_dtype(args),
-                device=args.device, shard=args.shard)
+                _cc_model(args, cfg, word_map, _cc_backbone(args)), args.checkpoint,
+                word_map=word_map, beam_size=args.beam_size,
+                compute_dtype=_compute_dtype(args), device=args.device, shard=args.shard)
     elif args.artifact:
         predictor = ArtifactPredictor(args.artifact, device=args.device)
     else:

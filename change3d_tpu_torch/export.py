@@ -10,6 +10,10 @@ trained Change3D forward as one self-contained ``torch.export`` artifact
   scores fp32 [B])``, with the beam width and special tokens baked in.
   Inputs are ImageNet-normalised floats; the word map travels separately.
 
+An int8 model (``quantized_eval``) exports its int8 weights, scales and
+calibrated ranges as constants and its products as ``aten._int_mm`` nodes,
+their padding static under a symbolic batch (``ops/quant.py``).
+
 The batch is symbolic (one artifact for every batch size) unless ``batch``
 pins it. Export runs in eval mode with gradients off, and the weights
 travel inside the file. The fused blocks are the custom ops
@@ -45,6 +49,7 @@ from change3d_tpu_torch.models.caption_decoder import (
     beam_search_loop,
     incremental_fns,
 )
+from change3d_tpu_torch.models.x3d import prepare_int8
 
 
 class _Forward(nn.Module):
@@ -94,6 +99,7 @@ def _export(wrapper: nn.Module, model: nn.Module, batch: Optional[int],
         dims = ({0: b}, {0: b})
     was_training = model.training
     model.eval()
+    prepare_int8(model)
     try:
         with torch.no_grad():
             program = torch.export.export(wrapper, tuple(x), dynamic_shapes=dims)

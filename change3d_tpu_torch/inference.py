@@ -26,6 +26,13 @@ results come back in order (counterpart of the JAX ``shard=True``). The
 batch must divide by ``batch_divisor``, the number of devices; eval BN is
 per sample, so the results are the single-device predictor's.
 
+A model built with ``quantized_eval`` runs its pointwise convs as int8
+products on the predictor's device (``ops/quant.py``; the fused kernels
+then stay off, as in JAX). ``quant_mode='static'`` needs calibrated ranges
+first: ``calibrate_quant_scales`` records them with an fp32 unfused forward
+(counterpart of the JAX function), ``quant_scales`` / ``set_quant_scales``
+read and load them, and a Predictor refuses a static model without them.
+
 ``ArtifactPredictor`` and ``CaptionArtifactPredictor`` serve an exported
 artifact (``export.py``) with the same ``predict`` / ``predict_probs`` /
 ``caption`` surface, on normalised float inputs; ``fixed_batch`` is the
@@ -52,6 +59,7 @@ from change3d_tpu_torch.models.caption_decoder import (
     incremental_fns,
 )
 from change3d_tpu_torch.models.trainer import Change3D
+from change3d_tpu_torch.models.x3d import X3DBottleneck, prepare_int8
 from change3d_tpu_torch.parallel.mesh import local_device_count
 
 _CLASS_KEYS = ("pre", "post", "cls")
@@ -69,6 +77,67 @@ def postprocess_probs(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
             val = e / e.sum(-1, keepdims=True)
         result[key] = val
     return result
+
+
+def _calibrated_sites(model: torch.nn.Module) -> List[Tuple[str, X3DBottleneck]]:
+    """(name, bottleneck) of every site with static ranges."""
+    return [(n, m) for n, m in model.named_modules()
+            if isinstance(m, X3DBottleneck) and m.quant_mode in ("calibrate", "static")]
+
+
+def quant_scales(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The model's int8 ranges: {'<bottleneck>.amax_a' / '.amax_c': fp32
+    scalar} (NaN before calibration), the keys ``from_jax_variables`` gives
+    a JAX 'quant' collection."""
+    return {f"{n}.amax_{site}": getattr(m, f"amax_{site}").detach().clone()
+            for n, m in _calibrated_sites(model) for site in ("a", "c")}
+
+
+@torch.no_grad()
+def set_quant_scales(model: torch.nn.Module, scales: Dict[str, torch.Tensor]) -> None:
+    """Load ranges (``quant_scales``' keys; every site of the model) into a
+    static model."""
+    missing = sorted(set(quant_scales(model)) - set(scales))
+    if missing:
+        raise KeyError(f"no range for {len(missing)} sites, e.g. {missing[0]}")
+    for n, m in _calibrated_sites(model):
+        for site in ("a", "c"):
+            getattr(m, f"amax_{site}").copy_(torch.as_tensor(scales[f"{n}.amax_{site}"]))
+
+
+@torch.no_grad()
+def calibrate_quant_scales(model: torch.nn.Module, batches) -> Dict[str, torch.Tensor]:
+    """Record the static int8 ranges of a model built with
+    ``quantized_eval`` and ``quant_mode`` 'static' (or 'calibrate'): an fp32
+    eval forward with fusion off over every (pre, post) pair of ``batches``
+    (numpy or tensors) on the model's device, each site keeping its running
+    max-abs from 0, as JAX's calibration pass does. The ranges stay in the
+    model and are returned (``quant_scales``)."""
+    sites = [m for _, m in _calibrated_sites(model)]
+    if not sites:
+        raise ValueError("calibrate_quant_scales needs a model built with quantized_eval and "
+                         "quant_mode 'static' or 'calibrate'")
+    device = next(model.parameters()).device
+    was_training, modes = model.training, [m.quant_mode for m in sites]
+    model.eval()
+    for m in sites:
+        m.quant_mode = "calibrate"
+        m.amax_a.zero_()
+        m.amax_c.zero_()
+    put = lambda a: torch.as_tensor(np.ascontiguousarray(a) if isinstance(a, np.ndarray) else a
+                                    ).to(device=device, dtype=torch.float32)
+    seen = 0
+    try:
+        for pre, post in batches:
+            model(put(pre), put(post))
+            seen += 1
+    finally:
+        for m, mode in zip(sites, modes):
+            m.quant_mode = mode
+        model.train(was_training)
+    if not seen:
+        raise ValueError("calibration saw no batches")
+    return quant_scales(model)
 
 
 class U8Launch(NamedTuple):
@@ -102,7 +171,9 @@ class Predictor:
         without a card unless ``device="cpu"``) with activations in
         ``compute_dtype``. ``devices`` (or ``shard=True``: every local card,
         or the CPU once for ``device="cpu"``) spreads each batch over one
-        replica per device; ``model`` is the first."""
+        replica per device; ``model`` is the first. An int8 model's weights
+        are quantised here; a static one needs its ranges
+        (``calibrate_quant_scales``)."""
         if devices is None:
             dev = resolve_device(device)
             devices = ([torch.device("cuda", i) for i in range(local_device_count())]
@@ -115,6 +186,7 @@ class Predictor:
                         if d.type == "cuda" and d.index is None else d for d in self.devices]
         self.device = self.devices[0]
         self.model = model.to(self.device).eval()
+        prepare_int8(self.model)
         self.replicas = [self.model] + [copy.deepcopy(self.model).to(d)
                                         for d in self.devices[1:]]
         # Every batch splits into equal slices over the devices; the server

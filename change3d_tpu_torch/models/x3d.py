@@ -9,6 +9,19 @@ With ``fused_inference`` (the default here) every stride-1, dim-preserving
 block runs at eval as the fused CUDA kernel (``ops/fused_block.py``); there
 is no shared-memory gate, since the kernel tiles any spatial size. The
 Kinetics classifier head is not ported: no Change3D task runs it.
+
+``quantized_eval`` runs each bottleneck's two pointwise convs at eval as
+int8 products (``ops/quant.py``) and turns fusion off, as in JAX; training
+ignores it. ``quant_mode``: 'dynamic' (per-sample scales), 'calibrate' (an
+fp32 pass recording each site's max-abs into ``amax_a`` / ``amax_c``) or
+'static' (the recorded ranges). The int8 weights are quantised once from
+the fp32 parameters and cached per module in non-persistent buffers,
+re-made when a parameter changes (its version or storage); ``amax_*`` are
+non-persistent too, so a quantised model loads an unquantised state_dict
+unchanged. ``remat`` recomputes each (non-SE, SE) block pair after block 0
+in the backward (``torch.utils.checkpoint``), as JAX's ``nn.remat`` of the
+scanned pairs does; BN's running statistics move once
+(``ops/norm.recomputing``).
 """
 
 from __future__ import annotations
@@ -19,8 +32,10 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from change3d_tpu_torch.init import torch_conv_kernel_init
+from change3d_tpu_torch.ops import quant
 from change3d_tpu_torch.ops.fused_block import fused_bottleneck_block
 from change3d_tpu_torch.ops.layers import (
     conv3d,
@@ -29,7 +44,7 @@ from change3d_tpu_torch.ops.layers import (
     squeeze_excite_3d,
     swish,
 )
-from change3d_tpu_torch.ops.norm import BatchNorm
+from change3d_tpu_torch.ops.norm import BatchNorm, recomputing
 
 
 def round_width(width, multiplier, min_width: int = 8, divisor: int = 8) -> int:
@@ -66,6 +81,12 @@ class X3DConfig:
     bn_eps: float = 1e-5
     # Run every stride-1, dim-preserving block at eval as the fused kernel.
     fused_inference: bool = True
+    # Recompute the block pairs in the backward (training memory).
+    remat: bool = False
+    # int8 pointwise convs at eval (fusion off): quant_mode 'dynamic',
+    # 'calibrate' or 'static'.
+    quantized_eval: bool = False
+    quant_mode: str = "dynamic"
 
     def se_reduced_dim(self, stage_idx: int) -> int:
         return round_width(self.stage_inner_dims[stage_idx], self.se_ratio)
@@ -145,9 +166,13 @@ class SqueezeExcite(nn.Module):
 
 class X3DBottleneck(nn.Module):
     """conv_a 1x1x1 -> BN/ReLU -> conv_b depthwise 3x3x3 (stride) -> BN ->
-    [SE] -> swish -> conv_c 1x1x1 -> BN."""
+    [SE] -> swish -> conv_c 1x1x1 -> BN. ``quant_mode`` (None: fp convs)
+    quantises conv_a and conv_c at eval."""
 
-    def __init__(self, dim_in, dim_inner, dim_out, stride, se_reduced_dim, eps, generator):
+    QUANT_MODES = ("dynamic", "calibrate", "static")
+
+    def __init__(self, dim_in, dim_inner, dim_out, stride, se_reduced_dim, eps, generator,
+                 quant_mode: Optional[str] = None):
         super().__init__()
         self.stride = tuple(stride)
         self.conv_a = nn.Parameter(torch_conv_kernel_init(generator, (dim_in, dim_inner), dim_in))
@@ -159,14 +184,53 @@ class X3DBottleneck(nn.Module):
         )
         self.conv_c = nn.Parameter(torch_conv_kernel_init(generator, (dim_inner, dim_out), dim_inner))
         self.bn_c = BatchNorm(dim_out, eps)
+        if quant_mode not in (None,) + self.QUANT_MODES:
+            raise ValueError(f"quant_mode {quant_mode!r}: one of {self.QUANT_MODES}")
+        self.quant_mode = quant_mode
+        self._int8_keys = {}
+        for site in ("a", "c") if quant_mode else ():
+            self.register_buffer(f"conv_{site}_q", torch.empty(0, dtype=torch.int8),
+                                 persistent=False)
+            self.register_buffer(f"conv_{site}_scale", torch.empty(0), persistent=False)
+            if quant_mode != "dynamic":
+                # NaN until calibrated: a static forward without ranges is NaN.
+                self.register_buffer(f"amax_{site}", torch.tensor(float("nan")),
+                                     persistent=False)
+
+    def int8_weight(self, site: str) -> quant.Int8Weight:
+        """conv_{site} quantised (``quant.prepare_weight``), re-made when the
+        parameter changed since; under torch.export the cached one as is."""
+        w = getattr(self, f"conv_{site}")
+        if not torch.compiler.is_compiling():
+            key = (w._version, w.data_ptr())
+            if self._int8_keys.get(site) != key:
+                prepared = quant.prepare_weight(w.detach())
+                setattr(self, f"conv_{site}_q", prepared.q)
+                setattr(self, f"conv_{site}_scale", prepared.scale)
+                self._int8_keys[site] = key
+        return quant.Int8Weight(getattr(self, f"conv_{site}_q"),
+                                getattr(self, f"conv_{site}_scale"), w.shape[1])
+
+    def _pointwise(self, x: torch.Tensor, site: str) -> torch.Tensor:
+        mode = None if self.training else self.quant_mode
+        w = getattr(self, f"conv_{site}")
+        if mode == "dynamic":
+            return quant.pointwise_conv3d_int8(x, self.int8_weight(site))
+        if mode == "static":
+            return quant.pointwise_conv3d_int8_static(x, self.int8_weight(site),
+                                                      getattr(self, f"amax_{site}"))
+        if mode == "calibrate":
+            amax = getattr(self, f"amax_{site}")
+            amax.copy_(torch.maximum(amax, quant.batch_amax(x)))
+        return pointwise_conv3d(x, w)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = torch.relu(self.bn_a(pointwise_conv3d(x, self.conv_a)))
+        x = torch.relu(self.bn_a(self._pointwise(x, "a")))
         x = self.bn_b(depthwise_conv3d(x, self.conv_b, stride=self.stride, padding=(1, 1, 1)))
         if self.se is not None:
             x = self.se(x)
         x = swish(x)
-        return self.bn_c(pointwise_conv3d(x, self.conv_c))
+        return self.bn_c(self._pointwise(x, "c"))
 
     def fused_residual(self, x: torch.Tensor) -> torch.Tensor:
         """relu(x + self(x)) as one fused block (eval, stride 1, dim-preserving)."""
@@ -180,6 +244,19 @@ class X3DBottleneck(nn.Module):
         )
 
 
+def prepare_int8(model: nn.Module) -> None:
+    """Quantise the weights of every int8 bottleneck of ``model`` now (a
+    trace such as torch.export uses the cached ones as they are); raises
+    on a static site without calibrated ranges."""
+    for name, m in model.named_modules():
+        if isinstance(m, X3DBottleneck) and m.quant_mode:
+            if m.quant_mode == "static" and bool(torch.isnan(m.amax_a) | torch.isnan(m.amax_c)):
+                raise ValueError(f"static quant_mode needs calibrated scales ({name} has none): "
+                                 "run calibrate_quant_scales(model, batches) first")
+            m.int8_weight("a")
+            m.int8_weight("c")
+
+
 class X3DResBlock(nn.Module):
     """relu(shortcut(x) + bottleneck(x)). The projection shortcut (strided
     1x1x1 conv, an [in, out] matrix) exists when dims differ or the block
@@ -189,16 +266,16 @@ class X3DResBlock(nn.Module):
                  generator):
         super().__init__()
         self.stride = tuple(stride)
-        self.fusable = (
-            cfg.fused_inference and self.stride == (1, 1, 1) and dim_in == dim_out
-        )
+        self.fusable = (cfg.fused_inference and not cfg.quantized_eval
+                        and self.stride == (1, 1, 1) and dim_in == dim_out)
         self.proj = self.proj_bn = None
         if dim_in != dim_out or any(s > 1 for s in self.stride):
             self.proj = nn.Parameter(torch_conv_kernel_init(generator, (dim_in, dim_out), dim_in))
             if dim_in != dim_out:
                 self.proj_bn = BatchNorm(dim_out, cfg.bn_eps)
         self.bottleneck = X3DBottleneck(
-            dim_in, dim_inner, dim_out, stride, se_reduced_dim, cfg.bn_eps, generator
+            dim_in, dim_inner, dim_out, stride, se_reduced_dim, cfg.bn_eps, generator,
+            quant_mode=cfg.quant_mode if cfg.quantized_eval else None,
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -215,7 +292,9 @@ class X3DResBlock(nn.Module):
 
 class X3DStage(nn.Module):
     """Res blocks ``block0 .. block{depth-1}``: stride and dim change on
-    block 0, SE on even-indexed blocks."""
+    block 0, SE on even-indexed blocks. With ``cfg.remat`` each pair
+    (block 2p+1, block 2p+2) is recomputed in the backward; block 0 and a
+    trailing odd block are not."""
 
     def __init__(self, cfg: X3DConfig, stage_idx: int, dim_in: int, generator):
         super().__init__()
@@ -225,6 +304,7 @@ class X3DStage(nn.Module):
             cfg.stage_temporal_stride[i], cfg.stage_spatial_stride[i], cfg.stage_spatial_stride[i]
         )
         self.depth = cfg.stage_depths[i]
+        self.remat = cfg.remat
         for b in range(self.depth):
             self.add_module(f"block{b}", X3DResBlock(
                 dim_in if b == 0 else dim_out, dim_inner, dim_out,
@@ -233,9 +313,19 @@ class X3DStage(nn.Module):
                 cfg, generator,
             ))
 
+    def _pair(self, x: torch.Tensor, b: int) -> torch.Tensor:
+        return getattr(self, f"block{b + 1}")(getattr(self, f"block{b}")(x))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for b in range(self.depth):
-            x = getattr(self, f"block{b}")(x)
+        b = 0
+        if self.remat and self.training and torch.is_grad_enabled():
+            x = self.block0(x)
+            for b in range(1, self.depth - 1, 2):
+                x = checkpoint(self._pair, x, b, use_reentrant=False,
+                               context_fn=recomputing.contexts)
+            b = self.depth - (self.depth - 1) % 2
+        for j in range(b, self.depth):
+            x = getattr(self, f"block{j}")(x)
         return x
 
 

@@ -18,18 +18,47 @@ count n (every process holds an equal slice, so n is the local count times
 the world size); the same formula follows, and the running statistics move
 identically on every process.
 
+Under ``recomputing`` (the recompute context that ``models/x3d.py`` gives
+``torch.utils.checkpoint`` for ``remat``) train mode computes the batch
+statistics again, collectives included, so every process issues the same
+all-reduces in the same order, but leaves the running statistics alone:
+they move once per step, as in JAX.
+
 ``F.batch_norm`` is not used: its variance rounds differently from the JAX
 formula this module is held to (and ``nn.SyncBatchNorm`` likewise).
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Tuple
 
 import torch
 from torch import nn
 
 from change3d_tpu_torch.parallel import distributed
+
+
+class _Recomputing(threading.local):
+    """Whether this thread is recomputing a checkpointed segment."""
+
+    active = False
+
+    @contextlib.contextmanager
+    def _during(self):
+        before, self.active = self.active, True
+        try:
+            yield
+        finally:
+            self.active = before
+
+    def contexts(self):
+        """``checkpoint``'s ``context_fn``: (forward, recompute) contexts."""
+        return contextlib.nullcontext(), self._during()
+
+
+recomputing = _Recomputing()
 
 
 class BatchNorm(nn.Module):
@@ -51,7 +80,8 @@ class BatchNorm(nn.Module):
         return a, self.bias.float() - self.mean.float() * a
 
     def _batch_stats(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """fp32 batch mean and biased variance; updates the running stats."""
+        """fp32 batch mean and biased variance; updates the running stats
+        (not when recomputing)."""
         x32 = x.float()
         dims = tuple(range(x.dim() - 1))
         n = x.numel() // x.shape[-1]
@@ -65,6 +95,8 @@ class BatchNorm(nn.Module):
                                                            x32.square().sum(dims)]))
             mean, mean_sq = sums[0] / n, sums[1] / n
         var = torch.clamp_min(mean_sq - mean.square(), 0.0)
+        if recomputing.active:
+            return mean, var
         with torch.no_grad():
             m = self.momentum
             self.mean.copy_((1.0 - m) * self.mean + m * mean)

@@ -248,12 +248,14 @@ class _EveryFifth:
 
 def run_caption_eval(cfg: CaptionRunConfig, run_dir: Optional[str] = None,
                      split: Optional[str] = None, which: str = "best",
-                     save_json: bool = False) -> Dict[str, float]:
+                     save_json: bool = False, backbone_cfg=None) -> Dict[str, float]:
     """Score a saved CC run on ``split`` (default ``cfg.eval_split``): its
     ``best`` or ``latest`` weights, one caption row per image, the fp32
     fused encoder and beam search at ``cfg.beam_size``, the caption metrics;
     with ``save_json`` res.json / gts.json go to the run dir. ``run_dir``
-    defaults to the training loop's ``{save_dir}/{dataset}_cc_lr_{lr}``."""
+    defaults to the training loop's ``{save_dir}/{dataset}_cc_lr_{lr}``.
+    ``backbone_cfg`` overrides X3D-L (e.g. ``quantized_eval``: the int8
+    encoder, dynamic, as the JAX eval takes it)."""
     resolve_device(cfg.device)
     cfg = _global_batch(cfg, "eval_batch_size")
     word_map = load_word_map(cfg)
@@ -263,7 +265,8 @@ def run_caption_eval(cfg: CaptionRunConfig, run_dir: Optional[str] = None,
         "threaded", data, cfg.eval_batch_size, shuffle=False, num_workers=cfg.num_workers,
         collate=caption_collate, pad_final=True,
     )
-    model = build_caption_model(cfg, len(word_map), in_size=data.__getitem__(0)["pre"].shape[0])
+    model = build_caption_model(cfg, len(word_map), in_size=data.__getitem__(0)["pre"].shape[0],
+                                backbone_cfg=backbone_cfg)
     model.load_state_dict(restore_run_state(run_dir, which))
     return evaluate_captions(model, loader, word_map, cfg.beam_size,
                              save_dir=run_dir if save_json else None)

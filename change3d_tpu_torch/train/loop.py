@@ -9,8 +9,13 @@ weights. Every step's loss adds into one device scalar, so the
 host syncs once per epoch (and on the progress line every 50 steps).
 
 ``pretrained`` starts the backbone from a Kinetics ``X3D_L.pyth``.
-``run_detection_eval`` scores a saved run (its best or latest weights) on
-any split through the same evaluation pass.
+``remat`` recomputes the backbone's block pairs in the backward (off by
+default here: the JAX CLI's default-on was sized for a TPU's memory, and the
+card holds the CLI-default step). ``run_detection_eval`` scores a saved run
+(its best or latest weights) on any split through the same evaluation pass;
+with ``quantized`` the backbone's pointwise convs run int8 (``quant_mode``
+'dynamic', or 'static' with ranges calibrated on the first ``calib_batches``
+train batches, ``calibrate_from_train_split``).
 
 SIGTERM is honoured between steps: the loop saves the full state (model,
 optimizer, step) and returns; ``--resume`` re-enters that epoch and skips
@@ -52,6 +57,7 @@ from change3d_tpu_torch.data.transforms import make_transform_pipelines
 from change3d_tpu_torch.device import resolve_device
 from change3d_tpu_torch.metrics.confusion import BDAMeter, BinaryChangeMeter, SCDMeter
 from change3d_tpu_torch.models.trainer import Change3D, Task
+from change3d_tpu_torch.models.x3d import X3DConfig, x3d_l_config
 from change3d_tpu_torch.parallel import distributed
 from change3d_tpu_torch.parallel.mesh import multiple_of_devices
 from change3d_tpu_torch.train.engine import eval_step, train_step
@@ -88,6 +94,10 @@ class RunConfig:
     device: str = "cuda"
     pretrained: Optional[str] = None  # a Kinetics X3D_L.pyth for the backbone
     profile_dir: Optional[str] = None  # a torch.profiler trace of steps 10-14
+    remat: bool = False  # recompute the block pairs in the backward
+    quantized: bool = False  # int8 pointwise convs at eval (ops/quant.py)
+    quant_mode: str = "dynamic"  # 'dynamic' or 'static' (calibrated ranges)
+    calib_batches: int = 8  # train batches that calibrate 'static'
 
 
 class PreemptionGuard:
@@ -150,13 +160,43 @@ class PreemptionGuard:
         return self.triggered
 
 
+def backbone_config(cfg: RunConfig, base: Optional[X3DConfig] = None) -> X3DConfig:
+    """``base`` (X3D-L) with ``cfg``'s remat and int8 settings."""
+    return dataclasses.replace(base or x3d_l_config(), remat=cfg.remat,
+                               quantized_eval=cfg.quantized, quant_mode=cfg.quant_mode)
+
+
 def build_model(cfg: RunConfig) -> Change3D:
     """The full-width X3D-L model of ``cfg.task`` with ``cfg.num_classes``
-    classes, initialised from a generator seeded with ``cfg.seed``, on
-    ``cfg.device``."""
+    classes (``backbone_config``), initialised from a generator seeded with
+    ``cfg.seed``, on ``cfg.device``."""
     return Change3D(Task(cfg.task), num_classes=cfg.num_classes, in_height=cfg.in_height,
-                    in_width=cfg.in_width, device=cfg.device,
-                    generator=torch.Generator().manual_seed(cfg.seed))
+                    in_width=cfg.in_width, backbone_cfg=backbone_config(cfg),
+                    device=cfg.device, generator=torch.Generator().manual_seed(cfg.seed))
+
+
+def calibrate_from_train_split(cfg: RunConfig, model: Change3D) -> Dict[str, torch.Tensor]:
+    """Static int8 ranges of ``model`` from its first ``cfg.calib_batches``
+    train batches (eval transform, ``cfg.batch_size``, unsharded, the last
+    batch ragged), as the JAX loop calibrates: never on the split being
+    scored. Returns ``inference.calibrate_quant_scales``' ranges, which are
+    now the model's."""
+    from change3d_tpu_torch.inference import calibrate_quant_scales
+
+    _, eval_tf = make_transform_pipelines(cfg.task, cfg.in_width, cfg.in_height)
+    loader = make_data_loader(
+        "threaded", DATASETS[cfg.task](cfg.file_root, "train", eval_tf), cfg.batch_size,
+        shuffle=False, num_workers=cfg.num_workers, collate=pair_collate, drop_last=False,
+        num_shards=1, shard_index=0,
+    )
+    batches = []
+    for i, batch in enumerate(loader):
+        if i >= cfg.calib_batches:
+            break
+        batches.append((batch["pre"], batch["post"]))
+    scales = calibrate_quant_scales(model, batches)
+    print(f"static int8: calibrated on {len(batches)} train batches", flush=True)
+    return scales
 
 
 def load_pretrained_backbone(model: torch.nn.Module, path: str) -> None:
@@ -215,6 +255,8 @@ def _check_config(cfg: RunConfig) -> RunConfig:
         raise ValueError(f"task {cfg.task!r}: one of {sorted(DATASETS)}")
     if cfg.compute_dtype not in _DTYPES:
         raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: one of {sorted(_DTYPES)}")
+    if cfg.quant_mode not in ("dynamic", "static"):
+        raise ValueError(f"quant_mode {cfg.quant_mode!r}: 'dynamic' or 'static'")
     return _global_batch(cfg, "batch_size")
 
 
@@ -237,8 +279,10 @@ def run_detection_eval(cfg: RunConfig, run_dir: Optional[str] = None, split: str
     """Score a saved run on ``split`` without training: its ``best`` or
     ``latest`` weights (``which``), the eval transform, ``cfg.batch_size``
     with the last batch padded and masked, ``cfg.compute_dtype``, every
-    stride-1 block fused on the card. ``run_dir`` defaults to the training
-    loop's ``{save_dir}/{dataset}_iter_{max_steps}_lr_{lr}``."""
+    stride-1 block fused on the card (int8 pointwise convs instead with
+    ``cfg.quantized``; 'static' calibrates on the train split first).
+    ``run_dir`` defaults to the training loop's
+    ``{save_dir}/{dataset}_iter_{max_steps}_lr_{lr}``."""
     cfg = _check_config(cfg)
     device = resolve_device(cfg.device)
     run_dir = run_dir or os.path.join(cfg.save_dir, f"{cfg.dataset}_iter_{cfg.max_steps}_lr_{cfg.lr}")
@@ -249,6 +293,8 @@ def run_detection_eval(cfg: RunConfig, run_dir: Optional[str] = None, split: str
     )
     model = build_model(cfg)
     model.load_state_dict(restore_run_state(run_dir, which))
+    if cfg.quantized and cfg.quant_mode == "static":
+        calibrate_from_train_split(cfg, model)
     return _evaluate_split(cfg, model, loader, device, _DTYPES[cfg.compute_dtype])
 
 

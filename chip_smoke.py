@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of change3d_tpu_torch on one NVIDIA GPU (built for the H100).
 
-    python3 chip_smoke.py [--batch 8] [--batches 3] [--seed 0] [--multi-gpu-only]
+    python3 chip_smoke.py [--batch 8] [--batches 3] [--seed 0] [--multi-gpu-only | --int8-only]
 
 Run from the repository root. Phases (any failure exits non-zero and prints
 no result line):
@@ -118,8 +118,32 @@ no result line):
    ``--resume`` at step 4 (one more evaluation forward each); then a
    ``shard=True`` Predictor over every card on SHARD_PAIRS_PER_CARD x N
    pairs against one card's on the same slices of SHARD_PAIRS_PER_CARD:
-   masks equal, (37 + 18) launches per card. Details under the ``multi_gpu`` key.
+   masks equal, (37 + 18) launches per card. Details under the ``multi_gpu`` key;
+13. int8 and remat (``phase_quant``), at full width, 256², bf16: for BCD,
+   SCD and BDA the int8 model (``quantized_eval``) with the fused model's
+   weights, dynamic and static (``calibrate_quant_scales`` on 8 seeded
+   batches of 4): ``predict_u8`` at --batch with the counts set to 0 just
+   before, exactly 0 + 0 fused launches and 80 int8 products
+   (``quant.int8_matmul``) per forward, the decisions of its bf16 maps
+   equal to the fused bf16 model's on >= 99.5% of the confident pixels,
+   and every product's shape held exactly against the fp64 product of the
+   same int8 operands (the padded K = 54 and 108 included); CC's
+   ``caption_u8`` with a dynamic int8 encoder at beam 1 (110 products);
+   ``cli predict --quantized --quant_mode static`` on phase 9's BCD run,
+   PNGs byte-equal to a direct static Predictor, and the ``cli export
+   --quantized --quant_mode static`` artifact (exported in a subprocess
+   meanwhile) with 80 ``aten._int_mm`` nodes and masks equal to that
+   Predictor's; then pairs/s and device ms of the fused, plain (unfused
+   bf16), dynamic and static forwards in turns, the int8 GEMM's share of a
+   forward (profiler), and the 80 int8 pointwise sites' ms split into the
+   product and the quantise / rescale passes beside bf16 matmuls;
+   then one BCD train step at batch 16 with and without remat from one
+   state: fp32 parity (loss and gradients 1e-5 relative in the 2-norm, BN
+   running stats 1e-6) and bf16 ms per step and peak memory, the remat
+   peak lower. Details under the ``quant`` key.
 
+``--int8-only`` builds the kernels, trains phase 9's ``cli bcd`` run and runs
+phase 13 on it, details beside ``--out`` as ``chip_smoke_int8.json``.
 ``--multi-gpu-only`` builds the kernels and runs phase 12 alone on freshly
 written layouts (the proof on several cards), its details beside ``--out``
 as ``chip_smoke_multi_gpu.json``.
@@ -1970,12 +1994,413 @@ def multi_gpu_only(fb, dev, args, card) -> int:
     return 0
 
 
+def int8_only(fb, dev, args, card) -> int:
+    """``--int8-only``: phase 9's ``cli bcd`` run, then phase 13 on it."""
+    with tempfile.TemporaryDirectory() as tmp:
+        _, bcd_loop = phase_train_loop(fb, args.seed, "bcd", keep=os.path.join(tmp, "bcd_loop"))
+        stats = phase_quant(fb, dev, args.seed, tmp, bcd_loop, card, args.batch)
+    out = os.path.splitext(args.out)[0] + "_int8.json"
+    if os.path.dirname(out):
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out, "w") as f:
+        json.dump({"card": card, "quant": stats}, f, indent=1)
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+# Phase 13: int8 products per forward (two per res-block: 40 blocks on the
+# detection paths, 55 with stage 4), the confident-pixel agreement an int8
+# model must reach with the fused bf16 one (the JAX tests' threshold), the
+# static calibration's batches, and the remat step's tolerances.
+INT8_PER_FORWARD = {"bcd": 80, "scd": 80, "bda": 80, "cc": 110}
+AGREE_MIN = 0.995
+CALIB_BATCHES, CALIB_BATCH = 8, 4
+REMAT_BATCH = 16
+# The CLI's static int8 runs calibrate on phase 9's two train batches.
+INT8_STATIC_FLAGS = ["--quantized", "--quant_mode", "static", "--calib_batches", "2"]
+
+
+def int8_counts(fb, quant):
+    return {**fused_counts(fb), "int8_matmul": quant.int8_matmul.launches}
+
+
+def reset_int8_counts(fb, quant):
+    reset_counts(fb)
+    quant.int8_matmul.launches = 0
+
+
+def confident_agreement(p_ref, p_got):
+    """(share of confident pixels, share of them where the decisions agree):
+    binary heads confident where |p - 0.5| > 0.05 (the JAX int8 tests'
+    margin), class maps where the top class leads the second by 0.1 (the
+    same margin for two classes); decisions thresholded and argmaxed."""
+    if p_ref.shape[-1] == 1:
+        conf = np.abs(p_ref[..., 0] - 0.5) > 0.05
+        agree = (p_ref[..., 0] > 0.5) == (p_got[..., 0] > 0.5)
+    else:
+        top = np.sort(p_ref, -1)
+        conf = top[..., -1] - top[..., -2] > 0.1
+        agree = p_ref.argmax(-1) == p_got.argmax(-1)
+    return float(conf.mean()), float(agree[conf].mean()) if conf.any() else float("nan")
+
+
+def int8_gemm_checks(quant, dev, seed, shapes):
+    """``int8_matmul`` at every (rows, K, N, rows per sample) of a forward
+    on random int8 operands, against the fp64 product of the same operands
+    on the card (exact: every partial sum is an integer below 2^53)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    checked = []
+    for m, k, n, per_sample in sorted(shapes):
+        xq = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+        w = quant.prepare_weight(torch.randn(k, n, generator=gen, device=dev))
+        got = quant.int8_matmul(xq, w, rows_per_sample=per_sample)
+        want = xq.double() @ w.q[:k, :n].double()
+        if got.dtype != torch.int32 or not torch.equal(got.double(), want):
+            raise AssertionError(f"int8_matmul at M={m} K={k} N={n} differs from the product")
+        checked.append([m, k, n])
+    return checked
+
+
+def remat_step(model, data, dtype):
+    """One train step (lr 2e-4): loss, gradients, BN running stats."""
+    from change3d_tpu_torch.train.engine import train_step
+    from change3d_tpu_torch.train.optim import torch_adam
+
+    opt = torch_adam(model.parameters(), weight_decay=1e-4)
+    loss = float(train_step(model, opt, lambda _: 2e-4, data, 0, compute_dtype=dtype)["loss"])
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    stats = {n: b.detach().clone() for n, b in model.named_buffers()
+             if n.endswith((".mean", ".var"))}
+    return loss, grads, stats
+
+
+def pointwise_site_ms(quant, dev, seed, sites):
+    """Over one BCD int8 forward's pointwise sites (``sites``: batch, rows
+    per sample, K, N of each, 80), on bf16 activations at those shapes:
+    summed CUDA-event ms of the dynamic int8 site (quantise, product,
+    rescale), of its int8 product alone, and of the bf16 matmul that the
+    unquantised plain path runs there; the quantise and rescale passes are
+    the difference of the first two."""
+    from change3d_tpu_torch.ops.layers import pointwise_conv3d
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {"sites": len(sites), "int8_site_ms": 0.0, "int8_gemm_ms": 0.0, "bf16_matmul_ms": 0.0}
+    for b, rows, k, n in sites:
+        x = torch.randn(b, rows, k, generator=gen, device=dev).to(torch.bfloat16)
+        w32 = torch.randn(k, n, generator=gen, device=dev)
+        w = quant.prepare_weight(w32)
+        xq = quant.quantize_act(x)[0].reshape(-1, k)
+        out["int8_site_ms"] += event_ms(lambda: quant.pointwise_conv3d_int8(x, w), 5)
+        out["int8_gemm_ms"] += event_ms(lambda: quant.int8_matmul(xq, w, rows_per_sample=rows), 5)
+        out["bf16_matmul_ms"] += event_ms(lambda: pointwise_conv3d(x, w32), 5)
+    out["quantise_rescale_ms"] = out["int8_site_ms"] - out["int8_gemm_ms"]
+    return out
+
+
+def remat_models(dev, seed, remats):
+    """BCD models at full width, one per remat flag, from one seeded state,
+    and a seeded batch of REMAT_BATCH 256² pairs on the card."""
+    from change3d_tpu_torch.models.trainer import Change3D, Task
+    from change3d_tpu_torch.models.x3d import x3d_l_config
+
+    data = train_batch(np.random.RandomState(seed + 21), REMAT_BATCH, 256, dev)
+    state = Change3D(Task.BCD, device=dev, seed=seed + 21).state_dict()
+    models = {}
+    for remat in remats:
+        models[remat] = Change3D(Task.BCD, backbone_cfg=x3d_l_config(remat=remat), device=dev)
+        models[remat].load_state_dict(state)
+    return models, data
+
+
+def remat_parity(dev, seed):
+    """One fp32 (TF32 off) BCD train step at batch 16, 256², with and without
+    remat from the same state: loss and gradients within 1e-5 relative in
+    the 2-norm, BN running stats within 1e-6 (moved once)."""
+    runs = {}
+    for remat in (False, True):
+        models, data = remat_models(dev, seed, (remat,))
+        runs[remat] = remat_step(models[remat], data, None)
+        del models, data
+        torch.cuda.empty_cache()
+    (loss, grads, bn), (loss_r, grads_r, bn_r) = runs[False], runs[True]
+    norm = lambda ts: math.sqrt(sum(float(t.double().norm()) ** 2 for t in ts))
+    grad_rel = norm(grads_r[k] - g for k, g in grads.items()) / norm(grads.values())
+    bn_err = max(float((bn_r[k] - v).abs().max()) for k, v in bn.items())
+    loss_rel = abs(loss_r - loss) / abs(loss)
+    if not (loss_rel <= 1e-5 and grad_rel <= 1e-5 and bn_err <= 1e-6
+            and grads.keys() == grads_r.keys()):
+        raise AssertionError(f"remat step: loss rel {loss_rel}, gradients rel {grad_rel}, "
+                             f"BN stats max |d| {bn_err}")
+    return {"fp32_loss_rel": loss_rel, "fp32_grad_rel_2norm": grad_rel,
+            "fp32_bn_stats_max_abs_err": bn_err, "batch": REMAT_BATCH}
+
+
+def remat_times(dev, seed, card):
+    """bf16 (the CLI's) BCD train steps at batch 16, 256², without and with
+    remat in turns: ms per step (CUDA events) and peak memory; the remat
+    peak must be the lower."""
+    from change3d_tpu_torch.train.engine import train_step
+    from change3d_tpu_torch.train.optim import torch_adam
+
+    models, data = remat_models(dev, seed, (False, True))
+    opts = {remat: torch_adam(m.parameters(), weight_decay=1e-4) for remat, m in models.items()}
+    step = lambda remat: train_step(models[remat], opts[remat], lambda _: 2e-4, data, 0,
+                                    compute_dtype=torch.bfloat16)
+    stats, times = {"card": card}, {False: [], True: []}
+    for remat in (False, True, True, False):
+        step(remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times[remat].append(event_ms(lambda: step(remat), 1))
+        stats[f"peak_gib_{'remat' if remat else 'plain'}"] = (torch.cuda.max_memory_allocated()
+                                                               / 2 ** 30)
+    stats["bf16_ms_per_step_plain"], stats["bf16_ms_per_step_remat"] = times[False], times[True]
+    if not stats["peak_gib_remat"] < stats["peak_gib_plain"]:
+        raise AssertionError(f"remat peak {stats['peak_gib_remat']} GiB is not below "
+                             f"{stats['peak_gib_plain']} GiB")
+    return stats
+
+
+def phase_quant(fb, dev, seed, tmp, bcd_loop, card, batch):
+    """int8 and remat on the card, at full X3D-L width, 256², bf16. A
+    ``cli export --quantized --quant_mode static`` of phase 9's BCD run
+    starts first, in a subprocess. Then, for BCD, SCD and BDA, the int8
+    model with the fused model's weights, dynamic and calibrated static:
+    ``predict_u8`` with the counts set to 0 just before (0 + 0 fused
+    launches, 80 int8 products per forward), the confident-pixel agreement
+    of its bf16 maps with the fused bf16 model's (>= AGREE_MIN), and every
+    int8 product's shape held exactly against the fp64 product; CC's
+    ``caption_u8`` with a dynamic int8 encoder at beam 1 (110 products);
+    ``cli predict --quantized --quant_mode static`` PNGs byte-equal to a
+    direct static Predictor; the remat step's fp32 parity; once the export
+    is done, the artifact's masks equal to that Predictor's; then, with
+    nothing else on the card, pairs/s and device ms of the int8 forwards
+    beside the fused and the plain (unfused) bf16 ones in turns, the int8
+    GEMM's share of a forward, the int8 pointwise sites' ms split into the
+    product and the quantise / rescale passes beside bf16 matmuls, and the
+    remat step's bf16 ms and peak memory in turns."""
+    t_start = time.perf_counter()
+    artifact = os.path.join(tmp, "bcd_int8_static.pt2")
+    export_job = start_cli(["export", "--model_task", "bcd", "--checkpoint", bcd_loop["run_dir"],
+                            "--out", artifact, "--file_root", bcd_loop["file_root"],
+                            "--calib_batch_size", str(TRAIN_BATCH["bcd"]), *INT8_STATIC_FLAGS],
+                           artifact + ".log")
+    try:
+        stats = quant_checks(fb, dev, seed, tmp, bcd_loop, card, batch, export_job, artifact)
+    finally:
+        if export_job.poll() is None:
+            export_job.kill()
+            export_job.wait()
+    stats["seconds"] = time.perf_counter() - t_start
+    print(f"int8 and remat phase: {stats['seconds']:.1f} s", flush=True)
+    return stats
+
+
+def quant_checks(fb, dev, seed, tmp, bcd_loop, card, batch, export_job, artifact):
+    """Phase 13's checks and times, beside the running ``export_job``."""
+    from change3d_tpu_torch import cli
+    from change3d_tpu_torch.data.datasets import DATASETS
+    from change3d_tpu_torch.data.pipeline import DataLoader, pair_collate
+    from change3d_tpu_torch.data.png import encode_png_bytes
+    from change3d_tpu_torch.data.transforms import make_transform_pipelines
+    from change3d_tpu_torch.export import load_exported
+    from change3d_tpu_torch.inference import CaptionPredictor, Predictor, calibrate_quant_scales
+    from change3d_tpu_torch.models.trainer import Change3D, Task
+    from change3d_tpu_torch.models.x3d import x3d_l_config
+    from change3d_tpu_torch.ops import quant
+    from change3d_tpu_torch.serving import masks_to_arrays
+    from change3d_tpu_torch.train import loop
+
+    run, root = bcd_loop["run_dir"], bcd_loop["file_root"]
+    batch16 = TRAIN_BATCH["bcd"]
+    stats = {"card": card, "batch": batch, "tasks": {}}
+    rs = np.random.RandomState(seed + 13)
+    norm = lambda a: (a.astype(np.float32) / 255.0 - 0.5) / 0.5
+    shapes, sites = set(), {}
+    real_product = quant._rescaled_product
+
+    def recording(x, xq, xs, w):
+        rows = math.prod(x.shape[1:-1])
+        shapes.add((x.shape[0] * rows, x.shape[-1], w.n, rows))
+        recording.sites.append((x.shape[0], rows, x.shape[-1], w.n))
+        return real_product(x, xq, xs, w)
+
+    preds = {}
+    for task in TASKS:
+        kw = dict(num_classes=NUM_CLASSES[task], device=dev, seed=seed + 14)
+        fused = Change3D(Task(task), **kw)
+        pairs = tuple(rs.randint(0, 256, (batch, 256, 256, 3)).astype(np.uint8) for _ in range(2))
+        calib = [tuple(norm(rs.randint(0, 256, (CALIB_BATCH, 256, 256, 3)).astype(np.uint8))
+                       for _ in range(2)) for _ in range(CALIB_BATCHES)]
+        p_ref = Predictor(fused, device=dev).predict_probs(norm(pairs[0]), norm(pairs[1]))
+        row = {}
+        for mode in ("dynamic", "static"):
+            model = Change3D(Task(task), backbone_cfg=x3d_l_config(quantized_eval=True,
+                                                                   quant_mode=mode), **kw)
+            model.load_state_dict(fused.state_dict())
+            if mode == "static":
+                t0 = time.perf_counter()
+                calibrate_quant_scales(model, calib)
+                torch.cuda.synchronize()
+                row["calibrate_s"] = time.perf_counter() - t0
+            pred = Predictor(model, device=dev)
+            pred.predict_u8(*pairs)  # quantise the weights, warm the allocator
+            reset_int8_counts(fb, quant)
+            recording.sites = sites.setdefault((task, mode), [])
+            quant._rescaled_product = recording  # notes each product's shape
+            try:
+                maps = pred.predict_u8(*pairs)
+                torch.cuda.synchronize()
+            finally:
+                quant._rescaled_product = real_product
+            launches = int8_counts(fb, quant)
+            want = {"fused_block_fwd": 0, "fused_block_se_sums": 0,
+                    "int8_matmul": INT8_PER_FORWARD[task]}
+            if launches != want:
+                raise AssertionError(f"{task} {mode} int8 forward launches {launches}, want {want}")
+            p_got = pred.predict_probs(norm(pairs[0]), norm(pairs[1]))
+            heads = {}
+            for key in p_ref:
+                share, agree = confident_agreement(p_ref[key], p_got[key])
+                if not (np.isfinite(p_got[key]).all() and agree >= AGREE_MIN):
+                    raise AssertionError(f"{task} {mode} {key}: {agree} of confident pixels "
+                                         f"agree with the fused bf16 model, want {AGREE_MIN}")
+                heads[key] = {"confident_share": share, "agreement": agree,
+                              "hard_agreement_all": float(
+                                  (Predictor.harden({key: p_got[key]})[key]
+                                   == Predictor.harden({key: p_ref[key]})[key]).mean())}
+            if set(maps) != set(p_ref):
+                raise AssertionError(f"{task} {mode} heads {sorted(maps)}")
+            row[mode] = {"launches": launches, "heads": heads}
+            preds[(task, mode)] = pred
+        preds[(task, "fused")] = Predictor(fused, device=dev)
+        plain = Change3D(Task(task), backbone_cfg=x3d_l_config(fused_inference=False), **kw)
+        plain.load_state_dict(fused.state_dict())
+        preds[(task, "plain")] = Predictor(plain, device=dev)
+        stats["tasks"][task] = row
+        print(f"int8 {task} ({card}): {json.dumps(row)}", flush=True)
+    stats["gemm_shapes"] = int8_gemm_checks(quant, dev, seed + 16, shapes)
+    print(f"int8 GEMM exact against the fp64 product at {len(shapes)} shapes "
+          f"(K, N): {sorted({(k, n) for _, k, n, _ in shapes})}", flush=True)
+
+    # CC: the int8 encoder at beam 1.
+    cc = Change3D(Task.CC, backbone_cfg=x3d_l_config(quantized_eval=True), vocab_size=CC_VOCAB,
+                  device=dev, seed=seed + 15)
+    cc_pred = CaptionPredictor(cc, cc_words(), beam_size=1, device=dev)
+    cc_pairs = tuple(rs.randint(0, 256, (batch, 256, 256, 3)).astype(np.uint8) for _ in range(2))
+    cc_pred.caption_u8(*cc_pairs)
+    reset_int8_counts(fb, quant)
+    captions = cc_pred.caption_u8(*cc_pairs)
+    torch.cuda.synchronize()
+    launches = int8_counts(fb, quant)
+    want = {"fused_block_fwd": 0, "fused_block_se_sums": 0, "int8_matmul": INT8_PER_FORWARD["cc"]}
+    if launches != want or len(captions) != batch or not all(isinstance(c, str) for c in captions):
+        raise AssertionError(f"cc int8 caption_u8: launches {launches}, want {want}")
+    stats["cc"] = {"launches": launches, "captions": len(captions)}
+    del cc, cc_pred
+
+    # The CLI on phase 9's BCD run: static predict, then the static artifact.
+    out = os.path.join(tmp, "int8_masks")
+    reset_int8_counts(fb, quant)
+    rc, _ = cli_quiet(cli, ["predict", "--model_task", "bcd", "--checkpoint", run, "--file_root",
+                            root, "--out", out, *INT8_STATIC_FLAGS])
+    launches = int8_counts(fb, quant)
+    n_test = batch16  # phase 9's test split: one batch of 16
+    if rc != 0 or launches != {"fused_block_fwd": 0, "fused_block_se_sums": 0,
+                               "int8_matmul": INT8_PER_FORWARD["bcd"]}:
+        raise AssertionError(f"cli predict --quantized static rc {rc}, launches {launches}")
+    cfg = loop.RunConfig(file_root=root, batch_size=batch16, quantized=True, quant_mode="static",
+                         calib_batches=2, device="cuda")
+    model = loop.build_model(cfg)
+    model.load_state_dict(torch.load(os.path.join(run, "best", "model.pt"), map_location=dev))
+    loop.calibrate_from_train_split(cfg, model)
+    pred = Predictor(model, device=dev)
+    _, eval_tf = make_transform_pipelines("bcd", 256, 256)
+    ds = DATASETS["bcd"](root, "test", eval_tf)
+    names = [os.path.splitext(os.path.basename(p))[0] for p in ds.pre_images]
+    idx, float_batch = 0, None
+    for b in DataLoader(ds, batch16, num_workers=2, collate=pair_collate, pad_final=True):
+        valid = b.pop("valid")
+        float_batch = float_batch or (b["pre"], b["post"])
+        maps = pred.predict(b["pre"], b["post"])["change"]
+        for i in np.flatnonzero(valid):
+            with open(os.path.join(out, f"{names[idx]}.png"), "rb") as f:
+                if f.read() != encode_png_bytes(masks_to_arrays("bcd", {"change": maps[i]})[
+                        "change"]):
+                    raise AssertionError(f"cli predict --quantized mask {names[idx]} differs")
+            idx += 1
+    if idx != n_test:
+        raise AssertionError(f"cli predict --quantized wrote {idx} masks, want {n_test}")
+    del model
+    stats["remat"] = remat_parity(dev, seed)  # while the export may still run
+    t0 = time.perf_counter()
+    export_job.wait(timeout=600)
+    stats["export_wait_s"] = time.perf_counter() - t0
+    if export_job.returncode != 0:
+        with open(artifact + ".log") as f:
+            raise AssertionError(f"cli export --quantized static failed:\n{f.read()[-4000:]}")
+    fn = load_exported(artifact, dev)
+    n_mm = sum(1 for n in fn.program.graph.nodes if n.target == torch.ops.aten._int_mm.default)
+    got = fn(*float_batch)["change"].float().cpu().numpy() > 0.5
+    want = pred.predict(*float_batch)["change"]
+    if n_mm != INT8_PER_FORWARD["bcd"] or not np.array_equal(got[..., 0], want):
+        raise AssertionError(f"static int8 artifact: {n_mm} int8 products, masks equal "
+                             f"{np.array_equal(got[..., 0], want)}")
+    stats["cli"] = {"predict_static_byte_equal_pngs": idx, "predict_launches": launches,
+                    "artifact_int8_products": n_mm, "artifact_bytes": os.path.getsize(artifact),
+                    "artifact_masks_equal": True}
+    print(f"int8 CLI: {json.dumps(stats['cli'])}", flush=True)
+    del pred, fn
+
+    # Times, with nothing else on the card: BCD in turns; device ms of every task's three forwards.
+    pairs = [tuple(rs.randint(0, 256, (batch, 256, 256, 3)).astype(np.uint8) for _ in range(2))
+             for _ in range(2)]
+    kinds = ("fused", "plain", "dynamic", "static")
+    runs = {k: [] for k in kinds}
+    for kind in kinds + kinds[::-1]:
+        runs[kind].append(pairs_per_s(preds[("bcd", kind)], pairs, batch))
+    dev_pairs = tuple(torch.from_numpy(a).to(dev) for a in pairs[0])
+    fwd_ms = {task: {k: event_ms(lambda: preds[(task, k)].predict_u8_device(*dev_pairs), 3)
+                     for k in kinds} for task in TASKS}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    gemm = {}
+    for kind in ("dynamic", "static"):
+        with torch.profiler.profile(activities=acts) as prof:
+            preds[("bcd", kind)].predict_u8_device(*dev_pairs)
+            torch.cuda.synchronize()
+        total = sum(e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        mm = sum(e.device_time_total for e in prof.key_averages() if e.key == "aten::_int_mm")
+        gemm[kind] = {"int8_gemm_ms": mm / 1e3, "device_ms": total / 1e3,
+                      "share": mm / total if total else float("nan")}
+    stats["times"] = {"bcd_pairs_per_s": runs, "forward_ms": fwd_ms, "int8_gemm": gemm,
+                      "bcd_pointwise_sites": pointwise_site_ms(quant, dev, seed + 17,
+                                                               sites[("bcd", "dynamic")]),
+                      "turns": "fused, plain, dynamic, static, static, dynamic, plain, fused"}
+    for kind in kinds:
+        print(f"bcd predict_u8 bf16 256^2 batch {batch} {kind}: {runs[kind]} pairs/s, "
+              f"{fwd_ms['bcd'][kind]} ms per forward on the device ({card})", flush=True)
+    print(f"int8 forward times ({card}): {json.dumps(stats['times'])}", flush=True)
+    del preds
+    torch.cuda.empty_cache()
+    stats["remat"].update(remat_times(dev, seed, card))
+    print(f"remat: BCD train step, batch {REMAT_BATCH}, 256² ({card}): "
+          f"{json.dumps(stats['remat'])}", flush=True)
+    return stats
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=8, help="pairs per forward for the timings")
     ap.add_argument("--batches", type=int, default=3, help="forwards in the launch-count run")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=os.path.join("chiprun_out", "chip_smoke.json"))
+    ap.add_argument("--int8-only", action="store_true",
+                    help="build the kernels and run phase 13 alone (on a fresh cli bcd run)")
     ap.add_argument("--multi-gpu-only", action="store_true",
                     help="build the kernels and run phase 12 alone, on every card")
     ap.add_argument("--rank-worker", default=None, help=argparse.SUPPRESS)
@@ -2011,6 +2436,8 @@ def main(argv=None) -> int:
     print(f"card: {card}", flush=True)
     if args.multi_gpu_only:
         return multi_gpu_only(fb, dev, args, card)
+    if args.int8_only:
+        return int8_only(fb, dev, args, card)
 
     seeds = list(range(args.seed, args.seed + KERNEL_SEEDS))
     worst = phase_kernels(fb, dev, seeds, args.batch)
@@ -2065,9 +2492,11 @@ def main(argv=None) -> int:
         export["seconds"] = time.perf_counter() - t0
         multi_gpu = phase_multi_gpu(fb, dev, args.seed, deploy_dir,
                                     loops["bcd"][1]["file_root"], loops["cc"][1]["file_root"])
+        quant = phase_quant(fb, dev, args.seed, deploy_dir, loops["bcd"][1], card, args.batch)
     print(f"deploy phase: {deploy['seconds']:.1f} s", flush=True)
     print(f"export phase: {export['seconds']:.1f} s", flush=True)
     print(f"multi-GPU phase: {multi_gpu['seconds']:.1f} s", flush=True)
+    print(f"int8 and remat phase: {quant['seconds']:.1f} s", flush=True)
     print(f"kernels vs plain versions, worst over every check: {json.dumps(worst)}", flush=True)
     for task in TASKS:
         runs, fwd_ms = times[task]
@@ -2147,7 +2576,7 @@ def main(argv=None) -> int:
               "forward_ms": {task: times[task][1] for task in TASKS},
               "forward_check": forward_check, "cc_times": cc_times, "rows": rows,
               "kernels": kernels, "train": train, "deploy": deploy, "export": export,
-              "multi_gpu": multi_gpu}
+              "multi_gpu": multi_gpu, "quant": quant}
     if os.path.dirname(args.out):
         os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:

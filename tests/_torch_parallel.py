@@ -94,18 +94,19 @@ def init_gloo(rank, world, port, timeout=30.0) -> None:
 # -- one train step -----------------------------------------------------------
 
 
-def make_model(task: str, dropout: float = 0.1, **cc_kw):
-    """The seeded TINY model of ``task`` on the CPU; ``cc_kw`` overrides
-    CC_KW."""
+def make_model(task: str, dropout: float = 0.1, remat: bool = False, **cc_kw):
+    """The seeded TINY model of ``task`` on the CPU (block pairs recomputed
+    in the backward with ``remat``); ``cc_kw`` overrides CC_KW."""
     from change3d_tpu_torch.models.trainer import Change3D, Task
     from change3d_tpu_torch.models.x3d import X3DConfig
 
     gen = torch.Generator().manual_seed(3)
     if task == "cc":
-        return Change3D(Task.CC, in_height=HW, in_width=HW, backbone_cfg=X3DConfig(**TINY_CC),
-                        device="cpu", generator=gen, dropout=dropout, **dict(CC_KW, **cc_kw))
+        return Change3D(Task.CC, in_height=HW, in_width=HW,
+                        backbone_cfg=X3DConfig(**TINY_CC, remat=remat), device="cpu",
+                        generator=gen, dropout=dropout, **dict(CC_KW, **cc_kw))
     return Change3D(Task(task), num_classes=CLASSES[task], in_height=HW, in_width=HW,
-                    backbone_cfg=X3DConfig(**TINY), device="cpu", generator=gen)
+                    backbone_cfg=X3DConfig(**TINY, remat=remat), device="cpu", generator=gen)
 
 
 def global_batch(task: str, b: int = 4, seed: int = 6) -> dict:
@@ -131,7 +132,7 @@ def global_batch(task: str, b: int = 4, seed: int = 6) -> dict:
     return {"pre": pre, "post": post, "label": label}
 
 
-def one_step(task: str, state_path=None) -> dict:
+def one_step(task: str, state_path=None, remat: bool = False) -> dict:
     """One fp32 train step (constant lr, coupled decay) on this process's
     slice of ``global_batch(task)``: the loss, metrics, averaged gradients,
     and the parameters, buffers and Adam state after it."""
@@ -139,7 +140,7 @@ def one_step(task: str, state_path=None) -> dict:
     from change3d_tpu_torch.train.engine import train_step
     from change3d_tpu_torch.train.optim import torch_adam
 
-    model = make_model(task)
+    model = make_model(task, remat=remat)
     if state_path:
         model.load_state_dict(torch.load(state_path))
     opt = torch_adam(model.parameters(), weight_decay=WD)
@@ -157,13 +158,27 @@ def one_step(task: str, state_path=None) -> dict:
             "adam": opt.state_dict()["state"]}
 
 
-def step_worker(rank, world, port, tasks, out, state_paths=None) -> None:
-    """``one_step`` of each task (from ``state_paths[task]`` where given),
-    saved to ``{out}/{task}-{world}-{rank}.pt``."""
-    init_gloo(rank, world, port)
+def reference_worker(rank, world, port, tasks, out, state_paths=None) -> None:
+    """The one-process reference: ``one_step`` of each task without a
+    process group, saved to ``{out}/{task}-1-0.pt``. It runs spawned, as the
+    ranks do (a fresh process at one intra-op thread): in the pytest process
+    the step's fp32 rounding depends on what earlier test files left there,
+    and a 6-worker run once put its BCD loss 1.0e-6 relative from the ranks'
+    while a fresh process at any thread count agrees with them to 7.8e-8."""
     for task in tasks:
         torch.save(one_step(task, (state_paths or {}).get(task)),
-                   os.path.join(out, f"{task}-{world}-{rank}.pt"))
+                   os.path.join(out, f"{task}-1-0.pt"))
+
+
+def step_worker(rank, world, port, tasks, out, state_paths=None, remats=(False,)) -> None:
+    """``one_step`` of each task (from ``state_paths[task]`` where given)
+    for each of ``remats``, saved to ``{out}/{task}-{world}-{rank}.pt``
+    (``...-remat.pt`` with remat)."""
+    init_gloo(rank, world, port)
+    for task in tasks:
+        for remat in remats:
+            torch.save(one_step(task, (state_paths or {}).get(task), remat),
+                       os.path.join(out, f"{task}-{world}-{rank}{'-remat' * remat}.pt"))
 
 
 # -- the CLI -------------------------------------------------------------------

@@ -8,6 +8,7 @@ best-model re-evaluation); and a run preempted mid-epoch and one on an
 epoch boundary that resume to the bit-identical end state of an
 uninterrupted run."""
 
+import dataclasses
 import json
 import os
 
@@ -216,11 +217,14 @@ def test_cli_cc_defaults_and_refusals(data_root, tmp_path, capsys):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main(["cc", "--file_root", data_root, "--dataset", "DS",
                       "--save_dir", str(tmp_path / "x")])
-    for flag, reason in (("--loader", "grain"), ("--remat", "memory")):
+    for flag, reason in (("--loader", "grain"), ("--packed", "never ported")):
         with pytest.raises(SystemExit):
             cli.main(["cc", "--file_root", data_root, flag, "x"])
         err = capsys.readouterr().err
         assert f"{flag} is not ported yet" in err and reason in err
+    # --remat parses and does nothing for cc, as in the JAX CLI.
+    assert cli.build_parser().parse_args(["cc", "--file_root", "r", "--remat"]).remat
+    assert "remat" not in {f.name for f in dataclasses.fields(cli.CaptionRunConfig)}
     # The multi-process flags are ported: they parse.
     args = cli.build_parser().parse_args(["cc", "--file_root", "r", "--coordinator_address",
                                           "127.0.0.1:1", "--num_processes", "2",

@@ -176,6 +176,55 @@ def test_tiny_bcd_model_fused_matches_plain_on_card(cuda):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
+# (K, N) of every int8 product of X3D-L: conv_a C -> Ci (block 0: the
+# previous stage's C -> Ci) and conv_c Ci -> C per stage (the padded K = 54
+# and 108 among them).
+INT8_WIDTHS = [(24, 54), (54, 24), (24, 108), (48, 108), (108, 48), (48, 216), (96, 216),
+               (216, 96), (96, 432), (192, 432), (432, 192)]
+
+
+@pytest.mark.parametrize("rows", [12, 3 * 16 * 16, 3 * 64 * 64])
+def test_padded_int8_matmul_equals_the_int32_product_on_card(cuda, rows):
+    """Up to 8 x 3 x 64 x 64 rows: stage 3's first product at batch 8
+    (where cuBLASLt refuses a column-major kernel); the fp64 product of the
+    same int8 operands is exact (integer sums below 2^53)."""
+    from change3d_tpu_torch.ops import quant
+
+    gen = torch.Generator(device=cuda).manual_seed(rows)
+    for k, n in INT8_WIDTHS:
+        xq = torch.randint(-127, 128, (8 * rows, k), generator=gen, device=cuda,
+                           dtype=torch.int8)
+        w = quant.prepare_weight(torch.randn(k, n, generator=gen, device=cuda))
+        got = quant.int8_matmul(xq, w, rows_per_sample=rows)
+        want = xq.double() @ w.q[:k, :n].double()
+        assert got.dtype == torch.int32 and torch.equal(got.double(), want), (rows, k, n)
+
+
+@pytest.mark.parametrize("mode", ["dynamic", "static"])
+def test_tiny_int8_model_on_card_matches_cpu(cuda, mode):
+    from change3d_tpu_torch.inference import calibrate_quant_scales
+    from change3d_tpu_torch.models.trainer import Change3D, Task
+    from change3d_tpu_torch.models.x3d import X3DConfig
+    from change3d_tpu_torch.ops import quant
+
+    tiny = dict(stem_dim_out=8, stage_dims=(8, 16, 24, 32), stage_inner_dims=(18, 36, 54, 72),
+                stage_depths=(2, 3, 3, 2), quantized_eval=True, quant_mode=mode)
+    models = {d: Change3D(Task.BCD, in_height=32, in_width=32, backbone_cfg=X3DConfig(**tiny),
+                          device=d, seed=4).eval() for d in ("cpu", cuda)}
+    rs = np.random.RandomState(4)
+    pre, post = (rs.randn(2, 32, 32, 3).astype(np.float32) for _ in range(2))
+    if mode == "static":
+        for model in models.values():
+            calibrate_quant_scales(model, [(pre, post)])
+    out = {}
+    before = quant.int8_matmul.launches
+    with torch.no_grad():
+        for d, model in models.items():
+            out[d] = model(torch.from_numpy(pre).to(d), torch.from_numpy(post).to(d))["change"]
+    assert quant.int8_matmul.launches - before == 2 * 2 * 8
+    torch.testing.assert_close(out[cuda].cpu(), out["cpu"], rtol=1e-4, atol=1e-4)
+
+
 def test_full_width_bf16_train_step_runs(cuda):
     from change3d_tpu_torch.models.trainer import Change3D, Task
     from change3d_tpu_torch.train.engine import train_step

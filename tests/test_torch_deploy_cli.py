@@ -204,16 +204,16 @@ def test_pretrained_starts_training_from_the_kinetics_backbone(data_root, tmp_pa
 def test_refused_flags_name_their_slice(capsys):
     cases = [
         (["eval", "--model_task", "bcd", "--checkpoint", "c", "--file_root", "f",
-          "--quantized"], "int8"),
-        (["eval", "--model_task", "bcd", "--checkpoint", "c", "--file_root", "f",
-          "--calib_batches", "8"], "int8"),
+          "--packed"], "never ported"),
+        (["predict", "--model_task", "bcd", "--checkpoint", "c", "--file_root", "f",
+          "--out", "o", "--platform", "cpu"], "--device"),
         (["serve", "--model_task", "bcd", "--checkpoint", "c", "--packed"], "never ported"),
-        (["export", "--model_task", "bcd", "--checkpoint", "c", "--out", "x", "--quantized"],
-         "int8"),
+        (["export", "--model_task", "bcd", "--checkpoint", "c", "--out", "x", "--platform",
+          "cpu"], "--device"),
         (["export", "--model_task", "bcd", "--checkpoint", "c", "--out", "x", "--platforms",
           "cpu,tpu"], "--device"),
         (["bcd", "--file_root", "r", "--loader", "grain"], "grain"),
-        (["bcd", "--file_root", "r", "--remat"], "rematerialisation"),
+        (["bcd", "--file_root", "r", "--packed"], "never ported"),
         (["cc", "--file_root", "r", "--loader", "grain"], "grain"),
         (["info", "--model_task", "bcd", "--platform", "cpu"], "--device"),
     ]
@@ -222,9 +222,21 @@ def test_refused_flags_name_their_slice(capsys):
             cli.main(argv)
         err = capsys.readouterr().err
         assert "is not ported yet" in err and reason in err, (argv, err)
-    # The multi-GPU flags are ported: they parse (and --shard is refused
-    # only beside --artifact, tests/test_torch_parallel_predict.py).
+    # The multi-GPU, int8 and remat flags are ported: they parse (--shard is
+    # refused only beside --artifact, tests/test_torch_parallel_predict.py).
     parser = cli.build_parser()
+    args = parser.parse_args(["eval", "--model_task", "bcd", "--checkpoint", "c", "--file_root",
+                              "f", "--quantized", "--quant_mode", "static", "--calib_batches",
+                              "4"])
+    assert (args.quantized, args.quant_mode, args.calib_batches) == (True, "static", 4)
+    args = parser.parse_args(["export", "--model_task", "bcd", "--checkpoint", "c", "--out",
+                              "x", "--quantized", "--calib_batch_size", "2"])
+    assert (args.quantized, args.quant_mode, args.calib_batches, args.calib_batch_size) == (
+        True, "dynamic", 8, 2)
+    assert parser.parse_args(["serve", "--model_task", "bcd", "--checkpoint", "c",
+                              "--quantized"]).quantized
+    assert parser.parse_args(["bcd", "--file_root", "r", "--remat"]).remat
+    assert not parser.parse_args(["bcd", "--file_root", "r"]).remat
     assert parser.parse_args(["predict", "--model_task", "bcd", "--checkpoint", "c",
                               "--file_root", "f", "--out", "o", "--shard"]).shard
     assert parser.parse_args(["serve", "--model_task", "bcd", "--checkpoint", "c",

@@ -149,16 +149,19 @@ def test_serve_source_and_export_refusals(capsys):
     assert "one of the arguments --checkpoint --artifact is required" in capsys.readouterr().err
     base = ["export", "--model_task", "bcd", "--checkpoint", "c", "--out", "x"]
     for flag, value, reason in (("--platforms", "cpu,tpu", "use --device"),
-                                ("--platform", "cpu", "load_exported(device=...) moves"),
-                                ("--quantized", None, "int8"), ("--quant_mode", "static", "int8"),
-                                ("--calib_batches", "8", "int8"),
-                                ("--calib_batch_size", "8", "int8")):
+                                ("--platform", "cpu", "load_exported(device=...) moves")):
         with pytest.raises(SystemExit):
             cli.main(base + [flag] + ([value] if value else []))
         err = capsys.readouterr().err
         assert f"{flag} is not ported yet" in err and reason in err, err
     args = cli.build_parser().parse_args(base)
     assert (args.device, args.batch, args.beam_size, args.num_class) == ("cuda", None, 1, None)
+    # The int8 flags are ported (tests/test_torch_quant_cli.py); cc refuses them.
+    assert (args.quantized, args.quant_mode, args.calib_batches, args.calib_batch_size) == (
+        False, "dynamic", 8, 8)
+    with pytest.raises(SystemExit, match="--quantized applies to the detection tasks"):
+        cli.main(["export", "--model_task", "cc", "--checkpoint", "c", "--out", "x",
+                  "--quantized", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main(base)

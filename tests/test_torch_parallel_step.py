@@ -3,7 +3,8 @@ one-process step on the same global batch, for BCD, SCD, BDA and CC (dropout
 on): each process takes its contiguous slice of a seeded global batch of 4
 (``tests/_torch_parallel.one_step``: the TINY models, fp32, constant lr
 1e-3, coupled decay 1e-4), under the checks of
-``tests/_torch_parallel_checks.py``.
+``tests/_torch_parallel_checks.py``. The one-process reference runs in a
+spawned process too (``tests/_torch_parallel.reference_worker``).
 
 The BCD step starts from a seeded JAX variables tree, bridged, and is also
 held against change3d_tpu's ``make_train_step`` on the whole global batch at
@@ -46,8 +47,8 @@ def runs(tmp_path_factory):
     paths = {"bcd": os.path.join(out, "bcd-init.pt")}
     torch.save(from_jax_variables(variables, X3DConfig(**tp.TINY)), paths["bcd"])
     procs = tp.start_ranks(tp.step_worker, 2, TASKS, out, paths)
-    # The references run here while the two processes step.
-    one = {task: tp.one_step(task, paths.get(task)) for task in TASKS}
+    procs += tp.start_ranks(tp.reference_worker, 1, TASKS, out, paths)
+    # The JAX reference runs here while the processes step.
     tx = jax_torch_adam(lambda _: tp.LR, weight_decay=tp.WD)
     state = TrainState(step=jnp.zeros((), jnp.int32), params=variables["params"],
                        batch_stats=variables["batch_stats"],
@@ -57,6 +58,7 @@ def runs(tmp_path_factory):
                                                                  jax.random.PRNGKey(0))
     jax_run = {"variables": jax.device_get(state.variables), "metrics": jax.device_get(metrics)}
     tp.join_ok(procs, timeout=120)
+    one = {task: torch.load(os.path.join(out, f"{task}-1-0.pt")) for task in TASKS}
     ranks = {task: [torch.load(os.path.join(out, f"{task}-2-{r}.pt")) for r in range(2)]
              for task in TASKS}
     return one, ranks, jax_run

@@ -1,7 +1,8 @@
 """The port's BCD train step in 4 gloo processes (one sample each) equals
 the one-process step on the same global batch of 4, under the checks of
 ``tests/_torch_parallel_checks.py`` (``tests/test_torch_parallel_step.py``
-holds 2 processes for every task)."""
+holds 2 processes for every task). The one-process reference runs spawned
+as well (``tests/_torch_parallel.reference_worker``)."""
 
 import os
 
@@ -17,8 +18,9 @@ from tests import _torch_parallel_checks as checks
 def runs(tmp_path_factory):
     out = str(tmp_path_factory.mktemp("steps4"))
     procs = tp.start_ranks(tp.step_worker, 4, ("bcd",), out)
-    one = tp.one_step("bcd")
+    procs += tp.start_ranks(tp.reference_worker, 1, ("bcd",), out)
     tp.join_ok(procs, timeout=120)
+    one = torch.load(os.path.join(out, "bcd-1-0.pt"))
     return one, [torch.load(os.path.join(out, f"bcd-4-{r}.pt")) for r in range(4)]
 
 

@@ -149,7 +149,10 @@ def test_cli_defaults_to_the_card_and_refuses_unported_flags(data_root, tmp_path
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main(argv)
-    for flag in ("--loader", "--packed", "--remat"):
+    for flag in ("--loader", "--packed", "--no-packed"):
         with pytest.raises(SystemExit):
             cli.main(_argv(data_root, str(tmp_path / "y"), 1, flag, "X3D_L.pyth"))
         assert f"{flag} is not ported yet" in capsys.readouterr().err
+    # --remat is ported (off by default; tests/test_torch_remat.py).
+    assert cli.build_parser().parse_args(argv + ["--remat"]).remat
+    assert not args.remat
