@@ -9,6 +9,8 @@ backbone from Kinetics; ``--resume`` resumes):
   python -m change3d_tpu_torch.cli bda --file_root DATA --save_dir EXP  # xBD, 5 classes, batch 12
   python -m change3d_tpu_torch.cli cc  --file_root DATA --save_dir EXP  # LEVIR-CC, batch 32, fp32
 
+``--loader grain`` feeds them through worker processes (the JAX CLI's
+flag; on the port the torch worker-process loader, not the grain package);
 ``--profile_dir DIR`` traces training steps 10-14 with torch.profiler;
 ``--remat`` recomputes the backbone's block pairs in the backward (off by
 default, unlike the JAX CLI: the card holds the default steps without it).
@@ -63,7 +65,6 @@ _FUSED_HELP = "accepted and without effect: evaluation always runs the fused CUD
 _NOT_PORTED = {
     "--packed": _PACKED,
     "--no-packed": _PACKED,
-    "--loader": "only the threaded loader is ported (the grain loader is not)",
     "--platform": "use --device {cuda,cpu}",
     "--num_class": "BCD has one sigmoid output",
 }
@@ -78,7 +79,6 @@ _HELP = {"bcd": "binary change detection", "scd": "semantic change detection",
 _NUM_CLASS = {"bcd": 1, "scd": 6, "bda": 5, "cc": 1}
 _CC_IGNORED = "the JAX CLI accepts it for cc and ignores it; drop the flag"
 _CC_NOT_PORTED = {
-    "--loader": _NOT_PORTED["--loader"],
     "--platform": _NOT_PORTED["--platform"],
     "--packed": _PACKED,
     "--no-packed": _PACKED,
@@ -117,6 +117,13 @@ class _NotPorted(argparse.Action):
 def _refuse(p, flags) -> None:
     for flag, reason in flags.items():
         p.add_argument(flag, action=_NotPorted, reason=reason, help=argparse.SUPPRESS)
+
+
+def _loader(p) -> None:
+    p.add_argument("--loader", default="threaded", choices=["threaded", "grain"],
+                   help="input pipeline: 'threaded' (worker threads, the default) or 'grain', "
+                        "which on the port is the torch worker-process loader "
+                        "(data/process_pipeline.py; the grain package itself imports jax)")
 
 
 def _device(p) -> None:
@@ -195,6 +202,7 @@ def _add_cc(sub) -> None:
     p.add_argument("--remat", action=argparse.BooleanOptionalAction, default=False,
                    help="accepted and without effect, as in the JAX CLI (its caption loop "
                         "never reads it)")
+    _loader(p)
     _device(p)
     _processes(p)
     _refuse(p, _CC_NOT_PORTED)
@@ -225,6 +233,7 @@ def _add_train(sub) -> None:
                        help="recompute the backbone's block pairs in the backward (less "
                             "memory, one more forward of them; off by default, unlike the JAX "
                             "CLI, whose default-on was sized for a TPU's memory)")
+        _loader(p)
         _device(p)
         _processes(p)
         if num_class is not None:

@@ -6,7 +6,8 @@ read through ``data/png.py``; every file is checked up front.
   BDA  {root}/{split}/{t1,t2,label1,label2}; the label files' names rewrite
        'disaster' to 'disaster_target'                                 (xBD)
 
-  CC   {root}/{SPLIT}_IMAGES_{ds}.hdf5 ([N, 2, 3, H, W] uint8) +
+  CC   {root}/{SPLIT}_IMAGES_{ds}.hdf5 ([N, 2, 3, H, W] uint8, read by
+       data/hdf5.py) +
        {SPLIT}_CAPTIONS_{ds}.json + {SPLIT}_CAPLENS_{ds}.json, 5 captions
        per image                                          (LEVIR-CC / DUBAI-CC)
 
@@ -24,6 +25,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from change3d_tpu_torch.data import hdf5
 from change3d_tpu_torch.data.png import imread_gray, imread_rgb
 from change3d_tpu_torch.data.transforms import TransformPipeline
 
@@ -98,23 +100,36 @@ class CaptionDataset:
     """LEVIR-CC / DUBAI-CC captions: one sample per caption row, images
     normalised with ImageNet's mean and std; training swaps the pair with
     p = 0.3 (a draw from the sample's generator). Eval splits add the
-    image's ``all_captions`` [cpi, L]. h5py is imported when a dataset is
-    opened, so the package imports without it."""
+    image's ``all_captions`` [cpi, L].
+
+    The HDF5 images are read by ``data/hdf5.py`` (no h5py). The dataset
+    keeps only where they lie, and maps the file on first access in each
+    process: a pickled dataset (a loader's worker processes) carries no
+    image bytes, and an item reads one image."""
 
     MEAN = np.array([0.485, 0.456, 0.406], np.float32)
     STD = np.array([0.229, 0.224, 0.225], np.float32)
 
     def __init__(self, file_root: str, dataset: str, split: str):
-        import h5py
-
         self.split = split.upper()
-        self.h5 = h5py.File(osp(file_root, f"{self.split}_IMAGES_{dataset}.hdf5"), "r")
-        self.images = self.h5["images"]
+        self.location, attrs = hdf5.read_file(
+            osp(file_root, f"{self.split}_IMAGES_{dataset}.hdf5"))
+        self._images = None
         with open(osp(file_root, f"{self.split}_CAPTIONS_{dataset}.json")) as f:
             self.captions = json.load(f)
         with open(osp(file_root, f"{self.split}_CAPLENS_{dataset}.json")) as f:
             self.caplens = json.load(f)
-        self.cpi = int(self.h5.attrs.get("captions_per_image", 5))
+        self.cpi = int(attrs.get("captions_per_image", 5))
+
+    @property
+    def images(self) -> np.ndarray:
+        """[N, 2, 3, H, W] uint8, mapped on first use."""
+        if self._images is None:
+            self._images = self.location.map()
+        return self._images
+
+    def __getstate__(self):
+        return {**self.__dict__, "_images": None}
 
     def __len__(self) -> int:
         return len(self.captions)
@@ -134,4 +149,5 @@ class CaptionDataset:
         return out
 
     def close(self) -> None:
-        self.h5.close()
+        """Drops the map (a later item maps the file again)."""
+        self._images = None

@@ -14,8 +14,8 @@ every process computes the same global batches and decodes only its
 contiguous ``batch_size // num_shards`` slice of each, and a sample's rng is
 seeded by its global slot, so the global batch of a sharded run is sample
 for sample the single-process batch. ``make_data_loader`` shards by process
-when a process group of more than one process is up. The grain loader is
-not ported.
+when a process group of more than one process is up, and gives the
+worker-process loader (``data/process_pipeline.py``) for 'grain'.
 """
 
 from __future__ import annotations
@@ -99,20 +99,27 @@ class DataLoader:
     def __iter__(self) -> Iterator:
         return self.iter_from(0)
 
+    def _shard_batches(self, skip_batches: int):
+        """(global batch index, this shard's sample indices, valid count) of
+        every batch of the epoch from ``skip_batches`` on."""
+        lo = self.shard_index * self.local_batch_size
+        hi = lo + self.local_batch_size
+        batches = [(bi, idxs[lo:hi], valid)
+                   for bi, (idxs, valid) in enumerate(self._index_batches())]
+        if skip_batches and skip_batches >= len(batches):
+            raise RuntimeError(
+                f"resume checkpoint is ahead of the dataset: cannot skip "
+                f"{skip_batches} of {len(batches)} batches (did the train "
+                f"split shrink since the preemption save?)"
+            )
+        return batches[skip_batches:]
+
     def iter_from(self, skip_batches: int) -> Iterator:
         """Iterate from batch ``skip_batches`` of this epoch; the skipped
         prefix is never decoded."""
         lo = self.shard_index * self.local_batch_size
         hi = lo + self.local_batch_size
-        batches = [(idxs[lo:hi], valid) for idxs, valid in self._index_batches()]
-        if skip_batches:
-            if skip_batches >= len(batches):
-                raise RuntimeError(
-                    f"resume checkpoint is ahead of the dataset: cannot skip "
-                    f"{skip_batches} of {len(batches)} batches (did the train "
-                    f"split shrink since the preemption save?)"
-                )
-            batches = batches[skip_batches:]
+        batches = self._shard_batches(skip_batches)
         out_q: "queue.Queue" = queue.Queue(maxsize=_PREFETCH)
         stop = threading.Event()
         epoch = self._epoch
@@ -134,15 +141,15 @@ class DataLoader:
         def produce():
             try:
                 # A window of two batches of sample futures keeps decode ahead
-                # of assembly; start= keeps bi the epoch's global batch index.
+                # of assembly; bi is the epoch's global batch index.
                 with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
                     window: "deque" = deque()
-                    it = iter(enumerate(batches, start=skip_batches))
+                    it = iter(batches)
 
                     def submit():
                         nxt = next(it, None)
                         if nxt is not None:
-                            bi, (idxs, valid) = nxt
+                            bi, idxs, valid = nxt
                             window.append(([pool.submit(load_sample, bi, lo + j, idx)
                                             for j, idx in enumerate(idxs)], valid))
 
@@ -177,14 +184,24 @@ class DataLoader:
             stop.set()
 
 
+LOADERS = ("threaded", "grain")
+
+
 def make_data_loader(kind: str, dataset, batch_size: int, **kwargs) -> DataLoader:
-    """Loader factory; ``kind`` is 'threaded' (the grain loader is not
-    ported). Under a process group of more than one process the loader is
-    sharded by process unless ``num_shards`` is given."""
-    if kind != "threaded":
-        raise NotImplementedError(f"loader {kind!r} is not ported; use 'threaded'")
+    """Loader factory: ``kind`` is 'threaded' (this module's DataLoader) or
+    'grain', which on the port is the worker-process loader
+    (``data/process_pipeline.py``, the counterpart of the JAX package's
+    grain loader). Both have the same surface and batches. Under a process
+    group of more than one process the loader is sharded by process unless
+    ``num_shards`` is given."""
+    if kind not in LOADERS:
+        raise ValueError(f"unknown loader kind: {kind!r} (expected one of {LOADERS})")
     if "num_shards" not in kwargs and distributed.world_size() > 1:
         kwargs.update(num_shards=distributed.world_size(), shard_index=distributed.rank())
+    if kind == "grain":
+        from change3d_tpu_torch.data.process_pipeline import ProcessDataLoader
+
+        return ProcessDataLoader(dataset, batch_size, **kwargs)
     return DataLoader(dataset, batch_size, **kwargs)
 
 

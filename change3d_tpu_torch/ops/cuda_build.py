@@ -1,11 +1,13 @@
-"""Build and load the port's CUDA kernels (nvcc into a shared library with a
-plain C interface, bound with ctypes).
+"""Build and load the port's native libraries: the CUDA kernels (nvcc into
+a shared library with a plain C interface) and the host METEOR scorer (the
+host C++ compiler), both bound with ctypes.
 
 Each ``csrc/*.cu`` compiles on its own for ``sm_90a`` into
 ``change3d_tpu_torch/_build/<name>-<source hash>.so`` at first use; the hash
 covers the source and every ``csrc/*.cuh`` header, and a library whose hash
-is unchanged is reused. Build and load failures raise:
-there is no fallback on the CUDA path.
+is unchanged is reused. Each ``csrc/*.cpp`` (host code: ``meteor.cpp``)
+compiles the same way with ``$CXX`` (default ``c++``) and ``CXX_FLAGS``,
+never with nvcc. Build and load failures raise: there is no fallback.
 
 ``build`` and ``load`` are safe under threads: one lock serialises first
 use within the process, so two threads that reach a kernel together build
@@ -32,9 +34,12 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-lineinfo",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+CXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared")
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
+_S = ctypes.c_char_p
+_D = ctypes.c_double
 # C signatures of every exported function, by library name.
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "fused_block": {
@@ -52,6 +57,17 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # x, out, N, R, C, then manual_dma_plan's chunk, per_slab, per_block, grid
         "c3d_manual_dma": ([_VP] * 2 + [_I] * 7 + [_VP], _I),
         "c3d_error_string": ([_I], ctypes.c_char_p),
+    },
+    "meteor": {  # host code (csrc/meteor.cpp)
+        "meteor_abi_version": ([], _I),
+        # hypothesis, newline-joined references, alpha, beta, gamma
+        "meteor_sentence": ([_S, _S, _D, _D, _D], _D),
+        # ..., delta, stem weight, out[7]
+        "meteor_segment_stats": ([_S, _S] + [_D] * 5 + [ctypes.POINTER(_D)], None),
+        "meteor_set_paraphrase_table": ([_S], _I),
+        "meteor_set_synonym_table": ([_S], _I),
+        "meteor_set_function_words": ([_S], _I),
+        "meteor_stem": ([_S, _S, _I], _I),
     },
 }
 
@@ -71,28 +87,49 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin); the CUDA kernels cannot be built")
 
 
+def source_path(name: str) -> Path:
+    """``csrc/<name>.cu`` (a CUDA source) or ``csrc/<name>.cpp`` (host code)."""
+    cu = CSRC_DIR / f"{name}.cu"
+    return cu if cu.exists() else CSRC_DIR / f"{name}.cpp"
+
+
 def library_path(name: str) -> Path:
-    """The library's path, named by a hash of its source and of every header
-    in csrc/ (a source may include any of them)."""
-    h = hashlib.sha1((CSRC_DIR / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC_DIR.glob("*.cuh")):
+    """The library's path, named by a hash of its source and, for a CUDA
+    source, of every header in csrc/ (it may include any of them)."""
+    src = source_path(name)
+    h = hashlib.sha1(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")) if src.suffix == ".cu" else ():
         h.update(header.name.encode())
         h.update(header.read_bytes())
     digest = h.hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
+def _start(cmd) -> subprocess.Popen:
+    try:
+        return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    except OSError as e:
+        raise RuntimeError(f"cannot start {cmd[0]} on {cmd[-1]}: {e}") from e
+
+
 def _start_nvcc(name: str, out: Path) -> subprocess.Popen:
     """Start nvcc on ``csrc/<name>.cu`` writing ``out``; stdout carries its
     report and errors."""
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(CSRC_DIR / f"{name}.cu")]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return _start([nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(CSRC_DIR / f"{name}.cu")])
+
+
+def _start_cxx(name: str, out: Path) -> subprocess.Popen:
+    """Start the host C++ compiler ($CXX, default c++) on
+    ``csrc/<name>.cpp`` writing ``out``."""
+    return _start([os.environ.get("CXX") or "c++", *CXX_FLAGS, "-o", str(out),
+                   str(CSRC_DIR / f"{name}.cpp")])
 
 
 def build(names: Sequence[str] = tuple(SIGNATURES)) -> Dict[str, str]:
-    """Compile every named source that has no current library, one nvcc per
-    source, all started together. Returns each source's ptxas report
-    (registers, shared memory, spills); raises with nvcc's output on failure."""
+    """Compile every named source that has no current library, one compiler
+    per source, all started together. Returns each source's report (ptxas's
+    registers, shared memory and spills for a CUDA source); raises with the
+    compiler's output on failure."""
     with _LOCK:
         return _build(names)
 
@@ -105,17 +142,18 @@ def _build(names: Sequence[str]) -> Dict[str, str]:
         if target.exists():
             continue
         tmp = target.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-        procs[name] = (_start_nvcc(name, tmp), tmp, target)
+        start = _start_nvcc if source_path(name).suffix == ".cu" else _start_cxx
+        procs[name] = (start(name, tmp), tmp, target)
     reports, failed = {}, []
     for name, (proc, tmp, target) in procs.items():
         out, _ = proc.communicate()
         reports[name] = out
         if proc.returncode != 0:
-            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{out}")
+            failed.append(f"{source_path(name).name} (exit {proc.returncode}):\n{out}")
             continue
         os.replace(tmp, target)
     if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+        raise RuntimeError("native library build failed:\n" + "\n".join(failed))
     return reports
 
 

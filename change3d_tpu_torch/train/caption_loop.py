@@ -99,6 +99,7 @@ class CaptionRunConfig:
     dropout: float = 0.1
     beam_size: int = 1
     num_workers: int = 2
+    loader: str = "threaded"  # or 'grain': worker processes (data/process_pipeline.py)
     seed: int = 16
     resume: bool = False
     eval_split: str = "TEST"
@@ -262,7 +263,7 @@ def run_caption_eval(cfg: CaptionRunConfig, run_dir: Optional[str] = None,
     run_dir = run_dir or os.path.join(cfg.save_dir, f"{cfg.dataset}_cc_lr_{cfg.lr}")
     data = _EveryFifth(CaptionDataset(cfg.file_root, cfg.dataset, split or cfg.eval_split))
     loader = make_data_loader(
-        "threaded", data, cfg.eval_batch_size, shuffle=False, num_workers=cfg.num_workers,
+        cfg.loader, data, cfg.eval_batch_size, shuffle=False, num_workers=cfg.num_workers,
         collate=caption_collate, pad_final=True,
     )
     model = build_caption_model(cfg, len(word_map), in_size=data.__getitem__(0)["pre"].shape[0],
@@ -314,11 +315,11 @@ def _run_caption(cfg: CaptionRunConfig, logger, save_path: str,
     train_data = CaptionDataset(cfg.file_root, cfg.dataset, "TRAIN")
     eval_data = _EveryFifth(CaptionDataset(cfg.file_root, cfg.dataset, cfg.eval_split))
     train_loader = make_data_loader(
-        "threaded", train_data, cfg.batch_size, shuffle=True, seed=cfg.seed,
+        cfg.loader, train_data, cfg.batch_size, shuffle=True, seed=cfg.seed,
         num_workers=cfg.num_workers, collate=caption_collate, drop_last=True,
     )
     eval_loader = make_data_loader(
-        "threaded", eval_data, cfg.eval_batch_size, shuffle=False,
+        cfg.loader, eval_data, cfg.eval_batch_size, shuffle=False,
         num_workers=cfg.num_workers, collate=caption_collate, pad_final=True,
     )
     in_size = train_data.__getitem__(0, np.random.default_rng(0))["pre"].shape[0]

@@ -88,6 +88,7 @@ class RunConfig:
     weight_decay: float = 1e-4
     resume: bool = False
     num_workers: int = 4
+    loader: str = "threaded"  # or 'grain': worker processes (data/process_pipeline.py)
     seed: int = 16
     log_name: str = "train_val_log"
     compute_dtype: str = "bfloat16"
@@ -185,7 +186,7 @@ def calibrate_from_train_split(cfg: RunConfig, model: Change3D) -> Dict[str, tor
 
     _, eval_tf = make_transform_pipelines(cfg.task, cfg.in_width, cfg.in_height)
     loader = make_data_loader(
-        "threaded", DATASETS[cfg.task](cfg.file_root, "train", eval_tf), cfg.batch_size,
+        cfg.loader, DATASETS[cfg.task](cfg.file_root, "train", eval_tf), cfg.batch_size,
         shuffle=False, num_workers=cfg.num_workers, collate=pair_collate, drop_last=False,
         num_shards=1, shard_index=0,
     )
@@ -288,7 +289,7 @@ def run_detection_eval(cfg: RunConfig, run_dir: Optional[str] = None, split: str
     run_dir = run_dir or os.path.join(cfg.save_dir, f"{cfg.dataset}_iter_{cfg.max_steps}_lr_{cfg.lr}")
     _, eval_tf = make_transform_pipelines(cfg.task, cfg.in_width, cfg.in_height)
     loader = make_data_loader(
-        "threaded", DATASETS[cfg.task](cfg.file_root, split, eval_tf), cfg.batch_size,
+        cfg.loader, DATASETS[cfg.task](cfg.file_root, split, eval_tf), cfg.batch_size,
         shuffle=False, num_workers=cfg.num_workers, collate=pair_collate, pad_final=True,
     )
     model = build_model(cfg)
@@ -314,11 +315,11 @@ def _run_detection(cfg: RunConfig, logger, save_path: str) -> Dict[str, Any]:
     train_data = DATASETS[cfg.task](cfg.file_root, "train", train_tf)
     test_data = DATASETS[cfg.task](cfg.file_root, "test", eval_tf)
     train_loader = make_data_loader(
-        "threaded", train_data, cfg.batch_size, shuffle=True, seed=cfg.seed,
+        cfg.loader, train_data, cfg.batch_size, shuffle=True, seed=cfg.seed,
         num_workers=cfg.num_workers, collate=pair_collate, drop_last=True,
     )
     test_loader = make_data_loader(
-        "threaded", test_data, cfg.batch_size, shuffle=False, num_workers=cfg.num_workers,
+        cfg.loader, test_data, cfg.batch_size, shuffle=False, num_workers=cfg.num_workers,
         collate=pair_collate, pad_final=True,
     )
     max_batches = max(len(train_loader), 1)

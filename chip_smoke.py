@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of change3d_tpu_torch on one NVIDIA GPU (built for the H100).
 
-    python3 chip_smoke.py [--batch 8] [--batches 3] [--seed 0] [--multi-gpu-only | --int8-only]
+    python3 chip_smoke.py [--batch 8] [--batches 3] [--seed 0]
+                          [--multi-gpu-only | --int8-only | --data-only]
 
 Run from the repository root. Phases (any failure exits non-zero and prints
 no result line):
 
-1. build: compile every CUDA kernel from csrc/ (one nvcc per source, all
-   started together) and print the card's name and power limit;
+1. build: compile every native library from csrc/ (one nvcc per CUDA
+   source and c++ for the host METEOR scorer meteor.cpp, all started
+   together) and print the card's name and power limit;
 2. kernels: hold each kernel against its plain PyTorch version on the card
    at the four X3D-L stage shapes at 256^2 on the clips of the three tasks
    (T=3 BCD and CC, T=4 BDA, T=5 SCD), with and without SE, at B=2, B=3 and
@@ -70,9 +72,10 @@ no result line):
    validation forwards (epoch 1 and the best-model re-evaluation), best/,
    the sidecar and the epoch-1 log written; then ``--resume`` restores
    step 4; then ``cli cc`` (fp32, batch 32) on a synthetic 256² LEVIR-CC
-   layout for 2 epochs with beam evaluation after each: 3 x (51 + 25)
-   launches, the BLEU-4 gate, ``--resume`` at step 4 (without h5py, an
-   in-memory .npy reader stands in for the HDF5 one, and the line says so);
+   layout (HDF5 written by data/hdf5.py, read by ``CaptionDataset``
+   through it; ``--loader grain``: worker processes) for 2 epochs with beam
+   evaluation after each, METEOR scored by the native library: 3 x (51 +
+   25) launches, the BLEU-4 gate, ``--resume`` at step 4;
 10. deploy, in process at full width and 256²: a reference-named BCD
    ``Trainer`` file made from a seeded port model (``reference_trainer_sd``,
    the converter's key map inverted) through ``cli convert-reference``
@@ -140,13 +143,23 @@ no result line):
    then one BCD train step at batch 16 with and without remat from one
    state: fp32 parity (loss and gradients 1e-5 relative in the 2-norm, BN
    running stats 1e-6) and bf16 ms per step and peak memory, the remat
-   peak lower. Details under the ``quant`` key.
+   peak lower. Details under the ``quant`` key;
+14. data (``phase_data``): the committed h5py-written fixture
+   tests/torch_fixtures/levircc_tiny.hdf5 read by data/hdf5.py equal to what
+   its seed regenerates; seconds to the first batch, and samples/s over a
+   window of 10 waves of the workers' prefetch (10 x workers x 2 batches),
+   of the threaded loader and of ``--loader grain`` at 2, 4 and 8 workers
+   on a synthetic LEVIR-CD PNG layout (BCD train transforms, batch 16) and
+   on a LEVIR-CC HDF5 layout (batch 32); native and Python METEOR
+   seconds on a 1929-image, 5-reference split of seeded ids, the scores
+   equal within 1e-12. Details under the ``data`` key.
 
 ``--int8-only`` builds the kernels, trains phase 9's ``cli bcd`` run and runs
 phase 13 on it, details beside ``--out`` as ``chip_smoke_int8.json``.
 ``--multi-gpu-only`` builds the kernels and runs phase 12 alone on freshly
 written layouts (the proof on several cards), its details beside ``--out``
-as ``chip_smoke_multi_gpu.json``.
+as ``chip_smoke_multi_gpu.json``. ``--data-only`` builds them and runs
+phase 14 and phase 9's ``cli cc``, details as ``chip_smoke_data.json``.
 
 The last lines are the kernels JSON, the card line from nvidia-smi, and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
@@ -952,21 +965,23 @@ def phase_cc_train_times(dev, seed, card, warmup=3, steps=5):
     return out
 
 
-def write_cc_layout(root, rs, n_train, n_test, hw, h5py):
-    """A synthetic LEVIR-CC layout: {SPLIT}_IMAGES_SYNTH ([N, 2, 3, H, W]
-    uint8; HDF5 with ``h5py``, else .npy), {SPLIT}_CAPTIONS_SYNTH.json and
-    {SPLIT}_CAPLENS_SYNTH.json (5 captions per image, padded to CC_LEN) and
-    WORDMAP_SYNTH.json (40 words)."""
+def write_cc_layout(root, rs, n_train, n_test, hw, repeat=1):
+    """A synthetic LEVIR-CC layout: {SPLIT}_IMAGES_SYNTH.hdf5 ([N, 2, 3, H,
+    W] uint8 and captions_per_image = 5, written by data/hdf5.py as h5py
+    writes them), {SPLIT}_CAPTIONS_SYNTH.json and {SPLIT}_CAPLENS_SYNTH.json
+    (5 captions per image, padded to CC_LEN) and WORDMAP_SYNTH.json (40
+    words). The train split holds its ``n_train`` random images ``repeat``
+    times over."""
+    from change3d_tpu_torch.data import hdf5
+
     words = cc_words(40)
     os.makedirs(root)
     for split, n in (("TRAIN", n_train), ("TEST", n_test)):
         images = rs.randint(0, 256, (n, 2, 3, hw, hw)).astype(np.uint8)
-        if h5py is not None:
-            with h5py.File(os.path.join(root, f"{split}_IMAGES_SYNTH.hdf5"), "w") as f:
-                f.attrs["captions_per_image"] = 5
-                f.create_dataset("images", data=images)
-        else:
-            np.save(os.path.join(root, f"{split}_IMAGES_SYNTH.npy"), images)
+        if split == "TRAIN" and repeat > 1:
+            images, n = np.tile(images, (repeat, 1, 1, 1, 1)), n * repeat
+        hdf5.write_file(os.path.join(root, f"{split}_IMAGES_SYNTH.hdf5"), images,
+                        {"captions_per_image": 5})
         caps, lens = [], []
         for _ in range(5 * n):
             k = rs.randint(5, 15)
@@ -979,66 +994,38 @@ def write_cc_layout(root, rs, n_train, n_test, hw, h5py):
         json.dump(words, f)
 
 
-def npy_caption_dataset():
-    """CaptionDataset over .npy images: the in-memory stand-in for the HDF5
-    reader where h5py is not installed."""
-    from change3d_tpu_torch.data.datasets import CaptionDataset
-
-    class NpyCaptionDataset(CaptionDataset):
-        def __init__(self, file_root, dataset, split):
-            self.split = split.upper()
-            self.images = np.load(os.path.join(file_root, f"{self.split}_IMAGES_{dataset}.npy"))
-            with open(os.path.join(file_root, f"{self.split}_CAPTIONS_{dataset}.json")) as f:
-                self.captions = json.load(f)
-            with open(os.path.join(file_root, f"{self.split}_CAPLENS_{dataset}.json")) as f:
-                self.caplens = json.load(f)
-            self.cpi = 5
-
-        def close(self):
-            pass
-
-    return NpyCaptionDataset
-
-
 def phase_cc_loop(fb, seed, keep=None):
-    """``cli cc`` in process on a synthetic 256² LEVIR-CC layout (13 train
-    images = 65 caption rows, 2 steps per epoch at batch 32; 8 test images,
-    one eval batch of 32) at the CLI defaults (fp32) for 2 epochs with beam-1
-    evaluation after each and a best-model re-evaluation: 3 x (51 + 25)
-    fused launches; then ``--resume`` restores step 4. Without h5py the
-    HDF5 reader is replaced by an in-memory .npy reader, said on the line.
-    With ``keep`` (a directory) the data and the run stay there, and the
-    stats name them."""
+    """``cli cc --loader grain`` in process on a synthetic 256² LEVIR-CC
+    layout written by data/hdf5.py (13 train images = 65 caption rows, 2
+    steps per epoch at batch 32; 8 test images, one eval batch of 32) at the
+    CLI defaults (fp32) for 2 epochs with beam-1 evaluation after each and
+    a best-model re-evaluation: 3 x (51 + 25) fused launches; then
+    ``--resume`` restores step 4. ``CaptionDataset`` reads the HDF5 files
+    through data/hdf5.py, the worker-process loader feeds the steps, and
+    the evaluation scores METEOR through the native library
+    (csrc/meteor.cpp). With ``keep`` (a directory) the data and the run stay
+    there, and the stats name them."""
     import contextlib
 
     from change3d_tpu_torch import cli
-    from change3d_tpu_torch.train import caption_loop
+    from change3d_tpu_torch.ops import cuda_build
 
-    try:
-        import h5py
-    except ImportError:
-        h5py = None
-    reader = "CaptionDataset (HDF5)" if h5py else "in-memory .npy stand-in for CaptionDataset"
-    original = caption_loop.CaptionDataset
     with (contextlib.nullcontext(keep) if keep else tempfile.TemporaryDirectory()) as tmp:
         root, save = os.path.join(tmp, "data"), os.path.join(tmp, "exp")
-        write_cc_layout(root, np.random.RandomState(seed + 9), 13, 8, 256, h5py)
+        write_cc_layout(root, np.random.RandomState(seed + 9), 13, 8, 256)
         argv = ["cc", "--file_root", root, "--dataset", "SYNTH", "--save_dir", save,
-                "--epochs", "2", "--num_workers", "4", "--seed", str(seed)]
-        try:
-            if h5py is None:
-                caption_loop.CaptionDataset = npy_caption_dataset()
-            fb.fused_block_fwd.launches = 0
-            fb.fused_block_se_sums.launches = 0
-            t0 = time.perf_counter()
-            res = cli.main(argv)
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-            launches = {"fused_block_fwd": fb.fused_block_fwd.launches,
-                        "fused_block_se_sums": fb.fused_block_se_sums.launches}
-            resumed = cli.main(argv + ["--resume"])
-        finally:
-            caption_loop.CaptionDataset = original
+                "--epochs", "2", "--num_workers", "4", "--loader", "grain", "--seed", str(seed)]
+        fb.fused_block_fwd.launches = 0
+        fb.fused_block_se_sums.launches = 0
+        t0 = time.perf_counter()
+        res = cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {"fused_block_fwd": fb.fused_block_fwd.launches,
+                    "fused_block_se_sums": fb.fused_block_se_sums.launches}
+        resumed = cli.main(argv + ["--resume"])
+        if "meteor" not in cuda_build._LOADED:
+            raise AssertionError("cc evaluation did not load the native METEOR library")
         forwards = 3
         want = {k: v * forwards for k, v in CC_PER_FORWARD.items()}
         if launches != want:
@@ -1058,14 +1045,137 @@ def phase_cc_loop(fb, seed, keep=None):
             raise AssertionError(f"cc train loop result {res}")
         if resumed["resumed_from_step"] != 4:
             raise AssertionError(f"--resume restored step {resumed['resumed_from_step']}, want 4")
-    stats = {"task": "cc", "reader": reader, "batch": CC_BATCH, "seconds": seconds,
+    stats = {"task": "cc", "reader": "CaptionDataset (HDF5, data/hdf5.py)",
+             "loader": "grain (torch worker processes, 4)",
+             "meteor": "native (csrc/meteor.cpp)", "batch": CC_BATCH, "seconds": seconds,
              "launches": launches, "eval_forwards": forwards, "bleu4_gate_best": best,
              "eval": val, "test_best": res["test_best"],
              "resumed_from_step": resumed["resumed_from_step"]}
     if keep:
         stats.update(run_dir=run_dir, file_root=root)
-    print(f"train loop (cli cc, 2 epochs, {reader}): {json.dumps(stats)}", flush=True)
+    print(f"train loop (cli cc --loader grain, 2 epochs, HDF5 through data/hdf5.py, native "
+          f"METEOR): {json.dumps(stats)}", flush=True)
     return launches, stats
+
+
+# Data phase: the committed fixture (written by h5py from this seed), the
+# loaders' layouts (BCD train pairs at 256^2, batch 16; CC train images at
+# 256^2, batch 32), the worker counts, the timed window in waves of every
+# worker's prefetch, and METEOR's split (LEVIR-CC's test split: 1929 images,
+# 5 references of 6-15 ids of the 40-word map).
+FIXTURE = os.path.join("tests", "torch_fixtures", "levircc_tiny.hdf5")
+FIXTURE_SEED, FIXTURE_SHAPE, FIXTURE_CPI = 20251017, (3, 2, 3, 16, 16), 5
+DATA_BCD_PAIRS, DATA_CC_IMAGES, DATA_WORKERS = 128, 64, (2, 4, 8)
+DATA_WAVES, DATA_PREFETCH = 10, 2  # DATA_PREFETCH: the grain loader's batches per worker
+METEOR_IMAGES, METEOR_REFS = 1929, 5
+
+
+def data_window(workers):
+    """Batches timed at ``workers`` workers: DATA_WAVES waves of every
+    worker's prefetch."""
+    return DATA_WAVES * workers * DATA_PREFETCH
+
+
+def loader_rate(loader, batch, window):
+    """Seconds to the first batch of epoch 0 (the workers' start included);
+    then, from the first batch of epoch 1 on (workers up, the stale end of
+    epoch 0 drained), samples/s over the next ``window`` batches."""
+    t0 = time.perf_counter()
+    it = iter(loader)
+    first = next(it)
+    t1 = time.perf_counter()
+    it.close()
+    loader.set_epoch(1)
+    if len(loader) <= window:
+        raise AssertionError(f"an epoch of {len(loader)} batches holds no window of {window}")
+    it = iter(loader)
+    next(it)
+    t2 = time.perf_counter()
+    n = sum(len(b["pre"]) for _, b in zip(range(window), it))
+    t3 = time.perf_counter()
+    it.close()
+    if len(first["pre"]) != batch or n != window * batch:
+        raise AssertionError(f"loader gave {len(first['pre'])} and {n} samples")
+    getattr(loader, "close", lambda: None)()
+    return {"first_batch_s": t1 - t0, "samples_per_s": n / (t3 - t2), "samples": n,
+            "batches": window, "seconds": t3 - t2}
+
+
+def link_copies(root, split, copies):
+    """Hard links that make a PNG layout's split ``copies`` times as long
+    (the loaders decode every name, so the work is that of as many files)."""
+    for d in os.listdir(os.path.join(root, split)):
+        folder = os.path.join(root, split, d)
+        names = os.listdir(folder)
+        for c in range(1, copies):
+            for name in names:
+                os.link(os.path.join(folder, name), os.path.join(folder, f"c{c}_{name}"))
+
+
+def phase_data(seed, tmp, card):
+    """The data path on the card's machine: the committed h5py-written
+    fixture read by data/hdf5.py equals what its seed regenerates; samples/s
+    of the threaded loader and of the worker-process loader (``--loader
+    grain``) at DATA_WORKERS workers on a synthetic LEVIR-CD PNG layout
+    (train transforms, batch 16: DATA_BCD_PAIRS pairs, hard-linked to an
+    epoch longer than the largest window) and on a LEVIR-CC HDF5 layout
+    (batch 32: DATA_CC_IMAGES images, repeated as far), over
+    ``data_window`` batches each by ``loader_rate``;
+    native and Python METEOR seconds on a LEVIR-CC-sized split of seeded
+    ids, their scores equal within 1e-12."""
+    from change3d_tpu_torch.data import hdf5
+    from change3d_tpu_torch.data.datasets import BCDDataset, CaptionDataset
+    from change3d_tpu_torch.data.pipeline import caption_collate, make_data_loader, pair_collate
+    from change3d_tpu_torch.data.transforms import make_transform_pipelines
+    from change3d_tpu_torch.metrics.caption import meteor
+
+    t0 = time.perf_counter()
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), FIXTURE)
+    location, attrs = hdf5.read_file(path)
+    want = np.random.default_rng(FIXTURE_SEED).integers(0, 256, FIXTURE_SHAPE, dtype=np.uint8)
+    if attrs != {"captions_per_image": FIXTURE_CPI} or not np.array_equal(location.map(), want):
+        raise AssertionError(f"{FIXTURE} does not read as its seed: {attrs}")
+    stats = {"fixture": {"path": FIXTURE, "shape": list(location.shape), "offset":
+                         location.offset, "attrs": attrs, "equal_to_seed": True}}
+
+    bcd_root, cc_root = os.path.join(tmp, "data_bcd"), os.path.join(tmp, "data_cc")
+    longest = data_window(max(DATA_WORKERS)) + 1  # batches an epoch must hold
+    write_layout(bcd_root, np.random.RandomState(seed + 20), "bcd", DATA_BCD_PAIRS, 1, 256)
+    link_copies(bcd_root, "train", -(-longest * 16 // DATA_BCD_PAIRS))
+    write_cc_layout(cc_root, np.random.RandomState(seed + 21), DATA_CC_IMAGES, 1, 256,
+                    repeat=-(-longest * CC_BATCH // (5 * DATA_CC_IMAGES)))
+    train_tf, _ = make_transform_pipelines("bcd", 256, 256)
+    layouts = {"bcd_png_batch16": (BCDDataset(bcd_root, "train", train_tf), pair_collate, 16),
+               "cc_hdf5_batch32": (CaptionDataset(cc_root, "SYNTH", "TRAIN"), caption_collate,
+                                   CC_BATCH)}
+    stats["loaders"] = {}
+    for name, (data, collate, batch) in layouts.items():
+        rows = {}
+        for kind in ("threaded", "grain"):
+            for workers in DATA_WORKERS:
+                loader = make_data_loader(kind, data, batch, shuffle=True, seed=seed,
+                                          num_workers=workers, collate=collate, drop_last=True)
+                rows[f"{kind}_{workers}"] = loader_rate(loader, batch, data_window(workers))
+        stats["loaders"][name] = rows
+
+    rs = np.random.RandomState(seed + 22)
+    ids = lambda: " ".join(map(str, rs.randint(4, 40, rs.randint(6, 16))))
+    refs = [[ids() for _ in range(METEOR_REFS)] for _ in range(METEOR_IMAGES)]
+    hyps = [ids() for _ in range(METEOR_IMAGES)]
+    meteor.native_library()  # built in phase 1; loaded here, outside the timing
+    scores, seconds = {}, {}
+    for backend in meteor.BACKENDS:
+        t1 = time.perf_counter()
+        scores[backend] = meteor.corpus_meteor(refs, hyps, backend=backend)
+        seconds[backend] = time.perf_counter() - t1
+    if abs(scores["native"] - scores["python"]) > 1e-12 * max(1.0, abs(scores["python"])):
+        raise AssertionError(f"METEOR native {scores['native']} != python {scores['python']}")
+    stats["meteor"] = {"images": METEOR_IMAGES, "references": METEOR_REFS, "scores": scores,
+                       "seconds": seconds, "python_over_native":
+                       seconds["python"] / seconds["native"]}
+    stats["seconds"] = time.perf_counter() - t0
+    print(f"data phase ({card}): {json.dumps(stats)}", flush=True)
+    return stats
 
 
 # Kinetics head widths of X3D-L (pytorchvideo's create_x3d_head at 400 classes).
@@ -1727,12 +1837,9 @@ def rank_worker(spec_path) -> int:
 
     from change3d_tpu_torch import cli
     from change3d_tpu_torch.ops import fused_block as fb
-    from change3d_tpu_torch.train import caption_loop
 
     with open(spec_path) as f:
         spec = json.load(f)
-    if spec["npy_reader"]:
-        caption_loop.CaptionDataset = npy_caption_dataset()
     runs = []
     for argv in spec["runs"]:
         reset_counts(fb)
@@ -1749,7 +1856,7 @@ def rank_worker(spec_path) -> int:
     return 0
 
 
-def start_ranks(tmp, name, argv, n, npy_reader):
+def start_ranks(tmp, name, argv, n):
     """``n`` processes of this script's ``--rank-worker``, process i running
     ``argv`` and then ``argv --resume`` as process i of n over NCCL."""
     port = free_port()
@@ -1757,7 +1864,7 @@ def start_ranks(tmp, name, argv, n, npy_reader):
     for i in range(n):
         flags = ["--coordinator_address", f"127.0.0.1:{port}", "--num_processes", str(n),
                  "--process_id", str(i)]
-        spec = {"runs": [argv + flags, argv + flags + ["--resume"]], "npy_reader": npy_reader,
+        spec = {"runs": [argv + flags, argv + flags + ["--resume"]],
                 "out": os.path.join(tmp, f"{name}-{i}.json")}
         spec_path = os.path.join(tmp, f"{name}-{i}.spec.json")
         with open(spec_path, "w") as f:
@@ -1824,11 +1931,6 @@ def phase_multi_gpu(fb, dev, seed, tmp, bcd_root, cc_root):
 
     t0 = time.perf_counter()
     n = torch.cuda.device_count()
-    try:
-        import h5py  # noqa: F401
-        npy_reader = False
-    except ImportError:
-        npy_reader = True
     bcd_argv = ["bcd", "--file_root", bcd_root, "--save_dir", os.path.join(tmp, "mg_bcd"),
                 "--max_epochs", "2", "--compute_dtype", "bfloat16", "--num_workers", "4",
                 "--seed", str(seed)]
@@ -1840,11 +1942,10 @@ def phase_multi_gpu(fb, dev, seed, tmp, bcd_root, cc_root):
     # One task at a time: CC's fp32 step alone peaks near 53 GB per card.
     infos = []
     for name, argv in (("mg_bcd", bcd_argv), ("mg_cc", cc_argv)):
-        infos += wait_ranks(start_ranks(tmp, name, argv, n, npy_reader),
+        infos += wait_ranks(start_ranks(tmp, name, argv, n),
                             time.monotonic() + MULTI_GPU_TIMEOUT)
     stats = {"processes": n, "parent_reserved_gb": parent_gb,
-             "reader": "in-memory .npy stand-in for CaptionDataset"
-             if npy_reader else "CaptionDataset (HDF5)"}
+             "reader": "CaptionDataset (HDF5, data/hdf5.py)"}
     for name, forwards, per in (("bcd", (2, 1), (37, 18)), ("cc", (3, 1), (51, 25))):
         mine = infos[:n] if name == "bcd" else infos[n:]
         for i, info in enumerate(mine):
@@ -1973,20 +2074,35 @@ def multi_gpu_only(fb, dev, args, card) -> int:
     """``--multi-gpu-only``: phase 12 on freshly written 256² layouts (as
     phase 9 writes them), details to ``{args.out}`` with ``_multi_gpu``
     before its extension."""
-    try:
-        import h5py
-    except ImportError:
-        h5py = None
     with tempfile.TemporaryDirectory() as tmp:
         bcd_root, cc_root = os.path.join(tmp, "bcd"), os.path.join(tmp, "cc")
         write_layout(bcd_root, np.random.RandomState(args.seed + 3), "bcd", 32, 16, 256)
-        write_cc_layout(cc_root, np.random.RandomState(args.seed + 9), 13, 8, 256, h5py)
+        write_cc_layout(cc_root, np.random.RandomState(args.seed + 9), 13, 8, 256)
         stats = phase_multi_gpu(fb, dev, args.seed, tmp, bcd_root, cc_root)
     out = os.path.splitext(args.out)[0] + "_multi_gpu.json"
     if os.path.dirname(out):
         os.makedirs(os.path.dirname(out), exist_ok=True)
     with open(out, "w") as f:
         json.dump({"card": card, "multi_gpu": stats}, f, indent=1)
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def data_only(fb, dev, args, card) -> int:
+    """``--data-only``: the data phase, then phase 9's ``cli cc`` run
+    (HDF5, ``--loader grain``, native METEOR), details beside ``--out`` as
+    ``chip_smoke_data.json``."""
+    with tempfile.TemporaryDirectory() as tmp:
+        stats = {"data": phase_data(args.seed, tmp, card)}
+        launches, stats["cc_loop"] = phase_cc_loop(fb, args.seed)
+    out = os.path.splitext(args.out)[0] + "_data.json"
+    if os.path.dirname(out):
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out, "w") as f:
+        json.dump({"card": card, **stats}, f, indent=1)
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -2403,6 +2519,8 @@ def main(argv=None) -> int:
                     help="build the kernels and run phase 13 alone (on a fresh cli bcd run)")
     ap.add_argument("--multi-gpu-only", action="store_true",
                     help="build the kernels and run phase 12 alone, on every card")
+    ap.add_argument("--data-only", action="store_true",
+                    help="build the kernels and run the data phase and phase 9's cli cc alone")
     ap.add_argument("--rank-worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
@@ -2431,13 +2549,16 @@ def main(argv=None) -> int:
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
-    print(f"build: {sorted(cuda_build.SIGNATURES)} in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"build: {sorted(cuda_build.SIGNATURES)} in {time.perf_counter() - t0:.1f} s (nvcc "
+          f"for the .cu kernels and c++ for meteor.cpp, started together)", flush=True)
     card = card_line()
     print(f"card: {card}", flush=True)
     if args.multi_gpu_only:
         return multi_gpu_only(fb, dev, args, card)
     if args.int8_only:
         return int8_only(fb, dev, args, card)
+    if args.data_only:
+        return data_only(fb, dev, args, card)
 
     seeds = list(range(args.seed, args.seed + KERNEL_SEEDS))
     worst = phase_kernels(fb, dev, seeds, args.batch)
@@ -2479,6 +2600,7 @@ def main(argv=None) -> int:
                  for task in TASKS}
         loops["cc"] = phase_cc_loop(fb, args.seed, keep=os.path.join(deploy_dir, "cc_loop"))
         train["loop"] = {task: loop[1] for task, loop in loops.items()}
+        data = phase_data(args.seed, deploy_dir, card)
         t0 = time.perf_counter()
         deploy_model, deploy = phase_deploy_files(fb, dev, args.seed, deploy_dir,
                                                   loops["bcd"][1])
@@ -2497,6 +2619,7 @@ def main(argv=None) -> int:
     print(f"export phase: {export['seconds']:.1f} s", flush=True)
     print(f"multi-GPU phase: {multi_gpu['seconds']:.1f} s", flush=True)
     print(f"int8 and remat phase: {quant['seconds']:.1f} s", flush=True)
+    print(f"data phase: {data['seconds']:.1f} s", flush=True)
     print(f"kernels vs plain versions, worst over every check: {json.dumps(worst)}", flush=True)
     for task in TASKS:
         runs, fwd_ms = times[task]
@@ -2576,7 +2699,7 @@ def main(argv=None) -> int:
               "forward_ms": {task: times[task][1] for task in TASKS},
               "forward_check": forward_check, "cc_times": cc_times, "rows": rows,
               "kernels": kernels, "train": train, "deploy": deploy, "export": export,
-              "multi_gpu": multi_gpu, "quant": quant}
+              "multi_gpu": multi_gpu, "quant": quant, "data": data}
     if os.path.dirname(args.out):
         os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:

@@ -212,9 +212,7 @@ def test_refused_flags_name_their_slice(capsys):
           "cpu"], "--device"),
         (["export", "--model_task", "bcd", "--checkpoint", "c", "--out", "x", "--platforms",
           "cpu,tpu"], "--device"),
-        (["bcd", "--file_root", "r", "--loader", "grain"], "grain"),
         (["bcd", "--file_root", "r", "--packed"], "never ported"),
-        (["cc", "--file_root", "r", "--loader", "grain"], "grain"),
         (["info", "--model_task", "bcd", "--platform", "cpu"], "--device"),
     ]
     for argv, reason in cases:
@@ -222,6 +220,14 @@ def test_refused_flags_name_their_slice(capsys):
             cli.main(argv)
         err = capsys.readouterr().err
         assert "is not ported yet" in err and reason in err, (argv, err)
+    # --loader is ported: grain (the worker-process loader) parses for bcd
+    # and cc, and an unknown kind is refused.
+    for task in ("bcd", "cc"):
+        assert cli.build_parser().parse_args([task, "--file_root", "r", "--loader", "grain"]
+                                             ).loader == "grain"
+        with pytest.raises(SystemExit):
+            cli.main([task, "--file_root", "r", "--loader", "bogus"])
+        assert "invalid choice: 'bogus'" in capsys.readouterr().err
     # The multi-GPU, int8 and remat flags are ported: they parse (--shard is
     # refused only beside --artifact, tests/test_torch_parallel_predict.py).
     parser = cli.build_parser()

@@ -127,17 +127,22 @@ def test_eval_normalize_matches_jax_package():
 
 
 def test_import_leaves_jax_out():
-    """Importing every module of the port pulls in no jax, flax,
-    change3d_tpu, cv2 or PIL module."""
+    """Importing every module of the port (the HDF5 reader, the
+    worker-process loader and METEOR included) pulls in no jax, flax,
+    change3d_tpu, grain, h5py, cv2 or PIL module."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import change3d_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, 'change3d_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "need = ['data.hdf5', 'data.process_pipeline', 'metrics.caption.meteor']\n"
+        "missing = [n for n in need if 'change3d_tpu_torch.' + n not in sys.modules]\n"
         "bad = sorted(n for n in sys.modules\n"
-        "             if n.split('.')[0] in ('jax', 'jaxlib', 'flax', 'change3d_tpu', 'cv2', 'PIL'))\n"
-        "print(len([n for n in sys.modules if n.startswith('change3d_tpu_torch')]), bad)\n"
-        "sys.exit(1 if bad else 0)\n"
+        "             if n.split('.')[0] in ('jax', 'jaxlib', 'flax', 'change3d_tpu', 'grain',\n"
+        "                                    'h5py', 'cv2', 'PIL'))\n"
+        "print(len([n for n in sys.modules if n.startswith('change3d_tpu_torch')]), bad,\n"
+        "      missing)\n"
+        "sys.exit(1 if bad or missing else 0)\n"
     )
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(REPO), os.environ.get("PYTHONPATH", "")]))
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
@@ -147,8 +152,9 @@ def test_import_leaves_jax_out():
 
 
 def test_sources_never_import_the_jax_package():
-    pattern = re.compile(r"^\s*(import\s+(change3d_tpu|jax|flax|cv2|PIL)\b(?!_torch)"
-                         r"|from\s+(change3d_tpu|jax|flax|cv2|PIL)\b(?!_torch))", re.M)
+    pattern = re.compile(r"^\s*(import\s+(change3d_tpu|jax|flax|grain|h5py|cv2|PIL)\b(?!_torch)"
+                         r"|from\s+(change3d_tpu|jax|flax|grain|h5py|cv2|PIL)\b(?!_torch))",
+                         re.M)
     files = list((REPO / "change3d_tpu_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "tools" / "profile_torch_bcd.py",
         REPO / "tools" / "phase_clocks.py"]

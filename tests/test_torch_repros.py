@@ -139,15 +139,20 @@ def test_repros_module_leaves_jax_out():
 
 
 def test_library_path_follows_every_header(tmp_path, monkeypatch):
-    """An edit to a csrc/*.cuh header gives every library a new path, so a
-    stale build is never reused."""
+    """An edit to a csrc/*.cuh header gives every CUDA library a new path,
+    so a stale build is never reused; the host library (meteor.cpp, which
+    includes no .cuh) follows its own source only."""
     for f in cuda_build.CSRC_DIR.iterdir():
         (tmp_path / f.name).write_bytes(f.read_bytes())
     monkeypatch.setattr(cuda_build, "CSRC_DIR", tmp_path)
     before = {name: cuda_build.library_path(name) for name in cuda_build.SIGNATURES}
-    assert set(before) == {"fused_block", "repros"}
+    assert set(before) == {"fused_block", "repros", "meteor"}
     header = tmp_path / "ptx.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     after = {name: cuda_build.library_path(name) for name in cuda_build.SIGNATURES}
-    assert all(after[n] != before[n] for n in before)
+    cuda = {"fused_block", "repros"}
+    assert all(after[n] != before[n] for n in cuda) and after["meteor"] == before["meteor"]
     assert all(p.parent == cuda_build.BUILD_DIR for p in after.values())
+    source = tmp_path / "meteor.cpp"
+    source.write_text(source.read_text() + "\n// edited\n")
+    assert cuda_build.library_path("meteor") != after["meteor"]

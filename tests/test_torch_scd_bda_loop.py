@@ -143,10 +143,17 @@ def test_cli_defaults_follow_the_jax_cli(task, tmp_path, capsys):
     assert args.device == "cuda" and args.compute_dtype == "bfloat16"
     assert cli.build_parser().parse_args([task, "--file_root", "r", "--num_class", "7"]
                                          ).num_classes == 7
-    for flag in ("--packed", "--no-packed", "--loader"):
+    for flag in ("--packed", "--no-packed"):
         with pytest.raises(SystemExit):
             cli.main([task, "--file_root", "r", flag, "x"])
         assert f"{flag} is not ported yet" in capsys.readouterr().err
+    # --loader is ported: grain (the worker-process loader) parses, and an
+    # unknown kind is refused.
+    assert cli.build_parser().parse_args([task, "--file_root", "r", "--loader", "grain"]
+                                         ).loader == "grain"
+    with pytest.raises(SystemExit):
+        cli.main([task, "--file_root", "r", "--loader", "bogus"])
+    assert "invalid choice: 'bogus'" in capsys.readouterr().err
     assert cli.build_parser().parse_args([task, "--file_root", "r", "--remat"]).remat
     # The multi-process flags are ported: they parse.
     args = cli.build_parser().parse_args([task, "--file_root", "r", "--coordinator_address",

@@ -149,10 +149,17 @@ def test_cli_defaults_to_the_card_and_refuses_unported_flags(data_root, tmp_path
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main(argv)
-    for flag in ("--loader", "--packed", "--no-packed"):
+    for flag in ("--packed", "--no-packed"):
         with pytest.raises(SystemExit):
             cli.main(_argv(data_root, str(tmp_path / "y"), 1, flag, "X3D_L.pyth"))
         assert f"{flag} is not ported yet" in capsys.readouterr().err
+    # --loader is ported: grain (the worker-process loader) parses, and an
+    # unknown kind is refused.
+    assert cli.build_parser().parse_args(argv + ["--loader", "grain"]).loader == "grain"
+    assert args.loader == "threaded"
+    with pytest.raises(SystemExit):
+        cli.main(_argv(data_root, str(tmp_path / "y"), 1, "--loader", "bogus"))
+    assert "invalid choice: 'bogus'" in capsys.readouterr().err
     # --remat is ported (off by default; tests/test_torch_remat.py).
     assert cli.build_parser().parse_args(argv + ["--remat"]).remat
     assert not args.remat
