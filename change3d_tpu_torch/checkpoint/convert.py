@@ -19,8 +19,10 @@ kernels to the port's layouts:
   matrices [in, out], LayerNorm scale/bias) -> unchanged
 
 Detection trees come without ``stage4`` (flax never materialises it there);
-a CC tree has stage4 for CC and the caption decoder. The classifier head is
-not ported and is dropped.
+a CC tree has stage4 for CC and the caption decoder. The Kinetics head of a
+bare X3D tree (``head/{pre_conv, pre_bn, post_conv, proj_w, proj_b}``, [in,
+out] matrices as the port keeps them) is carried as ``head.*`` for a port
+``X3D(cfg, head=True)`` (``head=True``), and dropped otherwise.
 """
 
 from __future__ import annotations
@@ -65,9 +67,12 @@ def _convert_leaf(path, v: np.ndarray) -> np.ndarray:
     return v
 
 
-def from_jax_variables(variables: Mapping, cfg: Optional[X3DConfig] = None) -> Dict[str, torch.Tensor]:
+def from_jax_variables(variables: Mapping, cfg: Optional[X3DConfig] = None, *,
+                       head: bool = False) -> Dict[str, torch.Tensor]:
     """JAX ``{'params', 'batch_stats'[, 'quant']}`` (numpy leaves) -> port
-    state_dict (with the ``amax_*`` ranges of a 'quant' collection).
+    state_dict (with the ``amax_*`` ranges of a 'quant' collection). The
+    Kinetics head's leaves come along with ``head`` (the target is an
+    ``X3D(cfg, head=True)``) and are dropped without.
 
     Raises if a stage present in the tree does not hold exactly
     ``cfg.stage_depths`` blocks."""
@@ -76,7 +81,7 @@ def from_jax_variables(variables: Mapping, cfg: Optional[X3DConfig] = None) -> D
     blocks: Dict[str, set] = {}
     for collection in ("params", "batch_stats", "quant"):
         for path, value in _walk(variables.get(collection, {})):
-            if "head" in path:
+            if "head" in path and not head:
                 continue
             for p, v in _unstack_pairs(path, value):
                 key = ".".join(p)
@@ -111,9 +116,9 @@ def from_jax_variables(variables: Mapping, cfg: Optional[X3DConfig] = None) -> D
 #                                                -> head.pre_conv / pre_bn / post_conv, proj_w/_b
 #
 # BN: weight/bias/running_mean/running_var -> scale/bias/mean/var;
-# num_batches_tracked is dropped. The port's X3D has no Kinetics head module:
-# ``head.*`` is kept for ``checkpoint/verify.py`` and dropped by
-# ``merge_backbone_variables``.
+# num_batches_tracked is dropped. ``head.*`` are the names of the port's
+# ``X3DHead``: an ``X3D(cfg, head=True)`` loads the converted dict as it is;
+# ``merge_backbone_variables`` drops the head for a Change3D model.
 
 def _bn_keys(m: Dict[str, tuple], torch_prefix: str, port_prefix: str) -> None:
     for t, p in (("weight", "scale"), ("bias", "bias"), ("running_mean", "mean"),
@@ -205,8 +210,10 @@ def _torch_load(path: str):
 
 
 def load_x3d_pretrained(path: str, cfg: Optional[X3DConfig] = None) -> Dict[str, torch.Tensor]:
-    """Read ``X3D_L.pyth`` (its 'model_state' entry, or a bare state_dict)
-    and convert it strictly (``convert_x3d_state_dict``)."""
+    """Read a Kinetics X3D file (``X3D_L.pyth``, or ``X3D_M.pyth`` with
+    ``x3d_m_config()``; its 'model_state' entry, or a bare state_dict) and
+    convert it strictly (``convert_x3d_state_dict``): the state_dict of an
+    ``X3D(cfg, head=True)``."""
     ckpt = _torch_load(path)
     return convert_x3d_state_dict(ckpt.get("model_state", ckpt), cfg)
 
@@ -214,25 +221,33 @@ def load_x3d_pretrained(path: str, cfg: Optional[X3DConfig] = None) -> Dict[str,
 def merge_backbone_variables(state_dict: Mapping[str, torch.Tensor],
                              backbone: Mapping[str, torch.Tensor], *,
                              drop_head: bool = True) -> Dict[str, torch.Tensor]:
-    """A Change3D state_dict with every ``encoder.x3d.*`` entry taken from
-    ``backbone`` (``load_x3d_pretrained``'s output), ready for
-    ``load_state_dict``. Backbone stages the model does not build (stage 4
-    of the detection tasks) are left out, and the Kinetics head with
-    ``drop_head`` (no Change3D task runs it). Raises ValueError if the
-    backbone lacks one of the model's entries or has another shape."""
+    """``state_dict`` with every backbone entry taken from ``backbone``
+    (``load_x3d_pretrained``'s output), ready for ``load_state_dict``: a
+    Change3D model's ``encoder.x3d.*`` entries, or a bare X3D's (a state_dict
+    with no ``encoder.x3d.`` key). Backbone stages the model does not build
+    (stage 4 of the detection tasks) are left out, and with ``drop_head``
+    the Kinetics head (the model keeps its own). Without ``drop_head`` the
+    model must have the head (``X3D(cfg, head=True)``) and takes it. Raises
+    ValueError if the backbone lacks one of the model's entries or has
+    another shape."""
     out = dict(state_dict)
-    wanted = {k[len("encoder.x3d."):] for k in state_dict if k.startswith("encoder.x3d.")}
+    prefix = "encoder.x3d." if any(k.startswith("encoder.x3d.") for k in state_dict) else ""
+    wanted = {k[len(prefix):] for k in state_dict if k.startswith(prefix)}
+    if drop_head:
+        wanted = {k for k in wanted if not k.startswith("head.")}
+    elif any(k.startswith("head.") for k in backbone) and not any(
+            k.startswith("head.") for k in wanted):
+        raise ValueError("the model has no Kinetics head to take the head's weights: "
+                         "build X3D(cfg, head=True)")
     missing = sorted(wanted - set(backbone))
     if missing:
         raise ValueError(f"backbone lacks {len(missing)} of the model's entries, e.g. {missing[:5]}")
-    if not drop_head and any(k.startswith("head.") for k in backbone):
-        raise ValueError("the port's X3D has no Kinetics head to take the head's weights")
     for key in wanted:
         value = backbone[key]
-        if tuple(value.shape) != tuple(state_dict[f"encoder.x3d.{key}"].shape):
-            raise ValueError(f"encoder.x3d.{key}: backbone shape {tuple(value.shape)} vs model "
-                             f"{tuple(state_dict[f'encoder.x3d.{key}'].shape)}")
-        out[f"encoder.x3d.{key}"] = value
+        if tuple(value.shape) != tuple(state_dict[f"{prefix}{key}"].shape):
+            raise ValueError(f"{prefix}{key}: backbone shape {tuple(value.shape)} vs model "
+                             f"{tuple(state_dict[f'{prefix}{key}'].shape)}")
+        out[f"{prefix}{key}"] = value
     return out
 
 

@@ -17,6 +17,7 @@ exit 1 when the comparison fails.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 from typing import Dict, Mapping, Optional
 
@@ -24,7 +25,6 @@ import numpy as np
 import torch
 
 from change3d_tpu_torch.device import resolve_device
-from change3d_tpu_torch.ops.layers import pointwise_conv3d
 
 # fp32 convolutions of two frameworks differ by reduction order only; the
 # deepest tap (25-block stage 3) accumulates to about 1e-4 relative.
@@ -40,28 +40,19 @@ def fixed_probe_input(t: int = 3, h: int = 64, w: int = 64, seed: int = 0) -> np
     return np.random.RandomState(seed).randn(1, 3, t, h, w).astype(np.float32)
 
 
-def _head(x: torch.Tensor, sd: Mapping[str, torch.Tensor], eps: float) -> torch.Tensor:
-    """The Kinetics head in eval mode: 1x1x1 conv -> BN -> ReLU -> global
-    mean -> 1x1x1 conv -> ReLU -> linear -> mean, [B, classes]."""
-    g = lambda k: sd[f"head.{k}"].to(x.device, torch.float32)
-    x = pointwise_conv3d(x, g("pre_conv"))
-    a = g("pre_bn.scale") * torch.rsqrt(g("pre_bn.var") + eps)
-    x = torch.relu(x * a + (g("pre_bn.bias") - g("pre_bn.mean") * a))
-    x = x.mean(dim=(1, 2, 3), keepdim=True)
-    x = torch.relu(pointwise_conv3d(x, g("post_conv")))
-    return (x @ g("proj_w") + g("proj_b")).mean(dim=(1, 2, 3))
-
-
 def capture_block_activations(backbone: Mapping[str, torch.Tensor], cfg,
                               x_ncdhw: np.ndarray, device="cuda") -> Dict[str, np.ndarray]:
-    """Eval-mode per-block forward of the port's X3D (4 stages) with the
-    converted ``backbone`` state_dict on ``device``; activations in torch's
-    NCDHW layout, plus ``head_logits``."""
+    """Eval-mode per-block forward of the port's X3D with its Kinetics head
+    (``X3D(cfg, head=True)``) holding the converted ``backbone`` state_dict,
+    on ``device``; activations in torch's NCDHW layout, plus the head's
+    ``head_logits``. The head's widths are the checkpoint's."""
     from change3d_tpu_torch.models.x3d import X3D
 
     dev = resolve_device(device)
-    model = X3D(cfg, num_stages=4)
-    model.load_state_dict({k: v for k, v in backbone.items() if not k.startswith("head.")})
+    cfg = dataclasses.replace(cfg, head_dim_out=backbone["head.post_conv"].shape[1],
+                              num_classes=backbone["head.proj_b"].shape[0])
+    model = X3D(cfg, head=True)
+    model.load_state_dict(backbone)
     model = model.to(dev).eval()
     acts = {}
     with torch.inference_mode():
@@ -69,7 +60,7 @@ def capture_block_activations(backbone: Mapping[str, torch.Tensor], cfg,
         for i, name in enumerate(BLOCK_NAMES):
             x = model.run_block(i, x)
             acts[name] = x.permute(0, 4, 1, 2, 3).cpu().numpy()
-        acts["head_logits"] = _head(x, backbone, cfg.bn_eps).cpu().numpy()
+        acts["head_logits"] = model.head(x).cpu().numpy()
     return acts
 
 

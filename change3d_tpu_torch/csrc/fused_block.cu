@@ -15,12 +15,20 @@
 //                        writes its own row in a fixed order, so reruns are
 //                        bit-identical.
 //
-// Grid: (spatial tile, sample). A block owns a tile x tile pixel tile of all
-// T frames plus a 1-pixel H/W halo (the Pallas kernels tile H only, because
-// W fits whole in VMEM; 227 KB of shared memory does not hold a row band
-// here). T stays whole and pads with zero frames. The inner channels Ci are
-// walked in chunks of ck. ops/fused_block.py:plan_tiles picks tile and ck
-// from the layouts below and passes the byte count, which the launch checks.
+// Grid: (tile, sample). A block owns tt frames of a tile x tile pixel tile
+// plus a 1-pixel H/W halo (the Pallas kernels tile H only, because W fits
+// whole in VMEM; 227 KB of shared memory does not hold a row band here).
+// Where one T-tile covers the clip (tt = T, every Change3D clip) T pads with
+// zero frames; a shorter T-tile (16-frame Kinetics clips at stages 3-4)
+// also reads the frame before and after it, zeros outside the clip, and
+// recomputes conv_a -> BN -> ReLU there: 2/tt more conv_a work. Blocks are
+// numbered T-tile outermost, then row-major. Each output voxel sums its
+// taps and channels in the same order whatever tt is. Every kernel is
+// instantiated with and without T-tiles, so that a clip in one T-tile pays
+// for no frame check. The inner channels
+// Ci are walked in chunks of ck. ops/fused_block.py:plan_block picks tt,
+// tile and ck from the layouts below and passes the byte count, which the
+// launch checks.
 //
 // Rounding follows the Pallas kernel: xa rounds to the I/O dtype after
 // conv_a+BN+ReLU (fused_block.py:45), the swish output rounds before conv_c
@@ -57,12 +65,13 @@
 //     block's row of sums.
 //   Shared memory per block (rows padded by 8 bf16 = 16 bytes, so that the
 //   32-bit fragment loads of a warp hit 32 distinct banks):
-//     xt   bf16 [pad16(T*(tile+2)^2)][pad16(C)+8]   x tile with halo (+ output)
+//   (F = halo_frames(T, tt): tt + 2, or T when tt = T)
+//     xt   bf16 [pad16(F*(tile+2)^2)][pad16(C)+8]   x tile with halo (+ output)
 //     wa   bf16 [pad16(ck)][pad16(C)+8]             w_a chunk, [n][k]
-//     xa   bf16 [T*(tile+2)^2][pad16(ck)]           conv_a+BN+ReLU chunk
-//     fwd:  xs bf16 [pad16(T*tile^2)][pad16(ck)+8]  swish chunk, [m][k]
+//     xa   bf16 [F*(tile+2)^2][pad16(ck)]           conv_a+BN+ReLU chunk
+//     fwd:  xs bf16 [pad16(tt*tile^2)][pad16(ck)+8] swish chunk, [m][k]
 //           wc bf16 [C][pad16(ck)+8]                w_c chunk, [n][k]
-//     sums: part float [T*tile*tile/4][pad16(ck)]   per-thread partial sums
+//     sums: part float [tt*tile*tile/4][pad16(ck)]  per-thread partial sums
 //   Tiles are 16, 8 or 4 (a multiple of the 4-wide tap window), chosen so that
 //   two blocks fit an SM (112 KB each, with the L1 carveout set to the most
 //   shared memory) and a warp owns at most 16 conv_c tiles (64 fp32
@@ -74,8 +83,8 @@
 // fp32 (the correctness path) keeps the first, scalar design: both products
 // as fp32 FMAs on CUDA cores, conv_c accumulated in fp32 shared memory. It
 // stays exact fp32 (no TF32). Shared memory per block:
-//   acc  float [T*tile*tile][C], xa float [T*(tile+2)^2][ck],
-//   xs   float [T*tile*tile][ck], xt float [T*(tile+2)^2][C].
+//   acc  float [tt*tile*tile][C], xa float [F*(tile+2)^2][ck],
+//   xs   float [tt*tile*tile][ck], xt float [F*(tile+2)^2][C].
 
 #include "ptx.cuh"
 
@@ -102,25 +111,56 @@ struct Params {
   const float* a_c;   // [C]
   const float* b_c;   // [C]
   int T, H, W, C, Ci, tile, ck;
+  int tt;  // frames per T-tile; last, since only the T-tiled kernels read it
+};
+
+// Frames a T-tile of tt frames reads (ops/fused_block.py:halo_frames).
+__host__ __device__ __forceinline__ int halo_frames(int T, int tt) {
+  return tt < T ? tt + 2 : T;
+}
+
+// Where a block's tile lies: its first output frame t0, the clip frame of
+// its halo frame 0 (f0), and its first output row and column. A kernel
+// instantiated without T-tiles (kTTiled false: one T-tile holds the clip)
+// has t0 = f0 = 0 and every frame check folded away at compile time, so it
+// runs the code of an untiled clip.
+template <bool kTTiled>
+struct TilePos {
+  int t0 = 0, f0 = 0, y0, x0;
+  __device__ __forceinline__ TilePos(const Params& p) {
+    const int tiles_w = (p.W + p.tile - 1) / p.tile;
+    int id = blockIdx.x;
+    if (kTTiled) {
+      const int tiles_hw = ((p.H + p.tile - 1) / p.tile) * tiles_w;
+      t0 = (id / tiles_hw) * p.tt;
+      f0 = t0 - 1;
+      id %= tiles_hw;
+    }
+    y0 = (id / tiles_w) * p.tile;
+    x0 = (id % tiles_w) * p.tile;
+  }
+  // Whether clip frame gt exists (always, for a frame of an untiled clip).
+  __device__ __forceinline__ bool has_frame(int gt, int T) const {
+    return !kTTiled || (gt >= 0 && gt < T);
+  }
 };
 
 // ---------------------------------------------------------------------------
 // fp32: scalar CUDA-core products
 // ---------------------------------------------------------------------------
 
-template <bool kSums>
+template <bool kSums, bool kTTiled>
 __global__ void __launch_bounds__(kThreads) fused_block_f32_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int T = p.T, H = p.H, W = p.W, C = p.C, Ci = p.Ci;
-  const int tile = p.tile, ck = p.ck;
-  const int hw = tile + 2;            // halo tile side
-  const int n_halo = T * hw * hw;     // halo pixels (all frames)
-  const int n_core = T * tile * tile; // output pixels (all frames)
-  const int tiles_w = (W + tile - 1) / tile;
+  const int tile = p.tile, ck = p.ck, tt = kTTiled ? p.tt : T;  // tt = T untiled
+  const int hw = tile + 2;                             // halo tile side
+  const int n_halo = halo_frames(T, tt) * hw * hw;     // halo pixels
+  const int n_core = tt * tile * tile;                 // output pixels
   const int tile_id = blockIdx.x;
   const int b = blockIdx.y;
-  const int y0 = (tile_id / tiles_w) * tile;
-  const int x0 = (tile_id % tiles_w) * tile;
+  const TilePos<kTTiled> P(p);
+  const int t0 = P.t0, f0 = P.f0, y0 = P.y0, x0 = P.x0;
 
   float* acc = reinterpret_cast<float*>(smem);
   float* xa = acc + (kSums ? 0 : n_core * C);
@@ -132,14 +172,15 @@ __global__ void __launch_bounds__(kThreads) fused_block_f32_kernel(Params p) {
   const float* wa = static_cast<const float*>(p.w_a);
   const float* wc = static_cast<const float*>(p.w_c);
 
-  // Input tile with halo; pixels outside the image hold 0 (never used:
+  // Input tile with halo; pixels outside the clip hold 0 (never used:
   // their xa is forced to 0 below, and they have no output).
   for (int e = threadIdx.x; e < n_halo * C; e += blockDim.x) {
     const int c = e % C, pos = e / C;
-    const int xx = pos % hw, yy = (pos / hw) % hw, t = pos / (hw * hw);
+    const int xx = pos % hw, yy = (pos / hw) % hw, gt = f0 + pos / (hw * hw);
     const int gy = y0 - 1 + yy, gx = x0 - 1 + xx;
     float v = 0.f;
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W) v = xg[(((size_t)t * H + gy) * W + gx) * C + c];
+    if (P.has_frame(gt, T) && gy >= 0 && gy < H && gx >= 0 && gx < W)
+      v = xg[(((size_t)gt * H + gy) * W + gx) * C + c];
     xt[e] = v;
   }
   if (!kSums)
@@ -149,13 +190,13 @@ __global__ void __launch_bounds__(kThreads) fused_block_f32_kernel(Params p) {
   for (int ci0 = 0; ci0 < Ci; ci0 += ck) {
     const int kc = min(ck, Ci - ci0);
 
-    // conv_a (fp32 accumulate) -> BN_a -> ReLU; 0 outside the image.
+    // conv_a (fp32 accumulate) -> BN_a -> ReLU; 0 outside the clip.
     for (int e = threadIdx.x; e < n_halo * kc; e += blockDim.x) {
       const int k = e % kc, pos = e / kc;
-      const int xx = pos % hw, yy = (pos / hw) % hw;
+      const int xx = pos % hw, yy = (pos / hw) % hw, gt = f0 + pos / (hw * hw);
       const int gy = y0 - 1 + yy, gx = x0 - 1 + xx;
       float v = 0.f;
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
+      if (P.has_frame(gt, T) && gy >= 0 && gy < H && gx >= 0 && gx < W) {
         const int ci = ci0 + k;
         const float* xr = xt + (size_t)pos * C;
         float s = 0.f;
@@ -174,16 +215,17 @@ __global__ void __launch_bounds__(kThreads) fused_block_f32_kernel(Params p) {
       const int ci = ci0 + k;
       float s = 0.f;
       for (int dt = 0; dt < 3; ++dt) {
-        const int tt = t + dt - 1;
-        if (tt < 0 || tt >= T) continue;
+        const int gt = t0 + t + dt - 1;  // clip frame of the tap
+        if (gt < 0 || gt >= T) continue;
+        const int f = gt - f0;           // its halo frame
         for (int dy = 0; dy < 3; ++dy)
           for (int dx = 0; dx < 3; ++dx)
-            s = fmaf(xa[((tt * hw + ty + dy) * hw + tx + dx) * ck + k],
+            s = fmaf(xa[((f * hw + ty + dy) * hw + tx + dx) * ck + k],
                      p.w_dw[((dt * 3 + dy) * 3 + dx) * Ci + ci], s);
       }
       float xb = s * p.a_b[ci] + p.b_b[ci];
       if (kSums) {
-        const bool inside = (y0 + ty) < H && (x0 + tx) < W;
+        const bool inside = P.has_frame(t0 + t, T) && (y0 + ty) < H && (x0 + tx) < W;
         xs[q * ck + k] = inside ? xb : 0.f;
       } else {
         if (p.gate != nullptr) xb *= p.gate[(size_t)b * Ci + ci];
@@ -219,10 +261,10 @@ __global__ void __launch_bounds__(kThreads) fused_block_f32_kernel(Params p) {
     for (int e = threadIdx.x; e < n_core * C; e += blockDim.x) {
       const int c = e % C, q = e / C;
       const int tx = q % tile, ty = (q / tile) % tile, t = q / (tile * tile);
-      const int gy = y0 + ty, gx = x0 + tx;
-      if (gy >= H || gx >= W) continue;
-      const float r = xt[((t * hw + ty + 1) * hw + tx + 1) * C + c];
-      og[(((size_t)t * H + gy) * W + gx) * C + c] = fmaxf(acc[e] * p.a_c[c] + p.b_c[c] + r, 0.f);
+      const int gt = t0 + t, gy = y0 + ty, gx = x0 + tx;
+      if (!P.has_frame(gt, T) || gy >= H || gx >= W) continue;
+      const float r = xt[(((gt - f0) * hw + ty + 1) * hw + tx + 1) * C + c];
+      og[(((size_t)gt * H + gy) * W + gx) * C + c] = fmaxf(acc[e] * p.a_c[c] + p.b_c[c] + r, 0.f);
     }
   }
 }
@@ -238,11 +280,11 @@ __host__ __device__ constexpr int round_up(int a, int m) { return (a + m - 1) / 
 struct Bf16Layout {
   int hw, nh, nhp, nc, ncp, kp, sx, ckp, ss;
   int off_wa, off_xa, off_xs, off_wc, off_part, bytes_fwd, bytes_sums;
-  __host__ __device__ Bf16Layout(int T, int tile, int C, int ck) {
+  __host__ __device__ Bf16Layout(int T, int tt, int tile, int C, int ck) {
     hw = tile + 2;
-    nh = T * hw * hw;            // halo pixels
-    nhp = round_up(nh, 16);      // ... padded to the mma's 16 rows
-    nc = T * tile * tile;        // output pixels
+    nh = halo_frames(T, tt) * hw * hw;  // halo pixels
+    nhp = round_up(nh, 16);             // ... padded to the mma's 16 rows
+    nc = tt * tile * tile;              // output pixels
     ncp = round_up(nc, 16);
     kp = round_up(C, 16);        // conv_a depth
     sx = kp + 8;                 // xt / wa row stride (elements)
@@ -254,7 +296,7 @@ struct Bf16Layout {
     off_wc = off_xs + ncp * ss * 2;
     bytes_fwd = off_wc + C * ss * 2;
     off_part = off_xs;
-    bytes_sums = off_part + T * tile * (tile / 4) * ckp * 4;
+    bytes_sums = off_part + tt * tile * (tile / 4) * ckp * 4;
   }
 };
 
@@ -286,18 +328,17 @@ __device__ __forceinline__ void stage_transposed(bf16* dst, int dst_ld, const bf
 }
 
 // kXg: outputs along W per tap thread (4 or 8; the tile is a multiple).
-template <bool kSums, int kAcc, int kXg>
+template <bool kSums, int kAcc, int kXg, bool kTTiled>
 __global__ void __launch_bounds__(kThreads, 2) fused_block_bf16_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int T = p.T, H = p.H, W = p.W, C = p.C, Ci = p.Ci;
-  const int tile = p.tile, ck = p.ck;
-  const Bf16Layout L(T, tile, C, ck);
+  const int tile = p.tile, ck = p.ck, tt = kTTiled ? p.tt : T;  // tt = T untiled
+  const Bf16Layout L(T, tt, tile, C, ck);
   const int hw = L.hw, sx = L.sx, ss = L.ss, ckp = L.ckp;
-  const int tiles_w = (W + tile - 1) / tile;
   const int tile_id = blockIdx.x;
   const int b = blockIdx.y;
-  const int y0 = (tile_id / tiles_w) * tile;
-  const int x0 = (tile_id % tiles_w) * tile;
+  const TilePos<kTTiled> P(p);
+  const int t0 = P.t0, f0 = P.f0, y0 = P.y0, x0 = P.x0;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, tq = lane & 3;  // mma fragment row / column pair
 
@@ -313,8 +354,8 @@ __global__ void __launch_bounds__(kThreads, 2) fused_block_bf16_kernel(Params p)
   const bf16* wa = static_cast<const bf16*>(p.w_a);
   const bf16* wc = static_cast<const bf16*>(p.w_c);
 
-  // x tile with halo: 16-byte cp.async per 8 channels of an in-image pixel;
-  // zeros outside the image, in the K padding and in the padding rows.
+  // x tile with halo: 16-byte cp.async per 8 channels of an in-clip pixel;
+  // zeros outside the clip, in the K padding and in the padding rows.
   {
     const int c8 = C / 8, s8 = sx / 8;
     for (int e = tid; e < L.nhp * s8; e += kThreads) {
@@ -322,10 +363,10 @@ __global__ void __launch_bounds__(kThreads, 2) fused_block_bf16_kernel(Params p)
       uint4* dst = reinterpret_cast<uint4*>(xt + pos * sx + j * 8);
       const bf16* src = nullptr;
       if (pos < L.nh && j < c8) {
-        const int xx = pos % hw, yy = (pos / hw) % hw, t = pos / (hw * hw);
+        const int xx = pos % hw, yy = (pos / hw) % hw, gt = f0 + pos / (hw * hw);
         const int gy = y0 - 1 + yy, gx = x0 - 1 + xx;
-        if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-          src = xg + (((size_t)t * H + gy) * W + gx) * C + j * 8;
+        if (P.has_frame(gt, T) && gy >= 0 && gy < H && gx >= 0 && gx < W)
+          src = xg + (((size_t)gt * H + gy) * W + gx) * C + j * 8;
       }
       if (src != nullptr)
         c3d::cp_async16(dst, src);
@@ -353,7 +394,7 @@ __global__ void __launch_bounds__(kThreads, 2) fused_block_bf16_kernel(Params p)
     c3d::cp_async_wait_all();
     __syncthreads();
 
-    // conv_a on tensor cores -> BN_a -> ReLU -> bf16; 0 outside the image.
+    // conv_a on tensor cores -> BN_a -> ReLU -> bf16; 0 outside the clip.
     // A warp item is one m16 row tile x four n8 tiles: the A fragment is
     // loaded once per k step for four independent mma.
     {
@@ -392,7 +433,8 @@ __global__ void __launch_bounds__(kThreads, 2) fused_block_bf16_kernel(Params p)
           if (pos >= L.nh) continue;
           const int xx = pos % hw, yy = (pos / hw) % hw;
           const int gy = y0 - 1 + yy, gx = x0 - 1 + xx;
-          const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+          const bool in = P.has_frame(f0 + pos / (hw * hw), T) && gy >= 0 && gy < H &&
+                          gx >= 0 && gx < W;
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             const int k = (n0 + j) * 8 + 2 * tq;  // channels of d[j][2h], d[j][2h+1]
@@ -411,7 +453,7 @@ __global__ void __launch_bounds__(kThreads, 2) fused_block_bf16_kernel(Params p)
     // 27 depthwise taps in fp32 (T zero-padded) -> BN_b. A thread owns
     // channels (k, k+1) of kXg outputs along W of one (t, y) row.
     {
-      const int pairs = kc / 2, xq_n = tile / kXg, rows = T * tile;
+      const int pairs = kc / 2, xq_n = tile / kXg, rows = tt * tile;
       const int wstride = ckp / 2;  // 32-bit words between neighbouring pixels of xa
       for (int e = tid; e < pairs * rows * xq_n; e += kThreads) {
         const int pp = e % pairs, rest = e / pairs;
@@ -423,12 +465,12 @@ __global__ void __launch_bounds__(kThreads, 2) fused_block_bf16_kernel(Params p)
         for (int i = 0; i < kXg; ++i) s[i] = make_float2(0.f, 0.f);
 #pragma unroll
         for (int dt = 0; dt < 3; ++dt) {
-          const int tt = t + dt - 1;
-          if (tt < 0 || tt >= T) continue;
+          const int gt = t0 + t + dt - 1;  // clip frame of the tap
+          if (gt < 0 || gt >= T) continue;
 #pragma unroll
           for (int dy = 0; dy < 3; ++dy) {
             const uint32_t* row = reinterpret_cast<const uint32_t*>(
-                xa + ((tt * hw + y + dy) * hw + xb0) * ckp + k);
+                xa + (((gt - f0) * hw + y + dy) * hw + xb0) * ckp + k);
             float2 v[kXg + 2];
 #pragma unroll
             for (int i = 0; i < kXg + 2; ++i) v[i] = c3d::unpack_bf16x2(row[i * wstride]);
@@ -451,7 +493,7 @@ __global__ void __launch_bounds__(kThreads, 2) fused_block_bf16_kernel(Params p)
         const float2 bb = __ldg(reinterpret_cast<const float2*>(p.b_b + ci));
         if (kSums) {
           float2 tot = make_float2(0.f, 0.f);
-          const bool row_in = y0 + y < H;
+          const bool row_in = P.has_frame(t0 + t, T) && y0 + y < H;
 #pragma unroll
           for (int i = 0; i < kXg; ++i)
             if (row_in && x0 + xb0 + i < W) {
@@ -481,7 +523,7 @@ __global__ void __launch_bounds__(kThreads, 2) fused_block_bf16_kernel(Params p)
     if (kSums) {
       // Fixed-order per-channel sums of the partial rows: four neighbouring
       // lanes split a channel's rows (i = j mod 4), then a fixed shuffle tree.
-      const int n_part = T * tile * (tile / kXg), n_tiles = gridDim.x;
+      const int n_part = tt * tile * (tile / kXg), n_tiles = gridDim.x;
       for (int e0 = 0; e0 < 4 * kc; e0 += kThreads) {
         const int e = e0 + tid, k = e >> 2, j = e & 3;
         float s = 0.f;
@@ -525,9 +567,9 @@ __global__ void __launch_bounds__(kThreads, 2) fused_block_bf16_kernel(Params p)
         for (int h = 0; h < 2; ++h) {
           const int q = mt * 16 + g + 8 * h;
           if (q >= L.nc) continue;
-          const int tx = q % tile, ty = (q / tile) % tile, t = q / (tile * tile);
+          const int tx = q % tile, ty = (q / tile) % tile, f = t0 + q / (tile * tile) - f0;
           uint32_t* xr =
-              reinterpret_cast<uint32_t*>(xt + ((t * hw + ty + 1) * hw + tx + 1) * sx + c);
+              reinterpret_cast<uint32_t*>(xt + ((f * hw + ty + 1) * hw + tx + 1) * sx + c);
           const float2 res = c3d::unpack_bf16x2(*xr);
           *xr = c3d::pack_bf16x2(fmaxf(acc[j][2 * h] * ac.x + bc.x + res.x, 0.f),
                                  fmaxf(acc[j][2 * h + 1] * ac.y + bc.y + res.y, 0.f));
@@ -540,11 +582,12 @@ __global__ void __launch_bounds__(kThreads, 2) fused_block_bf16_kernel(Params p)
     const int c8 = C / 8;
     for (int e = tid; e < L.nc * c8; e += kThreads) {
       const int j = e % c8, q = e / c8;
-      const int tx = q % tile, ty = (q / tile) % tile, t = q / (tile * tile);
+      const int tx = q % tile, ty = (q / tile) % tile, gt = t0 + q / (tile * tile);
       const int gy = y0 + ty, gx = x0 + tx;
-      if (gy >= H || gx >= W) continue;
-      *reinterpret_cast<uint4*>(og + (((size_t)t * H + gy) * W + gx) * C + j * 8) =
-          *reinterpret_cast<const uint4*>(xt + ((t * hw + ty + 1) * hw + tx + 1) * sx + j * 8);
+      if (!P.has_frame(gt, T) || gy >= H || gx >= W) continue;
+      *reinterpret_cast<uint4*>(og + (((size_t)gt * H + gy) * W + gx) * C + j * 8) =
+          *reinterpret_cast<const uint4*>(xt + (((gt - f0) * hw + ty + 1) * hw + tx + 1) * sx +
+                                          j * 8);
     }
   }
 }
@@ -557,21 +600,33 @@ using KernelFn = void (*)(Params);
 
 // The kernel instantiation for a call, or null if the call is not one the
 // kernels take (the bf16 layout's byte count must match `smem`).
+template <bool kTTiled>
 KernelFn pick_kernel(int dtype, bool sums, const Params& p, int smem) {
-  if (dtype == 0) return sums ? fused_block_f32_kernel<true> : fused_block_f32_kernel<false>;
+  if (dtype == 0)
+    return sums ? fused_block_f32_kernel<true, kTTiled> : fused_block_f32_kernel<false, kTTiled>;
   if (dtype != 1) return nullptr;
-  const Bf16Layout L(p.T, p.tile, p.C, p.ck);
+  const Bf16Layout L(p.T, p.tt, p.tile, p.C, p.ck);
   if (p.C % 8 != 0 || p.Ci % 2 != 0 || p.ck % 2 != 0 || p.tile % 4 != 0 ||
       smem != (sums ? L.bytes_sums : L.bytes_fwd))
     return nullptr;
   // Eight outputs per tap thread where the tile allows and the registers are
   // not held by 16 accumulator tiles.
   const bool wide = p.tile % 8 == 0;
-  if (sums) return wide ? fused_block_bf16_kernel<true, 1, 8> : fused_block_bf16_kernel<true, 1, 4>;
+  if (sums)
+    return wide ? fused_block_bf16_kernel<true, 1, 8, kTTiled>
+                : fused_block_bf16_kernel<true, 1, 4, kTTiled>;
   const int per_warp = ((L.ncp / 16) * (p.C / 8) + kWarps - 1) / kWarps;
-  if (per_warp <= 8) return wide ? fused_block_bf16_kernel<false, 8, 8> : fused_block_bf16_kernel<false, 8, 4>;
-  if (per_warp <= 16) return fused_block_bf16_kernel<false, 16, 4>;
+  if (per_warp <= 8)
+    return wide ? fused_block_bf16_kernel<false, 8, 8, kTTiled>
+                : fused_block_bf16_kernel<false, 8, 4, kTTiled>;
+  if (per_warp <= 16) return fused_block_bf16_kernel<false, 16, 4, kTTiled>;
   return nullptr;
+}
+
+KernelFn pick_kernel(int dtype, bool sums, const Params& p, int smem) {
+  if (p.tt < 1 || p.tt > p.T) return nullptr;
+  return p.tt < p.T ? pick_kernel<true>(dtype, sums, p, smem)
+                    : pick_kernel<false>(dtype, sums, p, smem);
 }
 
 cudaError_t set_attributes(KernelFn kernel, int smem) {
@@ -588,7 +643,8 @@ int launch(int dtype, bool sums, const Params& p, int B, int smem, void* stream)
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = set_attributes(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const int tiles = ((p.H + p.tile - 1) / p.tile) * ((p.W + p.tile - 1) / p.tile);
+  const int tiles = ((p.T + p.tt - 1) / p.tt) * ((p.H + p.tile - 1) / p.tile) *
+                    ((p.W + p.tile - 1) / p.tile);
   dim3 grid(tiles, B);
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
@@ -596,7 +652,7 @@ int launch(int dtype, bool sums, const Params& p, int B, int smem, void* stream)
 
 Params make_params(const void* x, const void* w_a, const void* a_a, const void* b_a,
                    const void* w_dw, const void* a_b, const void* b_b, int T, int H, int W,
-                   int C, int Ci, int tile, int ck) {
+                   int C, int Ci, int tt, int tile, int ck) {
   Params p{};
   p.x = x;
   p.w_a = w_a;
@@ -605,7 +661,7 @@ Params make_params(const void* x, const void* w_a, const void* a_a, const void* 
   p.w_dw = static_cast<const float*>(w_dw);
   p.a_b = static_cast<const float*>(a_b);
   p.b_b = static_cast<const float*>(b_b);
-  p.T = T; p.H = H; p.W = W; p.C = C; p.Ci = Ci; p.tile = tile; p.ck = ck;
+  p.T = T; p.H = H; p.W = W; p.C = C; p.Ci = Ci; p.tile = tile; p.ck = ck; p.tt = tt;
   return p;
 }
 
@@ -616,9 +672,9 @@ extern "C" int c3d_fused_block_fwd(int dtype, const void* x, void* out, const vo
                                    const void* a_a, const void* b_a, const void* w_dw,
                                    const void* a_b, const void* b_b, const void* gate,
                                    const void* w_c, const void* a_c, const void* b_c, int B,
-                                   int T, int H, int W, int C, int Ci, int tile, int ck,
-                                   int smem, void* stream) {
-  Params p = make_params(x, w_a, a_a, b_a, w_dw, a_b, b_b, T, H, W, C, Ci, tile, ck);
+                                   int T, int H, int W, int C, int Ci, int tt, int tile,
+                                   int ck, int smem, void* stream) {
+  Params p = make_params(x, w_a, a_a, b_a, w_dw, a_b, b_b, T, H, W, C, Ci, tt, tile, ck);
   p.out = out;
   p.gate = static_cast<const float*>(gate);
   p.w_c = w_c;
@@ -630,19 +686,19 @@ extern "C" int c3d_fused_block_fwd(int dtype, const void* x, void* out, const vo
 extern "C" int c3d_fused_block_se_sums(int dtype, const void* x, void* sums, const void* w_a,
                                        const void* a_a, const void* b_a, const void* w_dw,
                                        const void* a_b, const void* b_b, int B, int T, int H,
-                                       int W, int C, int Ci, int tile, int ck, int smem,
+                                       int W, int C, int Ci, int tt, int tile, int ck, int smem,
                                        void* stream) {
-  Params p = make_params(x, w_a, a_a, b_a, w_dw, a_b, b_b, T, H, W, C, Ci, tile, ck);
+  Params p = make_params(x, w_a, a_a, b_a, w_dw, a_b, b_b, T, H, W, C, Ci, tt, tile, ck);
   p.sums = static_cast<float*>(sums);
   return launch(dtype, true, p, B, smem, stream);
 }
 
 // Blocks of the chosen kernel that fit one SM at once (occupancy), or -1 if
 // the kernels do not take the call.
-extern "C" int c3d_fused_block_blocks_per_sm(int dtype, int se_sums, int T, int C, int Ci,
-                                             int tile, int ck, int smem) {
+extern "C" int c3d_fused_block_blocks_per_sm(int dtype, int se_sums, int T, int tt, int C,
+                                             int Ci, int tile, int ck, int smem) {
   Params p{};
-  p.T = T; p.C = C; p.Ci = Ci; p.tile = tile; p.ck = ck;
+  p.T = T; p.tt = tt; p.C = C; p.Ci = Ci; p.tile = tile; p.ck = ck;
   KernelFn kernel = pick_kernel(dtype, se_sums != 0, p, smem);
   if (kernel == nullptr || set_attributes(kernel, smem) != cudaSuccess) return -1;
   int n = -1;

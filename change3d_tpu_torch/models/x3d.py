@@ -7,8 +7,15 @@ are [B, T, H, W, C]. Stages are plain loops over ``block{j}`` (no scan).
 
 With ``fused_inference`` (the default here) every stride-1, dim-preserving
 block runs at eval as the fused CUDA kernel (``ops/fused_block.py``); there
-is no shared-memory gate, since the kernel tiles any spatial size. The
-Kinetics classifier head is not ported: no Change3D task runs it.
+is no shared-memory gate: the kernel tiles H and W at any size, and T
+where a whole clip's tile does not fit (``plan_block``: 16-frame clips at
+stages 3 and 4 take T-tiles with a one-frame halo).
+
+``X3D(cfg, head=True)`` adds the Kinetics classifier head (``X3DHead``) and
+``forward(x, classify=True)`` returns its logits; ``x3d_classifier`` builds
+it on the card (or ``device="cpu"``) for ``x3d_m_config()`` (X3D-M, and
+X3D-S / XS, which share its weights at other clip sizes). No Change3D model
+builds a head, so their state_dict keys do not change.
 
 ``quantized_eval`` runs each bottleneck's two pointwise convs at eval as
 int8 products (``ops/quant.py``) and turns fusion off, as in JAX; training
@@ -34,12 +41,15 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from change3d_tpu_torch.device import resolve_device
 from change3d_tpu_torch.init import torch_conv_kernel_init
 from change3d_tpu_torch.ops import quant
+from change3d_tpu_torch.ops.attention import dropout
 from change3d_tpu_torch.ops.fused_block import fused_bottleneck_block
 from change3d_tpu_torch.ops.layers import (
     conv3d,
     depthwise_conv3d,
+    linear,
     pointwise_conv3d,
     squeeze_excite_3d,
     swish,
@@ -79,6 +89,10 @@ class X3DConfig:
     stem_conv_stride: Tuple[int, int, int] = (1, 1, 1)
     se_ratio: float = 0.0625
     bn_eps: float = 1e-5
+    # Kinetics classifier head (X3D(cfg, head=True)); no Change3D task runs it.
+    head_dim_out: int = 2048
+    num_classes: int = 400
+    dropout_rate: float = 0.5
     # Run every stride-1, dim-preserving block at eval as the fused kernel.
     fused_inference: bool = True
     # Recompute the block pairs in the backward (training memory).
@@ -126,6 +140,14 @@ def x3d_l_config(**overrides) -> X3DConfig:
     """X3D-L as Change3D instantiates it: width 2.0, depth 5.0, bottleneck
     2.25, stem stride (1, 1, 1)."""
     return x3d_config(width_factor=2.0, depth_factor=5.0, **overrides)
+
+
+def x3d_m_config(**overrides) -> X3DConfig:
+    """X3D-M (and X3D-S / XS, which share its weights and differ only in
+    clip size: 16 x 224^2, 13 x 160^2, 4 x 160^2): width 2.0, depth 2.2,
+    bottleneck 2.25, the stock (1, 2, 2) stem stride."""
+    return x3d_config(width_factor=2.0, depth_factor=2.2, stem_conv_stride=(1, 2, 2),
+                      **overrides)
 
 
 class X3DStem(nn.Module):
@@ -329,20 +351,53 @@ class X3DStage(nn.Module):
         return x
 
 
+class X3DHead(nn.Module):
+    """Kinetics classifier: 1x1x1 conv -> BN -> ReLU -> fp32 mean over
+    (T, H, W) -> 1x1x1 conv -> ReLU -> dropout (train only) -> linear ->
+    mean, [B, num_classes]. Names are the JAX variable names."""
+
+    def __init__(self, cfg: X3DConfig, generator: torch.Generator):
+        super().__init__()
+        dim_in, dim_inner, dim_out = cfg.stage_dims[-1], cfg.stage_inner_dims[-1], cfg.head_dim_out
+        self.dropout_rate = cfg.dropout_rate
+        self.pre_conv = nn.Parameter(torch_conv_kernel_init(generator, (dim_in, dim_inner), dim_in))
+        self.pre_bn = BatchNorm(dim_inner, cfg.bn_eps)
+        self.post_conv = nn.Parameter(
+            torch_conv_kernel_init(generator, (dim_inner, dim_out), dim_inner))
+        self.proj_w = nn.Parameter(
+            torch_conv_kernel_init(generator, (dim_out, cfg.num_classes), dim_out))
+        self.proj_b = nn.Parameter(torch.zeros(cfg.num_classes))
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """x: stage-4 features [B, T, H, W, C]; ``generator`` draws the
+        dropout mask in train mode."""
+        x = torch.relu(self.pre_bn(pointwise_conv3d(x, self.pre_conv)))
+        x = x.float().mean(dim=(1, 2, 3), keepdim=True).to(x.dtype)
+        x = torch.relu(pointwise_conv3d(x, self.post_conv))
+        if self.training:
+            x = dropout(x, self.dropout_rate, generator)
+        return linear(x, self.proj_w, self.proj_b).mean(dim=(1, 2, 3))
+
+
 class X3D(nn.Module):
     """Stem + the first ``num_stages`` stages, with per-block access
-    (``run_block``) for the Encoder's taps. Detection tasks build 3 stages."""
+    (``run_block``) for the Encoder's taps. Detection tasks build 3 stages.
+    ``head`` adds the Kinetics classifier (all 4 stages)."""
 
     def __init__(self, cfg: Optional[X3DConfig] = None, *, num_stages: int = 4,
-                 generator: Optional[torch.Generator] = None):
+                 head: bool = False, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg = cfg or x3d_l_config()
+        if head and num_stages != 4:
+            raise ValueError(f"the Kinetics head needs all 4 stages, got num_stages={num_stages}")
         generator = generator or torch.Generator().manual_seed(0)
         self.stem = X3DStem(self.cfg, generator)
         dims_in = (self.cfg.stem_dim_out,) + tuple(self.cfg.stage_dims[:-1])
         self.num_stages = num_stages
         for i in range(num_stages):
             self.add_module(f"stage{i + 1}", X3DStage(self.cfg, i, dims_in[i], generator))
+        self.head = X3DHead(self.cfg, generator) if head else None
 
     def run_block(self, i: int, x: torch.Tensor) -> torch.Tensor:
         """Block i of [stem, stage1, ..., stage{num_stages}]."""
@@ -350,7 +405,25 @@ class X3D(nn.Module):
             return self.stem(x)
         return getattr(self, f"stage{i}")(x)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, classify: bool = False, *,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x: [B, T, H, W, 3] clips. The last stage's features, or with
+        ``classify`` the head's logits [B, num_classes] (``generator``: the
+        head's dropout in train mode)."""
         for i in range(self.num_stages + 1):
             x = self.run_block(i, x)
-        return x
+        if not classify:
+            return x
+        if self.head is None:
+            raise ValueError("classify=True needs the Kinetics head: build X3D(cfg, head=True)")
+        return self.head(x, generator)
+
+
+def x3d_classifier(*, device="cuda", seed: int = 0) -> X3D:
+    """The X3D-M Kinetics video classifier in eval mode, ``X3D(x3d_m_config(),
+    head=True)`` with weights drawn from ``seed``, on ``device``: the card
+    unless the caller asks for the CPU. Call it as ``model(clip,
+    classify=True)`` on [B, T, H, W, 3] clips."""
+    dev = resolve_device(device)
+    return X3D(x3d_m_config(), head=True,
+               generator=torch.Generator().manual_seed(seed)).to(dev).eval()

@@ -24,7 +24,7 @@ counts its launches in ``<wrapper>.launches``. The fake kernels let
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -47,12 +47,14 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _bf16_smem(t: int, tile: int, c: int, ck: int) -> Tuple[int, int]:
-    """(fwd, se_sums) shared-memory bytes of the bf16 kernels: the layout of
-    csrc/fused_block.cu (Bf16Layout), rows padded to 16 for the mma and row
-    strides padded by 8 elements against bank conflicts."""
+def _bf16_smem(t: int, tile: int, c: int, ck: int, frames: Optional[int] = None) -> Tuple[int, int]:
+    """(fwd, se_sums) shared-memory bytes of the bf16 kernels for ``t``
+    output frames read through ``frames`` halo frames (default t: the whole
+    clip, no temporal halo): the layout of csrc/fused_block.cu (Bf16Layout),
+    rows padded to 16 for the mma and row strides padded by 8 elements
+    against bank conflicts."""
     pad = lambda a: _ceil(a, 16) * 16
-    nh, nc = t * (tile + 2) ** 2, t * tile * tile
+    nh, nc = (t if frames is None else frames) * (tile + 2) ** 2, t * tile * tile
     sx, ckp = pad(c) + 8, pad(ck)
     front = (pad(nh) * sx + ckp * sx + nh * ckp) * 2
     fwd = front + (pad(nc) + c) * (ckp + 8) * 2
@@ -60,55 +62,97 @@ def _bf16_smem(t: int, tile: int, c: int, ck: int) -> Tuple[int, int]:
     return fwd, sums
 
 
-def _plan_bf16(t: int, h: int, w: int, c: int, ci: int):
-    """The largest square tile in (16, 8, 4) whose conv_c accumulators fit
-    MAX_ACC_TILES per warp, with the fewest chunks of Ci (a multiple of 8
-    channels, at least MIN_CHUNK) that fit SMEM_TARGET."""
-    for tile in (16, 8, 4):
-        if _ceil(_ceil(t * tile * tile, 16) * _ceil(c, 8), WARPS) > MAX_ACC_TILES:
-            continue
-        n_chunks = 1
-        while True:
-            ck = min(ci, _ceil(_ceil(ci, n_chunks), 8) * 8)
-            if ck < min(ci, MIN_CHUNK):
-                break
-            fwd, sums = _bf16_smem(t, tile, c, ck)
-            if fwd <= SMEM_TARGET:
-                return tile, ck, fwd, sums, _ceil(h, tile) * _ceil(w, tile)
-            n_chunks += 1
+class BlockPlan(NamedTuple):
+    """How the kernels cover one block shape: ``tt``-frame temporal tiles of
+    ``tile`` x ``tile`` pixels, Ci walked in chunks of ``ck``, the bytes of
+    shared memory of each kernel, and the blocks per sample (T-tiles x
+    H-tiles x W-tiles, T outermost, each row-major)."""
+
+    tt: int
+    tile: int
+    ck: int
+    smem_fwd: int
+    smem_sums: int
+    n_tiles: int
+
+
+def halo_frames(t: int, tt: int) -> int:
+    """Frames a T-tile reads: its tt frames and one on each side, or the
+    whole clip when one tile covers it (zero padding, nothing to read)."""
+    return tt + 2 if tt < t else t
+
+
+def _temporal_tiles(t: int):
+    """tt = ceil(T / n) for n = 1, 2, ...: fewest T-tiles first, each count
+    with its shortest tile."""
+    seen = []
+    for n in range(1, t + 1):
+        tt = _ceil(t, n)
+        if tt not in seen:
+            seen.append(tt)
+            yield tt
+
+
+def _plan_bf16(t: int, h: int, w: int, c: int, ci: int) -> BlockPlan:
+    """The fewest T-tiles, then the largest square tile in (16, 8, 4), whose
+    conv_c accumulators fit MAX_ACC_TILES per warp, with the fewest chunks
+    of Ci (a multiple of 8 channels, at least MIN_CHUNK) that fit
+    SMEM_TARGET. One T-tile (tt = T) wherever that fits."""
+    for tt in _temporal_tiles(t):
+        for tile in (16, 8, 4):
+            if _ceil(_ceil(tt * tile * tile, 16) * _ceil(c, 8), WARPS) > MAX_ACC_TILES:
+                continue
+            n_chunks = 1
+            while True:
+                ck = min(ci, _ceil(_ceil(ci, n_chunks), 8) * 8)
+                if ck < min(ci, MIN_CHUNK):
+                    break
+                fwd, sums = _bf16_smem(tt, tile, c, ck, halo_frames(t, tt))
+                if fwd <= SMEM_TARGET:
+                    n_tiles = _ceil(t, tt) * _ceil(h, tile) * _ceil(w, tile)
+                    return BlockPlan(tt, tile, ck, fwd, sums, n_tiles)
+                n_chunks += 1
     raise ValueError(f"no bf16 tile fits {SMEM_TARGET} B of shared memory for T={t} C={c} Ci={ci}")
 
 
-def plan_tiles(t: int, h: int, w: int, c: int, ci: int, itemsize: int):
-    """(tile, ck, smem_fwd, smem_sums, n_tiles) for one block shape and I/O
-    dtype size; the kernels' square tiles cover the image row-major.
+def plan_block(t: int, h: int, w: int, c: int, ci: int, itemsize: int) -> BlockPlan:
+    """The kernels' plan for one block shape and I/O dtype size.
 
-    bf16 (itemsize 2): ``_plan_bf16``. fp32: the largest square tile in
-    (8, 4, 2, 1) whose input tile, conv_c accumulator and a chunk of at
-    least MIN_CHUNK inner channels fit SMEM_TARGET; Ci is then split into
-    equal chunks. The byte counts follow the shared-memory layouts
-    documented in csrc/fused_block.cu.
+    bf16 (itemsize 2): ``_plan_bf16``. fp32: the fewest T-tiles, then the
+    largest square tile in (8, 4, 2, 1), whose input tile, conv_c
+    accumulator and a chunk of at least MIN_CHUNK inner channels fit
+    SMEM_TARGET; Ci is then split into equal chunks. The byte counts follow
+    the shared-memory layouts documented in csrc/fused_block.cu. A T-tile
+    shorter than the clip reads one more frame on each side (zeros outside
+    the clip) and recomputes conv_a there: 2 / tt more conv_a work.
     """
     if itemsize == 2:
         return _plan_bf16(t, h, w, c, ci)
-    for tile in (8, 4, 2, 1):
-        halo, core = t * (tile + 2) ** 2, t * tile * tile
-        x_bytes, acc_bytes = halo * c * itemsize, core * c * 4
-        per_ck = (halo + core) * 4
-        ck_max = (SMEM_TARGET - x_bytes - acc_bytes) // per_ck
-        if ck_max >= min(ci, MIN_CHUNK):
-            n_chunks = -(-ci // min(ck_max, ci))
-            ck = -(-ci // n_chunks)
-            n_tiles = -(-h // tile) * -(-w // tile)
-            smem_sums = x_bytes + per_ck * ck
-            return tile, ck, smem_sums + acc_bytes, smem_sums, n_tiles
+    for tt in _temporal_tiles(t):
+        for tile in (8, 4, 2, 1):
+            halo, core = halo_frames(t, tt) * (tile + 2) ** 2, tt * tile * tile
+            x_bytes, acc_bytes = halo * c * itemsize, core * c * 4
+            per_ck = (halo + core) * 4
+            ck_max = (SMEM_TARGET - x_bytes - acc_bytes) // per_ck
+            if ck_max >= min(ci, MIN_CHUNK):
+                n_chunks = -(-ci // min(ck_max, ci))
+                ck = -(-ci // n_chunks)
+                n_tiles = _ceil(t, tt) * _ceil(h, tile) * _ceil(w, tile)
+                smem_sums = x_bytes + per_ck * ck
+                return BlockPlan(tt, tile, ck, smem_sums + acc_bytes, smem_sums, n_tiles)
     raise ValueError(f"no tile fits {SMEM_TARGET} B of shared memory for T={t} C={c} Ci={ci}")
 
 
+def plan_tiles(t: int, h: int, w: int, c: int, ci: int, itemsize: int):
+    """(tile, ck, smem_fwd, smem_sums, n_tiles) of ``plan_block``: the plan
+    without its temporal tile."""
+    return tuple(plan_block(t, h, w, c, ci, itemsize))[1:]
+
+
 # The launches' plans: a model has a handful of block shapes, and every
-# launch plans one (the fake kernels call plan_tiles itself, on sizes that
+# launch plans one (the fake kernels call plan_block itself, on sizes that
 # may be symbolic and so unhashable).
-_launch_plan = functools.lru_cache(maxsize=None)(plan_tiles)
+_launch_plan = functools.lru_cache(maxsize=None)(plan_block)
 
 
 # ---------------------------------------------------------------------------
@@ -148,15 +192,17 @@ def fused_block_fwd_reference(x, w_a, a_a, b_a, w_dw, a_b, b_b, w_c, a_c, b_c, g
 
 
 def se_sums_reference(x, w_a, a_a, b_a, w_dw, a_b, b_b) -> torch.Tensor:
-    """Plain version of ``fused_block_se_sums``: sums of xb over T and each
-    of the kernel's H x W tiles (``plan_tiles``, row-major), [B, n_tiles, Ci]
-    fp32."""
+    """Plain version of ``fused_block_se_sums``: sums of xb over each of the
+    kernel's T x H x W tiles (``plan_block``: T-tiles outermost, then
+    row-major), [B, n_tiles, Ci] fp32; tiles that hang over an edge sum what
+    lies inside."""
     xb = _front_reference(x, w_a, a_a, b_a, w_dw, a_b, b_b)
     b, t, h, w, ci = xb.shape
-    tile, _, _, _, _ = plan_tiles(t, h, w, x.shape[-1], ci, x.element_size())
-    nh, nw = -(-h // tile), -(-w // tile)
-    xb = F.pad(xb, (0, 0, 0, nw * tile - w, 0, nh * tile - h))
-    return xb.reshape(b, t, nh, tile, nw, tile, ci).sum(dim=(1, 3, 5)).reshape(b, nh * nw, ci)
+    tt, tile, _, _, _, _ = plan_block(t, h, w, x.shape[-1], ci, x.element_size())
+    nt, nh, nw = -(-t // tt), -(-h // tile), -(-w // tile)
+    xb = F.pad(xb, (0, 0, 0, nw * tile - w, 0, nh * tile - h, 0, nt * tt - t))
+    xb = xb.reshape(b, nt, tt, nh, tile, nw, tile, ci).sum(dim=(2, 4, 6))
+    return xb.reshape(b, nt * nh * nw, ci)
 
 
 def fused_block_reference(
@@ -247,14 +293,15 @@ _fwd_op = torch.library.custom_op("c3d::fused_block_fwd", _fwd_cpu, mutates_args
 def _se_sums_cuda(x, w_a, a_a, b_a, w_dw, a_b, b_b):
     b, t, h, w, c, ci = _check_cuda_args(x, w_a)
     args = _front_args(x, w_a, a_a, b_a, w_dw, a_b, b_b)
-    tile, ck, _, smem, n_tiles = _launch_plan(t, h, w, c, ci, x.element_size())
+    tt, tile, ck, _, smem, n_tiles = _launch_plan(t, h, w, c, ci, x.element_size())
     sums = torch.empty((b, n_tiles, ci), device=x.device, dtype=torch.float32)
     lib = cuda_build.load("fused_block")
     with torch.cuda.device(x.device):
         err = lib.c3d_fused_block_se_sums(
             _DTYPES[x.dtype], args[0].data_ptr(), sums.data_ptr(),
             *(a.data_ptr() for a in args[1:]),
-            b, t, h, w, c, ci, tile, ck, smem, torch.cuda.current_stream(x.device).cuda_stream,
+            b, t, h, w, c, ci, tt, tile, ck, smem,
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
     cuda_build.check(lib, err, "fused_block_se_sums")
     fused_block_se_sums.launches += 1
@@ -275,7 +322,7 @@ def _fwd_cuda(x, w_a, a_a, b_a, w_dw, a_b, b_b, w_c, a_c, b_c, gate):
         if gate.shape != (b, ci):
             raise ValueError(f"gate {tuple(gate.shape)} != {(b, ci)}")
         gate = _f32(gate, x, b * ci, "gate")
-    tile, ck, smem, _, _ = _launch_plan(t, h, w, c, ci, x.element_size())
+    tt, tile, ck, smem, _, _ = _launch_plan(t, h, w, c, ci, x.element_size())
     out = torch.empty_like(args[0])
     lib = cuda_build.load("fused_block")
     with torch.cuda.device(x.device):
@@ -284,7 +331,8 @@ def _fwd_cuda(x, w_a, a_a, b_a, w_dw, a_b, b_b, w_c, a_c, b_c, gate):
             *(a.data_ptr() for a in args[1:]),
             None if gate is None else gate.data_ptr(),
             *(a.data_ptr() for a in back),
-            b, t, h, w, c, ci, tile, ck, smem, torch.cuda.current_stream(x.device).cuda_stream,
+            b, t, h, w, c, ci, tt, tile, ck, smem,
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
     cuda_build.check(lib, err, "fused_block_fwd")
     fused_block_fwd.launches += 1
@@ -295,7 +343,7 @@ def _fwd_cuda(x, w_a, a_a, b_a, w_dw, a_b, b_b, w_c, a_c, b_c, gate):
 def _se_sums_fake(x, w_a, a_a, b_a, w_dw, a_b, b_b):
     t, h, w, c = x.shape[1:]
     ci = w_a.shape[1]
-    n_tiles = plan_tiles(t, h, w, c, ci, x.element_size())[4]
+    n_tiles = plan_block(t, h, w, c, ci, x.element_size()).n_tiles
     return x.new_empty((x.shape[0], n_tiles, ci), dtype=torch.float32)
 
 
@@ -326,10 +374,11 @@ def blocks_per_sm(dtype: torch.dtype, se_sums: bool, t: int, h: int, w: int, c: 
                   ci: int) -> int:
     """Blocks of the kernel for this shape that one SM of the current card
     holds at once (CUDA's occupancy calculator)."""
-    tile, ck, smem_fwd, smem_sums, _ = plan_tiles(t, h, w, c, ci, torch.empty((), dtype=dtype).element_size())
+    tt, tile, ck, smem_fwd, smem_sums, _ = plan_block(
+        t, h, w, c, ci, torch.empty((), dtype=dtype).element_size())
     lib = cuda_build.load("fused_block")
-    return lib.c3d_fused_block_blocks_per_sm(_DTYPES[dtype], int(se_sums), t, c, ci, tile, ck,
-                                             smem_sums if se_sums else smem_fwd)
+    return lib.c3d_fused_block_blocks_per_sm(_DTYPES[dtype], int(se_sums), t, tt, c, ci, tile,
+                                             ck, smem_sums if se_sums else smem_fwd)
 
 
 def fused_bottleneck_block(

@@ -16,6 +16,7 @@ waits on the card.
 
 from __future__ import annotations
 
+import atexit
 import datetime
 import os
 from typing import List, Optional
@@ -24,7 +25,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-_STATE = {"done": False, "control": None}
+_STATE = {"done": False, "control": None, "exit_hook": False}
 
 
 def initialize(coordinator_address: Optional[str] = None, num_processes: Optional[int] = None,
@@ -78,6 +79,13 @@ def initialize(coordinator_address: Optional[str] = None, num_processes: Optiona
     assert float(ones) == n, f"warm-up all-reduce gave {float(ones)}, want {n}"
     dist.barrier(group=_STATE["control"])
     _STATE["done"] = True
+    if not _STATE["exit_hook"]:
+        # Tear the group down before the interpreter does: left to the
+        # interpreter's teardown, a gloo process whose peer was still
+        # sending to it could die by SIGABRT ("terminate called without an
+        # active exception") in place of its own exit code.
+        atexit.register(shutdown)
+        _STATE["exit_hook"] = True
 
 
 def world_size() -> int:

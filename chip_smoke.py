@@ -2,7 +2,8 @@
 """Smoke run of change3d_tpu_torch on one NVIDIA GPU (built for the H100).
 
     python3 chip_smoke.py [--batch 8] [--batches 3] [--seed 0]
-                          [--multi-gpu-only | --int8-only | --data-only]
+                          [--multi-gpu-only | --int8-only | --data-only |
+                           --classify-only]
 
 Run from the repository root. Phases (any failure exits non-zero and prints
 no result line):
@@ -152,7 +153,19 @@ no result line):
    on a synthetic LEVIR-CD PNG layout (BCD train transforms, batch 16) and
    on a LEVIR-CC HDF5 layout (batch 32); native and Python METEOR
    seconds on a 1929-image, 5-reference split of seeded ids, the scores
-   equal within 1e-12. Details under the ``data`` key.
+   equal within 1e-12. Details under the ``data`` key;
+15. classify (``phase_classify``, run right after phase 5): X3D-M (16 x
+   224²), X3D-S (13 x 160²) and X3D-XS (4 x 160²) as Kinetics classifiers
+   (``x3d_classifier``, seeded weights) at batch 8 in bf16: 22
+   fused_block_fwd and 11 fused_block_se_sums launches per forward (the
+   counts set to 0 just before), finite [8, 400] logits; both kernels held
+   against their plain versions on the operands the bf16 and the fp32
+   forwards give them, at every block shape (stages 3 and 4 of the 16- and
+   13-frame clips take T-tiles); the fp32 logits fused vs
+   fused_inference=False within 1e-3 with equal top-1; clips/s and device
+   ms per forward, fused and plain in turns; each kernel's time per shape
+   with its T-tile, bound and plain time. Details under the ``classify``
+   key.
 
 ``--int8-only`` builds the kernels, trains phase 9's ``cli bcd`` run and runs
 phase 13 on it, details beside ``--out`` as ``chip_smoke_int8.json``.
@@ -160,6 +173,8 @@ phase 13 on it, details beside ``--out`` as ``chip_smoke_int8.json``.
 written layouts (the proof on several cards), its details beside ``--out``
 as ``chip_smoke_multi_gpu.json``. ``--data-only`` builds them and runs
 phase 14 and phase 9's ``cli cc``, details as ``chip_smoke_data.json``.
+``--classify-only`` builds them and runs phase 15 alone, details as
+``chip_smoke_classify.json``.
 
 The last lines are the kernels JSON, the card line from nvidia-smi, and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
@@ -220,6 +235,13 @@ REPRO_PALLAS = "tests/manual_pallas_repros.py"
 REPRO_DOT_SHAPES = ((1000, 40, 40), (5, 128, 128))
 REPRO_DMA_SHAPES = ((3, 16, 8), (5, 100, 36), (1, 512, 512), (16, 512, 512), (50, 300, 100))
 REPRO_RERUNS = 5
+# Phase 15: the Kinetics classifiers (name, frames, side) at their published
+# clips, batch 8, and the fused launches of one forward: stages of depths
+# 3, 5, 11, 7 run 2 + 4 + 10 + 6 fused blocks, 1 + 2 + 5 + 3 of them SE.
+CLASSIFY = (("x3d_m", 16, 224), ("x3d_s", 13, 160), ("x3d_xs", 4, 160))
+CLASSIFY_BATCH = 8
+CLASSIFY_PER_FORWARD = {"fused_block_fwd": 22, "fused_block_se_sums": 11}
+STAGE_OF_WIDTH = {24: "stage1", 48: "stage2", 96: "stage3", 192: "stage4"}
 
 
 def card_line() -> str:
@@ -818,6 +840,176 @@ def phase_cc_forward(fb, dev, batch, seed):
         stats[f"fp32_tokens_equal_beam{beam}"] = True
     print(f"forward check cc: {json.dumps(stats)}", flush=True)
     return model, preds, (pre, post), launches, stats
+
+
+def lively_weights(model, seed):
+    """Seeded weights whose logits can be read: every matrix and conv kernel
+    of the default init scaled by sqrt(3) (U(+-sqrt(3 / fan_in))), BN scales
+    and variances in [1, 1.2), BN biases and means 0.1 * N(0, 1)."""
+    rs = np.random.RandomState(seed)
+    with torch.no_grad():
+        for name, v in model.state_dict().items():
+            if v.dim() >= 2:
+                v.mul_(3 ** 0.5)
+            elif name.endswith((".scale", ".var")):
+                v.copy_(torch.from_numpy(1 + 0.2 * rs.rand(*v.shape).astype(np.float32)))
+            elif name.endswith((".bias", ".mean")):
+                v.copy_(torch.from_numpy(0.1 * rs.randn(*v.shape).astype(np.float32)))
+    return model
+
+
+def block_operands(model, clip):
+    """One classifying forward with ``fused_bottleneck_block`` watched (the
+    name models/x3d.py calls): the operands of the first call at each
+    (input shape, SE), and the calls at each."""
+    from change3d_tpu_torch.models import x3d as x3d_mod
+
+    real, ops, calls = x3d_mod.fused_bottleneck_block, {}, {}
+
+    def watch(x, *args):
+        key = (tuple(x.shape), args[-1] is not None)
+        calls[key] = calls.get(key, 0) + 1
+        se = None if args[-1] is None else tuple(a.detach() for a in args[-1])
+        ops.setdefault(key, ([x] + [a.detach() for a in args[:-1]], se))
+        return real(x, *args)
+
+    x3d_mod.fused_bottleneck_block = watch
+    try:
+        with torch.no_grad():
+            model(clip, classify=True)
+    finally:
+        x3d_mod.fused_bottleneck_block = real
+    return ops, calls
+
+
+def clips_per_s(model, clip, rounds=3):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for _ in range(rounds):
+            model(clip, classify=True)
+    torch.cuda.synchronize()
+    return rounds * clip.shape[0] / (time.perf_counter() - t0)
+
+
+def classify_rows(fb, name, ops, calls, card, iters=10):
+    """Each fused kernel's time at every block shape of one bf16 forward (on
+    the SE block's operands, held against the plain version just before),
+    its launches per forward, its plan, bound and plain time."""
+    rows = []
+    for (shape, has_se), (o, se) in sorted(ops.items()):
+        if not has_se:
+            continue
+        b, t, h, w, c = shape
+        ci = o[1].shape[1]
+        gate = fb.se_gate(fb.se_sums_reference(*o[:7]).sum(1) / (t * h * w), *se)
+        plan = fb.plan_block(t, h, w, c, ci, 2)
+        n_se = calls[(shape, True)]
+        for kernel, fn, plain, n, sums in (
+            ("fused_block_fwd", lambda: fb.fused_block_fwd(*o, gate),
+             lambda: fb.fused_block_fwd_reference(*o, gate), n_se + calls[(shape, False)], False),
+            ("fused_block_se_sums", lambda: fb.fused_block_se_sums(*o[:7]),
+             lambda: fb.se_sums_reference(*o[:7]), n_se, True),
+        ):
+            b_ms, b_by = bound(b, t, h, c, ci, 2, sums=sums, n_tiles=plan.n_tiles)
+            rows.append({"kernel": kernel, "model": name, "stage": STAGE_OF_WIDTH[c], "t": t,
+                         "batch": b, "shape": list(shape), "inner": ci, "tt": plan.tt,
+                         "tile": plan.tile, "chunk": plan.ck, "n_tiles": plan.n_tiles,
+                         "launches_per_forward": n,
+                         "blocks_per_sm": fb.blocks_per_sm(torch.bfloat16, sums, t, h, w, c, ci),
+                         "ms": event_ms(fn, iters), "plain_ms": event_ms(plain, 3),
+                         "bound_ms": b_ms, "bound_by": b_by, "card": card})
+            print(f"time {kernel} {name} {STAGE_OF_WIDTH[c]} T={t} tt={plan.tt} B={b} "
+                  f"({card}): {json.dumps(rows[-1])}", flush=True)
+    return rows
+
+
+def phase_classify(fb, dev, worst, seed, card):
+    """X3D-M / S / XS as Kinetics classifiers (``x3d_classifier``, seeded
+    weights) on their published clips at batch 8 in bf16: exactly 22 + 11
+    fused launches per forward with the counts set to 0 just before, finite
+    [8, 400] logits; each kernel held against its plain version on the
+    operands the bf16 and the fp32 forwards give it (every block shape, with
+    and without SE); the fp32 logits of the fused model against
+    fused_inference=False (1e-3, equal top-1); clips/s and device ms per
+    forward, fused and plain in turns; each kernel's time per shape."""
+    from change3d_tpu_torch.models.x3d import X3D, x3d_classifier, x3d_m_config
+
+    t_start = time.perf_counter()
+    stats, rows = {}, []
+    for name, t, side in CLASSIFY:
+        model = lively_weights(x3d_classifier(device=dev, seed=seed), seed)
+        rs = np.random.RandomState(seed + t)
+        clip32 = torch.from_numpy(rs.randn(CLASSIFY_BATCH, t, side, side, 3).astype(
+            np.float32)).to(dev)
+        clip = clip32.to(torch.bfloat16)
+        with torch.no_grad():
+            model(clip, classify=True)  # load the kernels, warm the allocator
+            torch.cuda.synchronize()
+            reset_counts(fb)
+            logits = model(clip, classify=True)
+            torch.cuda.synchronize()
+            launches = fused_counts(fb)
+        if launches != CLASSIFY_PER_FORWARD:
+            raise AssertionError(f"{name} launches {launches}, want {CLASSIFY_PER_FORWARD}")
+        if logits.shape != (CLASSIFY_BATCH, 400) or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{name} logits {tuple(logits.shape)} {logits.dtype}")
+        ops16, calls = block_operands(model, clip)
+        for dtype, ops in ((torch.bfloat16, ops16), (torch.float32, block_operands(model, clip32)[0])):
+            for (shape, has_se), (o, se) in sorted(ops.items()):
+                check_block(fb, worst, f"{name} {shape} se={has_se} forward operands", o, se, dtype)
+        plain = X3D(x3d_m_config(fused_inference=False), head=True).to(dev).eval()
+        plain.load_state_dict(model.state_dict())
+        with torch.no_grad():
+            f32, p32 = model(clip32, classify=True), plain(clip32, classify=True)
+            p16 = plain(clip, classify=True)
+        err = float((f32 - p32).abs().max())
+        if not (err <= 1e-3 and torch.equal(f32.argmax(1), p32.argmax(1))):
+            raise AssertionError(f"{name} fp32 logits fused vs plain: max |d| {err}, top-1 "
+                                 f"{f32.argmax(1).tolist()} vs {p32.argmax(1).tolist()}")
+        runs = {"fused": [], "plain": []}
+        for kind in ("fused", "plain", "plain", "fused"):
+            runs[kind].append(clips_per_s(model if kind == "fused" else plain, clip))
+        with torch.no_grad():
+            fwd_ms = {kind: event_ms(lambda: m(clip, classify=True), 5)
+                      for kind, m in (("fused", model), ("plain", plain))}
+        stats[name] = {
+            "frames": t, "side": side, "batch": CLASSIFY_BATCH, "launches": launches,
+            "fp32_logit_max_abs_err": err, "fp32_top1_equal": True,
+            "logit_max_abs": float(p32.abs().max()),
+            "bf16_top1_agreement_vs_fp32_plain": float((logits.argmax(1) == p32.argmax(1))
+                                                       .float().mean()),
+            "bf16_top1_agreement_vs_bf16_plain": float((logits.argmax(1) == p16.argmax(1))
+                                                       .float().mean()),
+            "clips_per_s": runs, "forward_ms": fwd_ms, "card": card}
+        rows += classify_rows(fb, name, ops16, calls, card)
+        print(f"classify {name} {t}x{side}^2 bf16 batch {CLASSIFY_BATCH}: fused "
+              f"{runs['fused']} clips/s, {fwd_ms['fused']} ms per forward on the device; plain "
+              f"{runs['plain']} clips/s, {fwd_ms['plain']} ms ({card}); {json.dumps(stats[name])}",
+              flush=True)
+        del model, plain, ops16, clip, clip32
+        torch.cuda.empty_cache()
+    stats["seconds"] = time.perf_counter() - t_start
+    print(f"classify phase: {stats['seconds']:.1f} s", flush=True)
+    return stats, rows
+
+
+def classify_only(fb, dev, args, card) -> int:
+    """``--classify-only``: phase 15 alone, details beside ``--out`` as
+    ``chip_smoke_classify.json``."""
+    worst = {"fused_block_fwd": {}, "fused_block_se_sums": {}}
+    stats, rows = phase_classify(fb, dev, worst, args.seed, card)
+    out = os.path.splitext(args.out)[0] + "_classify.json"
+    if os.path.dirname(out):
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out, "w") as f:
+        json.dump({"card": card, "classify": stats, "rows": rows, "worst": worst}, f, indent=1)
+    print(f"kernels vs plain versions, worst over phase 15: {json.dumps(worst)}", flush=True)
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
 
 
 def phase_cc_times(preds, pairs, batch, dev, card, rounds=3):
@@ -2055,12 +2247,13 @@ def kernel_rows(fb, worst, batch, dev, seed, card, iters=10):
     return rows
 
 
-def per_forward(rows, kernel, t, batch, launches="launches_per_forward"):
+def per_forward(rows, kernel, t, batch, launches="launches_per_forward", model=None):
     """A kernel's summed ms, plain ms and bound over one forward on T-frame
     clips at ``batch`` (``launches`` names the row's launch count: a
-    detection forward's, or a CC forward's), and what bounds most of it."""
+    detection forward's, or a CC forward's; ``model`` a classifier's rows),
+    and what bounds most of it."""
     mine = [r for r in rows if r["kernel"] == kernel and r["t"] == t and r["batch"] == batch
-            and r[launches]]
+            and r.get("model") == model and r[launches]]
     total = lambda k: sum(r[k] * r[launches] for r in mine)
     by = {}
     for r in mine:
@@ -2521,6 +2714,8 @@ def main(argv=None) -> int:
                     help="build the kernels and run phase 12 alone, on every card")
     ap.add_argument("--data-only", action="store_true",
                     help="build the kernels and run the data phase and phase 9's cli cc alone")
+    ap.add_argument("--classify-only", action="store_true",
+                    help="build the kernels and run phase 15 (the Kinetics classifiers) alone")
     ap.add_argument("--rank-worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
@@ -2559,6 +2754,8 @@ def main(argv=None) -> int:
         return int8_only(fb, dev, args, card)
     if args.data_only:
         return data_only(fb, dev, args, card)
+    if args.classify_only:
+        return classify_only(fb, dev, args, card)
 
     seeds = list(range(args.seed, args.seed + KERNEL_SEEDS))
     worst = phase_kernels(fb, dev, seeds, args.batch)
@@ -2580,6 +2777,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     rows = kernel_rows(fb, worst, args.batch, dev, args.seed, card)
     rows += repro_rows(rp, dev, args.seed, card)
+    classify, classify_rows_ = phase_classify(fb, dev, worst, args.seed, card)
+    rows += classify_rows_
 
     train = {"parity": {task: phase_train_parity(dev, args.seed, task) for task in TASKS}}
     train["parity"]["cc"] = phase_cc_train_parity(dev, args.seed)
@@ -2620,6 +2819,7 @@ def main(argv=None) -> int:
     print(f"multi-GPU phase: {multi_gpu['seconds']:.1f} s", flush=True)
     print(f"int8 and remat phase: {quant['seconds']:.1f} s", flush=True)
     print(f"data phase: {data['seconds']:.1f} s", flush=True)
+    print(f"classify phase: {classify['seconds']:.1f} s", flush=True)
     print(f"kernels vs plain versions, worst over every check: {json.dumps(worst)}", flush=True)
     for task in TASKS:
         runs, fwd_ms = times[task]
@@ -2627,6 +2827,12 @@ def main(argv=None) -> int:
             print(f"{task} predict_u8 bf16 256^2 batch {args.batch} {kind} blocks: "
                   f"{runs[kind]} pairs/s end to end, {fwd_ms[kind]} ms per forward on the "
                   f"device ({card})", flush=True)
+    for name, _, _ in CLASSIFY:
+        c = classify[name]
+        for kind in ("fused", "plain"):
+            print(f"{name} classify bf16 {c['frames']}x{c['side']}^2 batch {c['batch']} {kind} "
+                  f"blocks: {c['clips_per_s'][kind]} clips/s end to end, {c['forward_ms'][kind]} "
+                  f"ms per forward on the device ({card})", flush=True)
     for beam, row in cc_times.items():
         print(f"cc caption_u8 bf16 256^2 batch {args.batch} beam {beam}: "
               f"{row['captions_per_s']} captions/s end to end, encoder {row['encoder_ms']} ms, "
@@ -2641,12 +2847,20 @@ def main(argv=None) -> int:
         forwards = {task: per_forward(rows, kernel, CLIP_T[task], args.batch) for task in TASKS}
         forwards["cc"] = per_forward(rows, kernel, 3, args.batch, "launches_per_cc_forward")
         forwards["cc_batch32"] = per_forward(rows, kernel, 3, CC_BATCH, "launches_per_cc_forward")
+        for name, t, _ in CLASSIFY:
+            forwards[name] = per_forward(rows, kernel, t, CLASSIFY_BATCH, model=name)
+        shapes = [{k: r[k] for k in ("model", "stage", "shape", "tt", "tile", "chunk",
+                                     "launches_per_forward", "ms", "plain_ms", "bound_ms",
+                                     "bound_by")}
+                  for r in rows if r["kernel"] == kernel and r.get("model")]
         kernels.append({
             "name": kernel, "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": launches["bcd"][kernel],
             "launches_scd_forward": launches["scd"][kernel],
             "launches_bda_forward": launches["bda"][kernel],
             "launches_cc_forward": cc_launches[1][kernel],
+            "launches_classify_forward": {name: classify[name]["launches"][kernel]
+                                          for name, _, _ in CLASSIFY},
             "launches_per_forward": forwards["bcd"]["launches_per_forward"],
             "launches_train_loop": {task: loop[0][kernel] for task, loop in loops.items()},
             "launches_deploy": {
@@ -2673,10 +2887,12 @@ def main(argv=None) -> int:
             "worst_by_t": worst[kernel],
             "ms": forwards["bcd"]["ms"], "plain_ms": forwards["bcd"]["plain_ms"],
             "bound_ms": forwards["bcd"]["bound_ms"], "bound_by": forwards["bcd"]["bound_by"],
-            "library_ms": None, "per_forward": forwards,
+            "library_ms": None, "per_forward": forwards, "classify_shapes": shapes,
             "per": f"one bf16 BCD forward (T=3) at batch {args.batch}, summed over its launches; "
-                   f"per_forward gives SCD (T=5), BDA (T=4) and CC (T=3, stages 1-4, at batch "
-                   f"{args.batch} and {CC_BATCH}) too",
+                   f"per_forward gives SCD (T=5), BDA (T=4), CC (T=3, stages 1-4, at batch "
+                   f"{args.batch} and {CC_BATCH}) and the X3D-M / S / XS classifiers (T=16, 13, "
+                   f"4 at batch {CLASSIFY_BATCH}) too; classify_shapes their shapes, T-tiles "
+                   f"(tt) and times",
         })
     for kernel, replaces in (("dot_1d", f"{REPRO_PALLAS}:25 (pallas_call :35)"),
                              ("manual_dma", f"{REPRO_PALLAS}:39 (pallas_call :48)")):
@@ -2697,7 +2913,8 @@ def main(argv=None) -> int:
     detail = {"card": card, "torch": torch.__version__, "batch": args.batch,
               "pairs_per_s": {task: times[task][0] for task in TASKS},
               "forward_ms": {task: times[task][1] for task in TASKS},
-              "forward_check": forward_check, "cc_times": cc_times, "rows": rows,
+              "forward_check": forward_check, "cc_times": cc_times, "classify": classify,
+              "rows": rows,
               "kernels": kernels, "train": train, "deploy": deploy, "export": export,
               "multi_gpu": multi_gpu, "quant": quant, "data": data}
     if os.path.dirname(args.out):

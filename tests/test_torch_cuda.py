@@ -93,6 +93,63 @@ def test_block_matches_plain_version_at_t4_t5(cuda, stage, t, dtype):
     assert torch.equal(fb.fused_block_se_sums(*ops[:7]), sums)  # bit-identical rerun
 
 
+# Kinetics clips whose stages 3 and 4 take T-tiles with a one-frame halo
+# (tests/test_torch_fused_plan.py): (B, T, H, W, C, Ci, Cr) of X3D-M at
+# 16 x 224^2 and X3D-S at 13 x 160^2 (the last T-tile ragged).
+T_TILED = {"m_stage3": (2, 16, 14, 14, 96, 216, 16), "m_stage4": (2, 16, 7, 7, 192, 432, 32),
+           "s_stage3": (2, 13, 10, 10, 96, 216, 16), "s_stage4": (2, 13, 5, 5, 192, 432, 32)}
+
+
+@pytest.mark.parametrize("shape", list(T_TILED))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_t_tiled_block_matches_plain_version(cuda, shape, dtype):
+    b, t, h, w, c, ci, cr = T_TILED[shape]
+    plan = fb.plan_block(t, h, w, c, ci, 2 if dtype == torch.bfloat16 else 4)
+    assert plan.tt < t or dtype == torch.float32
+    tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+    for has_se in (False, True):
+        ops, se = _operands(11, cuda, dtype, *T_TILED[shape], has_se)
+        got = fb.fused_bottleneck_block(*ops, se)
+        torch.testing.assert_close(got.float(), fb.fused_block_reference(*ops, se).float(), **tol)
+    sums = fb.fused_block_se_sums(*ops[:7])
+    want = fb.se_sums_reference(*ops[:7])
+    assert sums.shape == want.shape == (b, plan.n_tiles, ci)
+    if dtype == torch.float32:  # tile by tile: T-tiles outermost
+        torch.testing.assert_close(sums, want, **FP32_TOL)
+    assert torch.equal(fb.fused_block_se_sums(*ops[:7]), sums)  # bit-identical rerun
+
+
+def test_x3d_m_classifier_fused_matches_plain_on_card(cuda):
+    """X3D-M with its head on a 16-frame clip at 64^2: 22 + 11 fused
+    launches per forward, fp32 logits within 1e-3 of the plain model."""
+    from change3d_tpu_torch.models.x3d import X3D, x3d_classifier, x3d_m_config
+
+    fused = x3d_classifier(device=cuda, seed=2)
+    rs = np.random.RandomState(2)
+    with torch.no_grad():  # weights U(+-sqrt(3 / fan_in)), BN away from identity: lively logits
+        for name, v in fused.state_dict().items():
+            if v.dim() >= 2:
+                v.mul_(3 ** 0.5)
+            elif name.endswith((".scale", ".var")):
+                v.copy_(torch.from_numpy(1 + 0.2 * rs.rand(*v.shape).astype(np.float32)))
+            elif name.endswith((".bias", ".mean")):
+                v.copy_(torch.from_numpy(0.1 * rs.randn(*v.shape).astype(np.float32)))
+    plain = X3D(x3d_m_config(fused_inference=False), head=True).to(cuda).eval()
+    plain.load_state_dict(fused.state_dict())
+    clip = torch.from_numpy(np.random.RandomState(4).randn(2, 16, 64, 64, 3).astype(
+        np.float32)).to(cuda)
+    before = (fb.fused_block_fwd.launches, fb.fused_block_se_sums.launches)
+    with torch.no_grad():
+        got = fused(clip, classify=True)
+        torch.cuda.synchronize()
+        after = (fb.fused_block_fwd.launches, fb.fused_block_se_sums.launches)
+        want = plain(clip, classify=True)
+    assert (after[0] - before[0], after[1] - before[1]) == (22, 11)
+    assert got.shape == (2, 400)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+    assert torch.equal(got.argmax(1), want.argmax(1))
+
+
 @pytest.mark.parametrize("task", ["scd", "bda"])
 def test_tiny_scd_bda_models_fused_match_plain_on_card(cuda, task):
     from change3d_tpu_torch.models.trainer import Change3D, Task

@@ -92,3 +92,93 @@ def test_bf16_plain_se_sums_follow_the_bf16_tiles():
         want = xb[:, :, y0:y0 + tile, x0:x0 + tile].sum(dim=(1, 2, 3))
         torch.testing.assert_close(sums[:, k], want, rtol=1e-5, atol=1e-5)
 
+
+
+# The X3D-M / S / XS stage shapes (the stock (1, 2, 2) stem stride, then
+# stride 2 per stage): (T, input side) -> (T, H=W, C, Ci) per stage.
+X3D_FAMILY = {"m": (16, 224), "s": (13, 160), "xs": (4, 160)}
+FAMILY_STAGES = {f"{v}_stage{i + 1}": (t, side // 2 ** (i + 2), c, ci)
+                 for v, (t, side) in X3D_FAMILY.items()
+                 for i, (c, ci) in enumerate(((24, 54), (48, 108), (96, 216), (192, 432)))}
+
+# X3D-M's 16-frame clip at stages 3 and 4 in bf16, counted by hand from
+# Bf16Layout: (T, H, W, C, Ci) -> (tt, tile, ck, smem_fwd, smem_sums, n_tiles).
+# Stage 3: a whole clip needs 24 accumulator tiles per warp at tile 4, 8
+# frames need 12; then F = 10 halo frames of 6 x 6 (360 rows, 368 padded),
+# rows of 96 + 8, ck = 16 (14 chunks; 24 needs 124160 B):
+# (368*104 + 16*104 + 360*16) * 2 = 91392, fwd + (128 + 96) * 24 * 2 = 102144,
+# sums + 8*4*1*16*4 = 93440; 2 T-tiles x 4 x 4. Stage 4: tt = 4 (12 tiles per
+# warp) misses the shared-memory target by 512 B at ck = 16, so tt = 3
+# (ceil(16/6)): F = 5, 180 rows (192 padded) of 192 + 8:
+# (192*200 + 16*200 + 180*16) * 2 = 88960, fwd + (48 + 192) * 24 * 2 = 100480,
+# sums + 3*4*1*16*4 = 89728; 6 T-tiles (the last of one frame) x 2 x 2.
+T16_PINNED = {
+    "stage3": ((16, 14, 14, 96, 216), (8, 4, 16, 102144, 93440, 32)),
+    "stage4": ((16, 7, 7, 192, 432), (3, 4, 16, 100480, 89728, 24)),
+}
+
+
+@pytest.mark.parametrize("stage", list(X3D_L_STAGES) + list(X3D_L_STAGES_T45))
+def test_whole_clip_plans_take_one_t_tile(stage):
+    shape, want = {**X3D_L_STAGES, **X3D_L_STAGES_T45}[stage]
+    plan = fb.plan_block(*shape, 2)
+    assert plan.tt == shape[0] and tuple(plan)[1:] == want
+    assert fb.halo_frames(shape[0], plan.tt) == shape[0]
+
+
+@pytest.mark.parametrize("stage", list(T16_PINNED))
+def test_bf16_t_tiled_plans_at_x3d_m_16_frames(stage):
+    shape, want = T16_PINNED[stage]
+    assert tuple(fb.plan_block(*shape, 2)) == want
+    assert fb.plan_tiles(*shape, 2) == want[1:]
+
+
+@pytest.mark.parametrize("itemsize", [2, 4], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("stage", list(FAMILY_STAGES))
+def test_x3d_family_stages_plan_within_the_limits(stage, itemsize):
+    t, hw, c, ci = FAMILY_STAGES[stage]
+    tt, tile, ck, smem_fwd, smem_sums, n_tiles = fb.plan_block(t, hw, hw, c, ci, itemsize)
+    assert 1 <= tt <= t and min(ci, fb.MIN_CHUNK) <= ck <= ci
+    assert n_tiles == -(-t // tt) * (-(-hw // tile)) ** 2
+    assert smem_sums < smem_fwd <= fb.SMEM_TARGET
+    frames = fb.halo_frames(t, tt)
+    assert frames == (t if tt == t else tt + 2)
+    if itemsize == 2:
+        assert tile in (16, 8, 4) and ck % 2 == 0 and (ck % 8 == 0 or ck == ci)
+        m_tiles = -(-tt * tile * tile // 16)
+        assert -(-m_tiles * (c // 8) // fb.WARPS) <= fb.MAX_ACC_TILES
+        assert (smem_fwd, smem_sums) == fb._bf16_smem(tt, tile, c, ck, frames)
+    else:
+        halo, core = frames * (tile + 2) ** 2, tt * tile * tile
+        assert tile in (8, 4, 2, 1)
+        assert smem_sums == halo * c * 4 + (halo + core) * 4 * ck
+        assert smem_fwd == smem_sums + core * c * 4
+    if t <= 5:  # X3D-XS: every stage in one T-tile
+        assert tt == t
+
+
+@pytest.mark.parametrize("itemsize", [2, 4], ids=["bf16", "fp32"])
+def test_plain_se_sums_follow_the_t_tiles(itemsize):
+    """A shape whose plan takes T-tiles, the last one ragged (X3D-S's
+    stage 4 in bf16, 13 frames in tiles of 3; 17 frames of 3 x 3 in fp32,
+    in tiles of 9): each row of the plain sums is its tile's sum of xb, and
+    the rows add up to the whole clip's, which the SE gate divides."""
+    rs = np.random.RandomState(7)
+    t, h, w, c, ci = (13, 5, 5, 192, 432) if itemsize == 2 else (17, 3, 3, 192, 432)
+    f = lambda *s: torch.from_numpy((rs.randn(*s) * 0.2).astype(np.float32))
+    ops = [f(2, t, h, w, c), f(c, ci), f(ci) * 0.1 + 1, f(ci) * 0.1, f(3, 3, 3, ci),
+           f(ci) * 0.1 + 1, f(ci) * 0.1]
+    if itemsize == 2:
+        ops[0] = ops[0].to(torch.bfloat16)
+    tt, tile, _, _, _, n_tiles = fb.plan_block(t, h, w, c, ci, itemsize)
+    assert tt < t and t % tt
+    sums = fb.se_sums_reference(*ops)
+    assert sums.shape == (2, n_tiles, ci) and sums.dtype == torch.float32
+    xb = fb._front_reference(*ops)
+    tiles_h, tiles_w = -(-h // tile), -(-w // tile)
+    for k in range(n_tiles):
+        t0 = (k // (tiles_h * tiles_w)) * tt
+        y0, x0 = ((k // tiles_w) % tiles_h) * tile, (k % tiles_w) * tile
+        want = xb[:, t0:t0 + tt, y0:y0 + tile, x0:x0 + tile].sum(dim=(1, 2, 3))
+        torch.testing.assert_close(sums[:, k], want, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(sums.sum(1), xb.sum(dim=(1, 2, 3)), rtol=1e-5, atol=1e-3)

@@ -10,10 +10,14 @@ launches them, each with a deadline).
   factory sharding by process;
 - alone (no group) every collective is the identity;
 - a process that fails makes its peer's next collective raise (non-zero
-  exits, nothing hangs)."""
+  exits, nothing hangs);
+- a process that leaves by an error tears its group down before the
+  interpreter's teardown, and keeps its exit code."""
 
 import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -114,3 +118,25 @@ def test_a_lost_process_fails_its_peer():
     codes, hung = tp.run_ranks(tp.lost_peer_worker, 2, timeout=60)
     assert not hung
     assert codes[1] == 3 and codes[0] not in (0, None)
+
+
+EXIT_SCRIPT = """
+import atexit
+import torch.distributed as dist
+from change3d_tpu_torch.parallel import distributed
+atexit.register(lambda: print("group at exit:", dist.is_initialized(), flush=True))
+distributed.initialize("127.0.0.1:%d", 1, 0, device="cpu", timeout=30.0)
+print("group at start:", dist.is_initialized(), flush=True)
+raise SystemExit(3)
+"""
+
+
+def test_the_group_is_torn_down_before_the_interpreter_exits():
+    """``initialize`` registers ``shutdown`` at exit: a process leaving by
+    an error (here SystemExit(3)) destroys its group before the
+    interpreter's teardown, and keeps its own exit code."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", EXIT_SCRIPT % tp.free_port()], cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 3, res.stderr[-2000:]
+    assert res.stdout.split("\n")[:2] == ["group at start: True", "group at exit: False"], res.stdout
