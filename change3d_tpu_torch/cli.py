@@ -11,7 +11,8 @@ backbone from Kinetics; ``--resume`` resumes):
 
 ``--loader grain`` feeds them through worker processes (the JAX CLI's
 flag; on the port the torch worker-process loader, not the grain package);
-``--profile_dir DIR`` traces training steps 10-14 with torch.profiler;
+``--profile_dir DIR`` traces training steps 10-14 with torch.profiler
+(``serve --profile_dir DIR``: served batches 10-14 after the warm-up);
 ``--remat`` recomputes the backbone's block pairs in the backward (off by
 default, unlike the JAX CLI: the card holds the default steps without it).
 
@@ -99,6 +100,8 @@ _EXPORT_NOT_PORTED = {
     "--platform": "use --device; load_exported(device=...) moves an artifact",
 }
 _PROFILE_HELP = "write a torch.profiler trace of training steps 10-14 here"
+_SERVE_PROFILE_HELP = ("write a torch.profiler trace of served batches 10-14 (counted after "
+                       "the warm-up), every thread, here")
 _CC_STATIC = {"predict": "cc predict supports dynamic int8 only",
               "eval": "cc eval supports dynamic int8 only (static calibration is wired for the "
                       "detection tasks)"}
@@ -317,6 +320,7 @@ def _add_use(sub) -> None:
     p.add_argument("--no_warmup", action="store_true",
                    help="skip running every bucket at start-up (the first request then "
                         "builds the kernels)")
+    p.add_argument("--profile_dir", default=None, help=_SERVE_PROFILE_HELP)
     p.add_argument("--fused", action="store_true", help=_FUSED_HELP)
     _quant(p, calibrates=False)
     _cc_model_flags(p)
@@ -649,7 +653,8 @@ def build_service(args):
     return PredictService(
         args.model_task, predictor, batch_size=args.batch_size, max_delay_ms=args.max_delay_ms,
         tiled=args.tiled, tile_overlap=args.tile_overlap, warmup=not args.no_warmup,
-        buckets=tuple(int(b) for b in args.buckets.split(",")) if args.buckets else None)
+        buckets=tuple(int(b) for b in args.buckets.split(",")) if args.buckets else None,
+        profile_dir=args.profile_dir)
 
 
 def run_serve(args) -> int:

@@ -33,6 +33,11 @@ first: ``calibrate_quant_scales`` records them with an fp32 unfused forward
 (counterpart of the JAX function), ``quant_scales`` / ``set_quant_scales``
 read and load them, and a Predictor refuses a static model without them.
 
+Spans (``utils/profiling.py``) mark the stages of ``predict_u8``
+(``c3d.predict``: ``.h2d``, ``.forward``, ``.d2h``, ``.wait``, ``.unpack``)
+and of a caption call (``c3d.caption``: ``.h2d``, ``.encode``, the search's
+``.decode``, ``.detokenize``) in any trace.
+
 ``ArtifactPredictor`` and ``CaptionArtifactPredictor`` serve an exported
 artifact (``export.py``) with the same ``predict`` / ``predict_probs`` /
 ``caption`` surface, on normalised float inputs; ``fixed_batch`` is the
@@ -61,6 +66,7 @@ from change3d_tpu_torch.models.caption_decoder import (
 from change3d_tpu_torch.models.trainer import Change3D
 from change3d_tpu_torch.models.x3d import X3DBottleneck, prepare_int8
 from change3d_tpu_torch.parallel.mesh import local_device_count
+from change3d_tpu_torch.utils.profiling import span
 
 _CLASS_KEYS = ("pre", "post", "cls")
 _BINARY_KEYS = ("change", "loc")
@@ -271,8 +277,13 @@ class Predictor:
 
     def _u8_shards(self, pre, post) -> List[Dict[str, torch.Tensor]]:
         """Every device's hardened masks of its slice, on that device."""
-        return self._run_shards(lambda dev, model, a, b: self._u8_on(
-            model, self._put(a, dev), self._put(b, dev)), pre, post)
+
+        def run(dev, model, a, b):
+            with span("c3d.predict.h2d"):
+                a, b = self._put(a, dev), self._put(b, dev)
+            return self._u8_on(model, a, b)
+
+        return self._run_shards(run, pre, post)
 
     def _u8_on(self, model, pre: torch.Tensor, post: torch.Tensor) -> Dict[str, torch.Tensor]:
         """``predict_u8_device`` on one replica and its device's tensors."""
@@ -282,20 +293,21 @@ class Predictor:
             # model sees the same inputs as on the host-normalized float path.
             return ((a.float() / 255.0 - 0.5) / 0.5).to(self.compute_dtype)
 
-        out = model(norm(pre), norm(post))
-        hard = {}
-        for key, val in out.items():
-            if key in _BINARY_KEYS:
-                mask = val[..., 0] > 0.5
-                b, h, w = mask.shape
-                if w % 8 == 0:
-                    grouped = mask.reshape(b, h, w // 8, 8).to(torch.int32)
-                    mask = (grouped * self._pows[mask.device]).sum(-1).to(torch.uint8)
-                hard[key] = mask
-            elif key in _CLASS_KEYS:
-                hard[key] = torch.argmax(val, dim=-1).to(torch.uint8)
-            else:
-                hard[key] = val
+        with span("c3d.predict.forward"):
+            out = model(norm(pre), norm(post))
+            hard = {}
+            for key, val in out.items():
+                if key in _BINARY_KEYS:
+                    mask = val[..., 0] > 0.5
+                    b, h, w = mask.shape
+                    if w % 8 == 0:
+                        grouped = mask.reshape(b, h, w // 8, 8).to(torch.int32)
+                        mask = (grouped * self._pows[mask.device]).sum(-1).to(torch.uint8)
+                    hard[key] = mask
+                elif key in _CLASS_KEYS:
+                    hard[key] = torch.argmax(val, dim=-1).to(torch.uint8)
+                else:
+                    hard[key] = val
         return hard
 
     @torch.inference_mode()
@@ -309,38 +321,43 @@ class Predictor:
         if self.device.type != "cuda":
             return U8Launch(self.predict_u8_device(pre, post), None, pre.shape[2])
         outs = self._u8_shards(pre, post)
-        host = {key: torch.empty((len(pre),) + val.shape[1:], dtype=val.dtype, pin_memory=True)
-                for key, val in outs[0].items()}
-        k, events = len(pre) // len(outs), []
-        for i, (dev, out) in enumerate(zip(self.devices, outs)):
-            with _on(dev):
-                for key, val in out.items():
-                    host[key][i * k:(i + 1) * k].copy_(val, non_blocking=True)
-                event = torch.cuda.Event()
-                event.record()
-                events.append(event)
+        with span("c3d.predict.d2h"):
+            host = {key: torch.empty((len(pre),) + val.shape[1:], dtype=val.dtype,
+                                     pin_memory=True)
+                    for key, val in outs[0].items()}
+            k, events = len(pre) // len(outs), []
+            for i, (dev, out) in enumerate(zip(self.devices, outs)):
+                with _on(dev):
+                    for key, val in out.items():
+                        host[key][i * k:(i + 1) * k].copy_(val, non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record()
+                    events.append(event)
         return U8Launch(host, events[0], pre.shape[2], tuple(events[1:]))
 
     @staticmethod
     def finalize_u8(launch: U8Launch) -> Dict[str, np.ndarray]:
         """Wait for a :meth:`predict_u8_async` launch and unpack its masks:
         bool binary masks [B, H, W] and uint8 class ids."""
-        for event in (launch.event,) + launch.more_events:
-            if event is not None:
-                event.synchronize()
+        with span("c3d.predict.wait"):
+            for event in (launch.event,) + launch.more_events:
+                if event is not None:
+                    event.synchronize()
         fetched = {}
-        for key, val in launch.out.items():
-            arr = val.numpy()
-            if key in _BINARY_KEYS and launch.width % 8 == 0:
-                arr = np.unpackbits(arr, axis=-1).astype(bool)[..., :launch.width]
-            fetched[key] = arr
+        with span("c3d.predict.unpack"):
+            for key, val in launch.out.items():
+                arr = val.numpy()
+                if key in _BINARY_KEYS and launch.width % 8 == 0:
+                    arr = np.unpackbits(arr, axis=-1).astype(bool)[..., :launch.width]
+                fetched[key] = arr
         return fetched
 
     def predict_u8(self, pre: np.ndarray, post: np.ndarray) -> Dict[str, np.ndarray]:
         """Raw [B,H,W,3] uint8 in, hardened masks out (the same decisions as
         :meth:`predict` on eval-normalized floats): bool binary masks and
         uint8 class ids, keyed as in :meth:`predict`."""
-        return self.finalize_u8(self.predict_u8_async(pre, post))
+        with span("c3d.predict"):
+            return self.finalize_u8(self.predict_u8_async(pre, post))
 
 
 def _artifact_geometry(fn):
@@ -476,9 +493,18 @@ class CaptionPredictor(Predictor):
         return self.decode(self.encode(pre, post))
 
     def _caption_shards(self, pre: np.ndarray, post: np.ndarray) -> List[str]:
-        tokens = self._run_shards(lambda dev, model, a, b: self.decode(
-            self.encode(self._put(a, dev), self._put(b, dev), model), model)[0], pre, post)
-        return tokens_to_captions(torch.cat([t.cpu() for t in tokens]).numpy(), self.word_map)
+        def run(dev, model, a, b):
+            with span("c3d.caption.h2d"):
+                a, b = self._put(a, dev), self._put(b, dev)
+            with span("c3d.caption.encode"):
+                memory = self.encode(a, b, model)
+            return self.decode(memory, model)[0]
+
+        with span("c3d.caption"):
+            tokens = self._run_shards(run, pre, post)
+            with span("c3d.caption.detokenize"):
+                return tokens_to_captions(torch.cat([t.cpu() for t in tokens]).numpy(),
+                                          self.word_map)
 
     def caption(self, pre: np.ndarray, post: np.ndarray) -> List[str]:
         """Normalised float [B, H, W, 3] pairs -> one sentence per pair."""

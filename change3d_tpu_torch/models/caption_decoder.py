@@ -41,6 +41,7 @@ from change3d_tpu_torch.ops.attention import (
     project_q,
 )
 from change3d_tpu_torch.ops.layers import linear
+from change3d_tpu_torch.utils.profiling import span
 
 MAX_CAPTION_LEN = 52
 # The position table's length (JAX builds 5000 rows).
@@ -348,43 +349,54 @@ def beam_search_decode(
     results equal the full ``max_len`` loop's. The number of steps run is
     left in ``beam_search_decode.steps``.
 
+    Spans (``utils/profiling.py``): ``c3d.caption.decode`` over the search,
+    ``c3d.caption.step`` over each step's launches (the decode step, the
+    log-softmax, the bookkeeping, the cache reorder) and
+    ``c3d.caption.alive_check`` over each early-exit check, the one place
+    the search waits for the device.
+
     memory: [B, S, E]. Returns (tokens [B, max_len] int64, scores [B] fp32).
     """
-    b = memory.shape[0]
-    k = beam_size
-    dev = memory.device
-    batch_ids = torch.arange(b, device=dev)
-    slot = torch.arange(k, device=dev)[None, :]
-    # Position t as a 0-d view of a device tensor: no copy from the host per step.
-    steps = torch.arange(max_len, device=dev)
-    beams = _init_beams(b, k, max_len, start_token, pad_token, dev)
+    with span("c3d.caption.decode"):
+        b = memory.shape[0]
+        k = beam_size
+        dev = memory.device
+        batch_ids = torch.arange(b, device=dev)
+        slot = torch.arange(k, device=dev)[None, :]
+        # Position t as a 0-d view of a device tensor: no copy from the host per step.
+        steps = torch.arange(max_len, device=dev)
+        beams = _init_beams(b, k, max_len, start_token, pad_token, dev)
 
-    # k = 1 (greedy): every repeat and parent gather is the identity; skip them.
-    mem = memory if k == 1 else memory.repeat_interleave(k, dim=0)  # [B*k, S, E]
-    if incremental is not None:
-        precompute_fn, init_cache_fn, step_fn = incremental
-        # Project from the un-repeated memory, then repeat the projections.
-        mem_kv = precompute_fn(memory)
-        if k > 1:
-            mem_kv = tuple(tuple(a.repeat_interleave(k, dim=0) for a in kv) for kv in mem_kv)
-        cache = init_cache_fn(b * k, max_len, memory.dtype)
-
-    t = 1
-    while t < max_len:
-        if early_exit and t > 1 and not bool(beams.alive.any()):
-            break
+        # k = 1 (greedy): every repeat and parent gather is the identity; skip them.
+        mem = memory if k == 1 else memory.repeat_interleave(k, dim=0)  # [B*k, S, E]
         if incremental is not None:
-            step_logits, cache = step_fn(beams.tokens[:, t - 1], mem_kv, cache, t - 1)
-        else:
-            step_logits = apply_fn(beams.tokens, mem)[:, t - 1]
-        beams, parent = _advance(beams, torch.log_softmax(step_logits.float(), dim=-1),
-                                 steps[t], end_token, batch_ids, slot)
-        if incremental is not None and k > 1:
-            # Beams follow their parents: the caches reorder with the gather.
-            cache = tuple({n: a[parent] for n, a in c.items()} for c in cache)
-        t += 1
-    beam_search_decode.steps = t - 1
-    return _result(beams, batch_ids, k)
+            precompute_fn, init_cache_fn, step_fn = incremental
+            # Project from the un-repeated memory, then repeat the projections.
+            mem_kv = precompute_fn(memory)
+            if k > 1:
+                mem_kv = tuple(tuple(a.repeat_interleave(k, dim=0) for a in kv) for kv in mem_kv)
+            cache = init_cache_fn(b * k, max_len, memory.dtype)
+
+        t = 1
+        while t < max_len:
+            if early_exit and t > 1:
+                with span("c3d.caption.alive_check"):
+                    alive = bool(beams.alive.any())
+                if not alive:
+                    break
+            with span("c3d.caption.step"):
+                if incremental is not None:
+                    step_logits, cache = step_fn(beams.tokens[:, t - 1], mem_kv, cache, t - 1)
+                else:
+                    step_logits = apply_fn(beams.tokens, mem)[:, t - 1]
+                beams, parent = _advance(beams, torch.log_softmax(step_logits.float(), dim=-1),
+                                         steps[t], end_token, batch_ids, slot)
+                if incremental is not None and k > 1:
+                    # Beams follow their parents: the caches reorder with the gather.
+                    cache = tuple({n: a[parent] for n, a in c.items()} for c in cache)
+            t += 1
+        beam_search_decode.steps = t - 1
+        return _result(beams, batch_ids, k)
 
 
 beam_search_decode.steps = 0

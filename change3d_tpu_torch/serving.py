@@ -28,6 +28,14 @@
   :class:`~change3d_tpu_torch.inference.TiledPredictor`, one scene at a time.
 - ``GET /healthz`` (readiness and configuration) and ``GET /metrics``
   (requests, errors, batches, mean fill, latency percentiles).
+- **Tracing** (``profile_dir``, ``cli serve --profile_dir``): one
+  ``torch.profiler`` trace of batches 10-14 after the warm-up, on every
+  thread. Spans (``utils/profiling.py``) mark the dispatcher's
+  ``c3d.serve.take`` (waiting for a batch), ``.stack`` (stack and pad),
+  ``.launch`` and ``.inflight_wait`` (blocked while two batches are in
+  flight); the completer's ``c3d.serve.finalize`` and ``.distribute``; a
+  handler's ``c3d.serve.request`` with its parts ``.read``, ``.wait``
+  (the service's answer) and ``.reply``.
 
 A malformed request is answered 400, a body over ``MAX_BODY_BYTES`` 413,
 and a failure of the forward 500 with its reason: the server never falls
@@ -58,6 +66,7 @@ import torch
 from change3d_tpu_torch.data.datasets import CaptionDataset
 from change3d_tpu_torch.data.png import decode_png_bytes, encode_png_bytes
 from change3d_tpu_torch.data.transforms import eval_normalize
+from change3d_tpu_torch.utils.profiling import WindowTracer, span
 
 # Largest accepted request body (two base64 PNGs).
 MAX_BODY_BYTES = 256 * 1024 * 1024
@@ -150,7 +159,8 @@ class _Batcher:
     ``predict_batch``. Given ``predict_async`` and ``finalize``, it only
     launches, and a completer thread finalizes and answers, with at most two
     batches in flight. The forward runs only on the dispatcher thread, under
-    ``torch.inference_mode``.
+    ``torch.inference_mode``. A ``tracer`` (``WindowTracer``) set after the
+    warm-up is ticked once per batch, from 0.
     """
 
     def __init__(self, predict_batch, batch_size: int, max_delay: float,
@@ -171,6 +181,8 @@ class _Batcher:
         self._finalize = finalize
         self._inflight: Optional[queue.Queue] = None
         self._completer: Optional[threading.Thread] = None
+        self.tracer: Optional[WindowTracer] = None
+        self._traced = 0
         if self._predict_async is not None:
             self._inflight = queue.Queue(maxsize=2)
             self._completer = threading.Thread(target=self._complete, daemon=True)
@@ -232,20 +244,27 @@ class _Batcher:
 
     @classmethod
     def _distribute(cls, batch: List[dict], out: Dict[str, np.ndarray]):
-        try:
-            results = [{k: v[i] for k, v in out.items()} for i in range(len(batch))]
-        except Exception as e:  # noqa: BLE001 — never leave a waiter hanging
-            cls._fail(batch, e)
-            return
-        for item, res in zip(batch, results):
-            item["result"] = res
-            item["event"].set()
+        with span("c3d.serve.distribute"):
+            try:
+                results = [{k: v[i] for k, v in out.items()} for i in range(len(batch))]
+            except Exception as e:  # noqa: BLE001 — never leave a waiter hanging
+                cls._fail(batch, e)
+                return
+            for item, res in zip(batch, results):
+                item["result"] = res
+                item["event"].set()
 
     @torch.inference_mode()
     def _run(self):
         while True:
-            batch = self._take_batch()
+            if self.tracer is not None:
+                self.tracer.tick(self._traced)
+                self._traced += 1
+            with span("c3d.serve.take"):
+                batch = self._take_batch()
             if not batch:
+                if self.tracer is not None:
+                    self.tracer.close()
                 if self._inflight is not None:
                     self._inflight.put(None)
                 return
@@ -253,15 +272,19 @@ class _Batcher:
             if self._stats:
                 self._stats.record_batch(n)
             try:
-                pre = np.stack([b["pre"] for b in batch])
-                post = np.stack([b["post"] for b in batch])
-                pad = min(b for b in self.buckets if b >= n) - n
-                if pad:
-                    pre = np.concatenate([pre, np.repeat(pre[-1:], pad, 0)])
-                    post = np.concatenate([post, np.repeat(post[-1:], pad, 0)])
+                with span("c3d.serve.stack"):
+                    pre = np.stack([b["pre"] for b in batch])
+                    post = np.stack([b["post"] for b in batch])
+                    pad = min(b for b in self.buckets if b >= n) - n
+                    if pad:
+                        pre = np.concatenate([pre, np.repeat(pre[-1:], pad, 0)])
+                        post = np.concatenate([post, np.repeat(post[-1:], pad, 0)])
                 if self._predict_async is not None:
+                    with span("c3d.serve.launch"):
+                        handle = self._predict_async(pre, post)
                     # Blocks (bounded queue) while two batches are in flight.
-                    self._inflight.put((batch, self._predict_async(pre, post)))
+                    with span("c3d.serve.inflight_wait"):
+                        self._inflight.put((batch, handle))
                     continue
                 out = self._predict_batch(pre, post)
             except Exception as e:  # noqa: BLE001 — failures go to each request
@@ -276,7 +299,8 @@ class _Batcher:
                 return
             batch, handle = entry
             try:
-                out = self._finalize(handle)
+                with span("c3d.serve.finalize"):
+                    out = self._finalize(handle)
             except Exception as e:  # noqa: BLE001 — failures go to each request
                 self._fail(batch, e)
                 continue
@@ -301,11 +325,12 @@ class PredictService:
     divide over its devices, and refuses a ``batch_size`` that does not.
     ``warmup`` runs every bucket once (building the kernels) and one request through
     the batcher, then zeroes the statistics; start the HTTP server only
-    after it."""
+    after it. ``profile_dir`` traces the batcher's batches 10-14 after it
+    (not in tiled mode, which has no batcher)."""
 
     def __init__(self, task: str, predictor, *, batch_size: int = 16,
                  max_delay_ms: float = 10.0, tiled: bool = False, tile_overlap: int = 32,
-                 warmup: bool = False, buckets=None):
+                 warmup: bool = False, buckets=None, profile_dir: Optional[str] = None):
         self.task = task
         self.to_rgb = task != "bda"  # BDA trains on BGR
         self.tiled = tiled
@@ -344,6 +369,9 @@ class PredictService:
         if tiled:
             if task == "cc":
                 raise ValueError("tiled serving applies to detection tasks only")
+            if profile_dir:
+                raise ValueError("profile_dir traces the batcher's batches; tiled serving "
+                                 "has no batcher")
             from change3d_tpu_torch.inference import TiledPredictor
 
             self._tiled = TiledPredictor(predictor, overlap=tile_overlap, batch_size=batch_size)
@@ -374,6 +402,8 @@ class PredictService:
             z = np.zeros(self.in_hw + (3,), dtype)
             self._batcher.submit(z, z)
             self.stats.reset()
+        if profile_dir:
+            self._batcher.tracer = WindowTracer(profile_dir)
 
     def _norm(self, img: np.ndarray) -> np.ndarray:
         """uint8 HWC in the task's channel order -> what the predictor takes:
@@ -489,9 +519,12 @@ def make_server(service: PredictService, host: str = "0.0.0.0", port: int = 8000
                     f"body {length} bytes exceeds the {MAX_BODY_BYTES} limit (tile large "
                     "scenes client-side, or raise serving.MAX_BODY_BYTES)")})
             ctype = (self.headers.get("Content-Type") or "").split(";")[0].strip()
-            if ctype != "application/octet-stream":
-                return self._json(200, service.handle(json.loads(self.rfile.read(length))))
-            out = service.handle_raw(self.rfile.read(length), self.headers)
+            with span("c3d.serve.request.read"):
+                body = self.rfile.read(length)
+            with span("c3d.serve.request.wait"):
+                if ctype != "application/octet-stream":
+                    return self._json(200, service.handle(json.loads(body)))
+                out = service.handle_raw(body, self.headers)
             if "caption" in out:
                 return self._json(200, out)
             if "application/octet-stream" in self.headers.get("Accept", ""):
@@ -510,19 +543,21 @@ def make_server(service: PredictService, host: str = "0.0.0.0", port: int = 8000
                 self._send(*self._json(404, {"error": f"unknown path {self.path}"}))
                 return
             t0 = time.monotonic()
-            try:
-                reply = self._answer()
-            except _BadRequest as e:
-                reply = self._json(400, {"error": str(e)})
-            except json.JSONDecodeError as e:
-                reply = self._json(400, {"error": f"bad JSON: {e}"})
-            except Exception as e:  # noqa: BLE001 — 500 with the reason
-                self.close_connection = True  # socket state unknown
-                reply = self._json(500, {"error": f"{type(e).__name__}: {e}"})
-            # Recorded before the reply leaves, so /metrics read after the
-            # answer counts this request.
-            service.stats.record_request(time.monotonic() - t0, reply[0] == 200)
-            self._send(*reply)
+            with span("c3d.serve.request"):
+                try:
+                    reply = self._answer()
+                except _BadRequest as e:
+                    reply = self._json(400, {"error": str(e)})
+                except json.JSONDecodeError as e:
+                    reply = self._json(400, {"error": f"bad JSON: {e}"})
+                except Exception as e:  # noqa: BLE001 — 500 with the reason
+                    self.close_connection = True  # socket state unknown
+                    reply = self._json(500, {"error": f"{type(e).__name__}: {e}"})
+                # Recorded before the reply leaves, so /metrics read after the
+                # answer counts this request.
+                service.stats.record_request(time.monotonic() - t0, reply[0] == 200)
+                with span("c3d.serve.request.reply"):
+                    self._send(*reply)
 
         def log_message(self, fmt, *args):  # health checks are chatty
             pass

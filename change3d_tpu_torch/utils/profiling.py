@@ -1,27 +1,40 @@
-"""Profiling: ``torch.profiler`` traces and step timing (counterpart of
+"""Profiling: ``torch.profiler`` traces and the port's spans (counterpart of
 ``change3d_tpu/utils/profiling.py``).
 
-- ``trace_context(logdir)`` traces a region into ``logdir``;
-- ``WindowTracer(logdir, start, n)`` traces one window of training steps
-  (``cli bcd|scd|bda|cc --profile_dir``);
-- ``StepTimer`` measures steady-state step time, synchronising the device
-  the step's result lives on.
+- ``WindowTracer(logdir, start, n)`` traces one window of steps
+  (``cli bcd|scd|bda|cc --profile_dir``: training steps 10-14; ``cli serve
+  --profile_dir``: served batches 10-14, counted after the warm-up);
+- ``span(name)`` marks a stretch of host work in every trace.
 
-A trace records CPU activity always, and CUDA activity (kernels, copies)
-when a card is in use: ``device`` names it, or, left None, CUDA counts as in
-use once this process has initialised it. Each trace is written as one
-Chrome-trace file, ``<logdir>/<label>.<pid>.pt.trace.json``, which
-chrome://tracing, Perfetto and TensorBoard's profiler plugin read.
+A trace records CPU activity on every thread of the process (the loader's,
+the server's handler, dispatcher and completer threads, not only the one
+that opened it), and CUDA activity (kernels, copies) when a card is in use:
+``device`` names it, or, left None, CUDA counts as in use once this process
+has initialised it. Each trace is written as one Chrome-trace file,
+``<logdir>/<label>.<pid>.pt.trace.json``, which chrome://tracing, Perfetto
+and TensorBoard's profiler plugin read.
+
+Spans are named ``c3d.<layer>[.<part>]`` with fixed strings (never a
+request's or a batch's own name); a span nested in another carries its
+parent's name as its prefix where it is a part of that work, as
+``c3d.predict.h2d`` of ``c3d.predict``. The layers: ``c3d.predict``
+(``Predictor.predict_u8``), ``c3d.caption`` (``CaptionPredictor``'s
+captions and ``beam_search_decode``), ``c3d.serve`` (the server's threads).
+A span is a FUNCTION-scope ``RecordFunction`` range, as an aten op is: it
+shares the trace's clock with the kernels, adds no device event, and costs
+about a microsecond when no profiler runs. (``record_function`` opens a
+user annotation instead, which a CUDA trace copies as a device event, and
+costs about 12 microseconds.) No span sits inside a model's ``forward`` or in
+anything ``torch.export`` traces.
 """
 
 from __future__ import annotations
 
-import contextlib
 import os
-import time
 from typing import Optional
 
 import torch
+from torch._C._profiler import _ExperimentalConfig, _RecordFunctionFast
 from torch.profiler import ProfilerActivity, profile
 
 
@@ -31,8 +44,33 @@ def _activities(device) -> list:
     return [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
 
 
+class span:
+    """``with span(name):`` records the enclosed host work as ``name`` in
+    any running trace (see the module docstring for the names).
+
+    A profiler that starts while a span is open (on its own thread, or on
+    any thread once it records them all) holds no record of the span's
+    start and refuses its end; that span is left out of the trace, and the
+    work goes on."""
+
+    __slots__ = ("_range",)
+
+    def __init__(self, name: str):
+        self._range = _RecordFunctionFast(name)
+
+    def __enter__(self) -> None:
+        self._range.__enter__()
+
+    def __exit__(self, *exc) -> None:
+        try:
+            self._range.__exit__(*exc)
+        except RuntimeError:  # the profiler started inside the span
+            pass
+
+
 def _start(device) -> profile:
-    prof = profile(activities=_activities(device))
+    prof = profile(activities=_activities(device),
+                   experimental_config=_ExperimentalConfig(profile_all_threads=True))
     prof.start()
     return prof
 
@@ -49,21 +87,9 @@ def _write(prof: profile, logdir: str, label: str) -> str:
     return path
 
 
-@contextlib.contextmanager
-def trace_context(logdir: Optional[str], device=None):
-    """Trace the enclosed region into ``logdir`` (inert when it is falsy)."""
-    if not logdir:
-        yield
-        return
-    prof = _start(device)
-    try:
-        yield
-    finally:
-        _write(prof, logdir, "trace")
-
-
 class WindowTracer:
-    """Trace a fixed window of training steps into ``logdir``.
+    """Trace a fixed window of steps (training steps, served batches) into
+    ``logdir``.
 
     ``tick(i)`` before step ``i`` starts the trace at ``start`` and stops it
     at ``start + n``, so steps [start, start + n) are captured and the first
@@ -97,40 +123,3 @@ class WindowTracer:
     def close(self) -> None:
         if self._prof is not None:
             self._stop()
-
-
-def _sync(result) -> None:
-    """Wait for the device of the first tensor in ``result`` (a tensor, or
-    a dict / list / tuple holding tensors)."""
-    leaves = torch.utils._pytree.tree_leaves(result)
-    tensor = next((x for x in leaves if isinstance(x, torch.Tensor)), None)
-    if tensor is not None and tensor.device.type == "cuda":
-        torch.cuda.synchronize(tensor.device)
-
-
-class StepTimer:
-    """Mean step time after ``warmup`` steps: ``start()`` before a step,
-    ``stop(result)`` after it (waits for ``result``'s device first)."""
-
-    def __init__(self, warmup: int = 2):
-        self.warmup = warmup
-        self.count = 0
-        self.total = 0.0
-        self._t0 = None
-
-    def start(self):
-        self._t0 = time.perf_counter()
-
-    def stop(self, result=None) -> float:
-        if result is not None:
-            _sync(result)
-        dt = time.perf_counter() - self._t0
-        self.count += 1
-        if self.count > self.warmup:
-            self.total += dt
-        return dt
-
-    @property
-    def mean_step_time(self) -> float:
-        n = max(self.count - self.warmup, 1)
-        return self.total / n
