@@ -17,7 +17,8 @@ their padding static under a symbolic batch (``ops/quant.py``).
 The batch is symbolic (one artifact for every batch size) unless ``batch``
 pins it. Export runs in eval mode with gradients off, and the weights
 travel inside the file. The fused blocks are the custom ops
-``c3d::fused_block_fwd`` / ``c3d::fused_block_se_sums``, one graph node per
+``c3d::fused_block_fwd`` / ``c3d::fused_block_se_sums``, and the stem's and
+strided blocks' depthwise convs ``c3d::depthwise_conv3d``, one graph node per
 launch: an artifact exported on the CPU runs the CUDA kernels once moved to
 the card, as JAX's ``platforms=("cpu", "tpu")`` artifact does. The loaders
 move a program to ``device`` (``move_to_device_pass``) and need no model
@@ -41,6 +42,7 @@ from torch import nn
 from torch.export.passes import move_to_device_pass
 
 # Registers the c3d:: custom ops that artifacts call.
+import change3d_tpu_torch.ops.depthwise_conv  # noqa: F401
 import change3d_tpu_torch.ops.fused_block  # noqa: F401
 from change3d_tpu_torch.checkpoint.io import restore_best_state
 from change3d_tpu_torch.device import resolve_device

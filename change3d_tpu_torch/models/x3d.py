@@ -9,7 +9,10 @@ With ``fused_inference`` (the default here) every stride-1, dim-preserving
 block runs at eval as the fused CUDA kernel (``ops/fused_block.py``); there
 is no shared-memory gate: the kernel tiles H and W at any size, and T
 where a whole clip's tile does not fit (``plan_block``: 16-frame clips at
-stages 3 and 4 take T-tiles with a one-frame halo).
+stages 3 and 4 take T-tiles with a one-frame halo). The stem's temporal
+conv and every unfused block's depthwise conv run the channels-last CUDA
+kernel of ``ops/depthwise_conv.py`` whenever no gradient is taken
+(``ops/layers.depthwise_conv3d``).
 
 ``X3D(cfg, head=True)`` adds the Kinetics classifier head (``X3DHead``) and
 ``forward(x, classify=True)`` returns its logits; ``x3d_classifier`` builds

@@ -52,6 +52,12 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "c3d_fused_block_blocks_per_sm": ([_I] * 9, _I),
         "c3d_error_string": ([_I], ctypes.c_char_p),
     },
+    "depthwise_conv3d": {
+        # dtype, x, w, out, B, T, H, W, C, kt, kh, kw, st, sh, sw, pt, ph, pw,
+        # then plan_depthwise's vec, tt, oh, ow, cc and shared-memory bytes
+        "c3d_depthwise_conv3d": ([_I] + [_VP] * 3 + [_I] * 20 + [_VP], _I),
+        "c3d_error_string": ([_I], ctypes.c_char_p),
+    },
     "repros": {
         "c3d_dot_1d": ([_VP] * 3 + [_I] * 3 + [_VP], _I),
         # x, out, N, R, C, then manual_dma_plan's chunk, per_slab, per_block, grid

@@ -14,6 +14,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from change3d_tpu_torch.ops import depthwise_conv
+
 
 def conv3d(
     x: torch.Tensor,
@@ -48,8 +50,16 @@ def depthwise_conv3d(
     stride: Sequence[int] = (1, 1, 1),
     padding: Sequence[int] = (1, 1, 1),
 ) -> torch.Tensor:
-    """Channelwise 3D conv. x: [B,T,H,W,C], kernel: [C, 1, kt, kh, kw]."""
-    return conv3d(x, kernel, stride=stride, padding=padding, groups=x.shape[-1])
+    """Channelwise 3D conv. x: [B,T,H,W,C], kernel: [C, 1, kt, kh, kw].
+
+    With no gradient to take (grad mode off, or neither x nor the kernel
+    requiring one) this is the custom op ``c3d::depthwise_conv3d``
+    (``ops/depthwise_conv.py``): the CUDA kernel for a CUDA x, the plain
+    version for a CPU one. Otherwise ``F.conv3d(groups=C)``, since the
+    kernel has no backward."""
+    if torch.is_grad_enabled() and (x.requires_grad or kernel.requires_grad):
+        return conv3d(x, kernel, stride=stride, padding=padding, groups=x.shape[-1])
+    return depthwise_conv.depthwise_conv3d(x, kernel, stride=stride, padding=padding)
 
 
 def conv2d(

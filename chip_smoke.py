@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--batch 8] [--batches 3] [--seed 0]
                           [--multi-gpu-only | --int8-only | --data-only |
-                           --classify-only]
+                           --classify-only | --depthwise-only]
 
 Run from the repository root. Phases (any failure exits non-zero and prints
 no result line):
@@ -17,7 +17,11 @@ no result line):
    --batch, over KERNEL_SEEDS seeds, and at CC's evaluation batch (32) on
    T=3, in fp32 (TF32 off; |d| <= 1e-4 * (1 + |ref|)) and bf16 (|d| <= 2
    bf16 ulps of max(|ref|, 1)); prints the worst |d| per T and the share of
-   the limit it uses;
+   the limit it uses; then the depthwise conv kernel (ops/depthwise_conv.py)
+   against its plain version at the stem's, the strided block 0s' and the
+   stride-1 blocks' shapes (DEPTHWISE) on each clip, at B=2 and --batch,
+   and at X3D-M's 16-frame shapes, in fp32 (|d| <= 1e-5 * (1 + |ref|)) and
+   bf16, and a non-contiguous input refused;
 3. forward, for BCD, SCD (6 classes) and BDA (5 classes) in turns: build the
    task's full-width X3D-L Change3D from a seed, run Predictor.predict_u8 on
    --batches batches of random uint8 256^2 pairs with every launch count
@@ -30,7 +34,12 @@ no result line):
    fused_block_fwd and 25 fused_block_se_sums launches per forward, the
    fp32 memory fused vs plain (1e-3 of its max), equal fp32 tokens fused vs
    plain at beam 1 and 3, and the bf16 tokens' agreement with the plain
-   bf16 model;
+   bf16 model; then the depthwise kernel's launches in one forward at batch
+   16 of each path (DEPTHWISE_PER_FORWARD: 4 per BCD, SCD and BDA
+   predict_u8, 41 per int8 BCD one, 5 per CC caption_u8 and per X3D-M
+   classify forward) and a profiled BCD predict_u8 whose only kernels of
+   cuDNN's per-channel conv engines (implicit_convolveNd, xmma_fprop ...
+   f32f32) are those of the dense stem conv_s, which stays on cuDNN;
 4. repros: hold the two repro kernels (ops/repros.py: dot_1d within two
    bf16 ulps, manual_dma exactly) against their plain versions at the
    repros' shapes over KERNEL_SEEDS seeds and at REPRO_DOT_SHAPES and
@@ -50,6 +59,11 @@ no result line):
    CC caption_u8 captions/s at beam 1 and 3, the encoder's and the decode's
    CUDA-event ms, the decode's device-busy ms, steps and host ms per step;
    the fused kernels also at B=32 on T=3 with their launches per CC forward;
+   the depthwise kernel's ms per launch at every DEPTHWISE shape at batch
+   16 on each clip and at X3D-M's at batch 8, beside its plan, bytes bound,
+   plain version's ms, cuDNN's F.conv3d(groups=C) ms on [B, C, T, H, W]
+   (library_ms) and with the two relayouts around it (relayout_library_ms),
+   and its sum over a fused, an int8 (unfused) and an X3D-M forward;
 6. train parity, for BCD, SCD and BDA: one fp32 train step (TF32 off) of a
    reduced-depth model at 64², batch 2, on the card against the same step
    on the CPU (loss 1e-4 relative, each gradient tensor 1e-2 relative in the
@@ -174,7 +188,9 @@ written layouts (the proof on several cards), its details beside ``--out``
 as ``chip_smoke_multi_gpu.json``. ``--data-only`` builds them and runs
 phase 14 and phase 9's ``cli cc``, details as ``chip_smoke_data.json``.
 ``--classify-only`` builds them and runs phase 15 alone, details as
-``chip_smoke_classify.json``.
+``chip_smoke_classify.json``. ``--depthwise-only`` builds them and runs the
+depthwise kernel's part of phases 2, 3 and 5, details as
+``chip_smoke_depthwise.json``.
 
 The last lines are the kernels JSON, the card line from nvidia-smi, and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
@@ -226,6 +242,7 @@ CLIPS = sorted(set(CLIP_T.values()))
 KERNEL_SEEDS = 3
 SOURCE = "change3d_tpu_torch/csrc/fused_block.cu"
 PALLAS = "change3d_tpu/ops/pallas/fused_block.py"
+DW_SOURCE = "change3d_tpu_torch/csrc/depthwise_conv3d.cu"
 REPRO_SOURCE = "change3d_tpu_torch/csrc/repros.cu"
 REPRO_PALLAS = "tests/manual_pallas_repros.py"
 # Phase 4's shapes beyond the repros' own. dot_1d (R, C, N): R ragged over
@@ -242,6 +259,43 @@ CLASSIFY = (("x3d_m", 16, 224), ("x3d_s", 13, 160), ("x3d_xs", 4, 160))
 CLASSIFY_BATCH = 8
 CLASSIFY_PER_FORWARD = {"fused_block_fwd": 22, "fused_block_se_sums": 11}
 STAGE_OF_WIDTH = {24: "stage1", 48: "stage2", 96: "stage3", 192: "stage4"}
+# The depthwise convs outside the fused blocks (ops/depthwise_conv.py), at
+# 256² on every clip: (name, H=W of the input, C, kernel, stride, padding,
+# launches per detection forward, per CC forward, per unfused detection
+# forward (int8 or fused_inference=False), per unfused CC forward). X3D-M's
+# (16 x 224², stem stride (1, 2, 2)): its stem, four block 0s and stride-1
+# blocks, (name, T, H=W, C, kernel, stride, padding, launches per classify
+# forward, per unfused one). X3D-L's stages are 5, 10, 25, 15 blocks deep,
+# X3D-M's 3, 5, 11, 7.
+DW_S2 = ((3, 3, 3), (1, 2, 2), (1, 1, 1))
+DW_S1 = ((3, 3, 3), (1, 1, 1), (1, 1, 1))
+DEPTHWISE = (
+    ("stem", 256, 24, (5, 1, 1), (1, 1, 1), (2, 0, 0), 1, 1, 1, 1),
+    ("stage1", 256, 54, *DW_S2, 1, 1, 1, 1),
+    ("stage2", 128, 108, *DW_S2, 1, 1, 1, 1),
+    ("stage3", 64, 216, *DW_S2, 1, 1, 1, 1),
+    ("stage4", 32, 432, *DW_S2, 0, 1, 0, 1),  # CC only
+    ("stage1_s1", 128, 54, *DW_S1, 0, 0, 4, 4),
+    ("stage2_s1", 64, 108, *DW_S1, 0, 0, 9, 9),
+    ("stage3_s1", 32, 216, *DW_S1, 0, 0, 24, 24),
+    ("stage4_s1", 16, 432, *DW_S1, 0, 0, 0, 14),  # CC only
+)
+DEPTHWISE_X3DM = (
+    ("x3dm_stem", 16, 112, 24, (5, 1, 1), (1, 1, 1), (2, 0, 0), 1, 1),
+    ("x3dm_stage1", 16, 112, 54, *DW_S2, 1, 1),
+    ("x3dm_stage2", 16, 56, 108, *DW_S2, 1, 1),
+    ("x3dm_stage3", 16, 28, 216, *DW_S2, 1, 1),
+    ("x3dm_stage4", 16, 14, 432, *DW_S2, 1, 1),
+    ("x3dm_stage1_s1", 16, 56, 54, *DW_S1, 0, 2),
+    ("x3dm_stage2_s1", 16, 28, 108, *DW_S1, 0, 4),
+    ("x3dm_stage3_s1", 16, 14, 216, *DW_S1, 0, 10),
+    ("x3dm_stage4_s1", 16, 7, 432, *DW_S1, 0, 6),
+)
+# Launches of one forward: the stem and each block 0 (the other blocks are
+# fused); an int8 detection forward fuses none: the stem and all 40 blocks.
+DEPTHWISE_PER_FORWARD = {"bcd": 4, "scd": 4, "bda": 4, "int8_bcd": 41, "cc": 5, "x3d_m": 5}
+# The benchmark's batch (and cli predict's), at which the rows are timed.
+DW_BATCH = 16
 
 
 def card_line() -> str:
@@ -266,13 +320,13 @@ def operands(rs, b, t, hw, c, ci, cr, dtype, dev, has_se):
     return ops, None if se is None else tuple(s.to(dev) for s in se)
 
 
-def within(got, ref, dtype):
+def within(got, ref, dtype, fp32_tol=1e-4):
     """(ok, max |d|, max |d| / limit) under the stated limit for the dtype:
-    1e-4 * (1 + |ref|) in fp32, two bf16 ulps of max(|ref|, 1) in bf16."""
+    fp32_tol * (1 + |ref|) in fp32, two bf16 ulps of max(|ref|, 1) in bf16."""
     got, ref = got.float(), ref.float()
     d = (got - ref).abs()
     if dtype == torch.float32:
-        tol = 1e-4 * (1 + ref.abs())
+        tol = fp32_tol * (1 + ref.abs())
     else:
         tol = 2 * torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1.0))) - 7)
     used = float((d / tol).max())
@@ -308,10 +362,10 @@ def bound(b, t, hw, c, ci, itemsize, *, sums, n_tiles):
     return times[kind] * 1e3, kind
 
 
-def hold(worst, key, t, what, got, ref, dtype):
+def hold(worst, key, t, what, got, ref, dtype, fp32_tol=1e-4):
     """Check got against ref, keep the worst |d| and share of the limit per
     (key, T, dtype), raise past the limit."""
-    ok, err, used = within(got, ref, dtype)
+    ok, err, used = within(got, ref, dtype, fp32_tol)
     w = worst[key].setdefault(f"T{t}", {}).setdefault(
         str(dtype).split(".")[-1], {"max_abs_err": 0.0, "limit_used": 0.0})
     w["max_abs_err"], w["limit_used"] = max(w["max_abs_err"], err), max(w["limit_used"], used)
@@ -359,6 +413,233 @@ def phase_kernels(fb, dev, seeds, batch):
     print(f"kernels T=3 B={CC_BATCH}, stages 1-4 (worst of T=3 so far): "
           f"{json.dumps({k: v['T3'] for k, v in worst.items()})}", flush=True)
     return worst
+
+
+def dw_operands(rs, b, t, hw, c, ks, dtype, dev):
+    """A depthwise conv's operands: x ~ N(0, 1), weights U(+-1/sqrt(taps))
+    (torch's conv init)."""
+    x = torch.from_numpy(rs.randn(b, t, hw, hw, c).astype(np.float32)).to(dev, dtype)
+    k = rs.uniform(-1, 1, (c, 1, *ks)) / math.sqrt(math.prod(ks))
+    return x, torch.from_numpy(k.astype(np.float32)).to(dev)
+
+
+def phase_depthwise(dwc, dev, seeds, batch, worst):
+    """Phase 2 for the depthwise kernel: against its plain version at every
+    DEPTHWISE shape on each clip (CC's stage 4 on T = 3) at B = 2 and --batch
+    over the seeds, and at X3D-M's shapes at B = 2, in fp32 (|d| <= 1e-5 *
+    (1 + |ref|)) and bf16 (two bf16 ulps of max(|ref|, 1)); a
+    non-contiguous x raises."""
+    worst["depthwise_conv3d"] = {}
+    cases = [(t, b, *shape[:6]) for t in CLIPS for shape in DEPTHWISE
+             if shape[6] or shape[8] or t == 3 for b in sorted({2, batch})]
+    for seed in seeds:
+        rs = np.random.RandomState(seed + 11)
+        for t, b, name, hw, c, ks, stride, pad in cases:
+            for dtype in (torch.float32, torch.bfloat16):
+                x, k = dw_operands(rs, b, t, hw, c, ks, dtype, dev)
+                hold(worst, "depthwise_conv3d", t, f"{name} T={t} B={b} seed={seed}",
+                     dwc.depthwise_conv3d(x, k, stride=stride, padding=pad),
+                     dwc.depthwise_conv3d_reference(x, k, stride, pad), dtype, fp32_tol=1e-5)
+    rs = np.random.RandomState(seeds[0] + 12)
+    for name, t, hw, c, ks, stride, pad, _, _ in DEPTHWISE_X3DM:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, k = dw_operands(rs, 2, t, hw, c, ks, dtype, dev)
+            hold(worst, "depthwise_conv3d", t, name, dwc.depthwise_conv3d(
+                x, k, stride=stride, padding=pad), dwc.depthwise_conv3d_reference(
+                x, k, stride, pad), dtype, fp32_tol=1e-5)
+    x, k = dw_operands(rs, 1, 3, 8, 16, (3, 3, 3), torch.bfloat16, dev)
+    try:
+        dwc.depthwise_conv3d(x.transpose(2, 3), k)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("depthwise_conv3d took a non-contiguous x")
+    print(f"kernels depthwise_conv3d, T={CLIPS} and 16, seeds {seeds}: "
+          f"{json.dumps(worst['depthwise_conv3d'])}", flush=True)
+
+
+def per_channel_conv(name: str) -> bool:
+    """The cuDNN engines that ran a grouped conv3d one launch per channel
+    (the dense stem conv_s runs on the first of them too)."""
+    return "implicit_convolveNd" in name or ("xmma_fprop" in name and "f32f32" in name)
+
+
+def device_kernels(fn):
+    """The device events of one profiled call of ``fn`` (after a warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def phase_depthwise_forwards(dwc, dev, seed, batch):
+    """Phase 3 for the depthwise kernel: its launches in one bf16 forward
+    of each path (the count set to 0 just before; DEPTHWISE_PER_FORWARD):
+    BCD, SCD and BDA ``predict_u8``, an int8 BCD ``predict_u8``, CC's
+    ``caption_u8`` (beam 1) at ``batch`` 256² pairs and an X3D-M classify
+    forward on two 16 x 224² clips; then one profiled BCD ``predict_u8``,
+    in which the only kernels of cuDNN's per-channel conv engines are the
+    dense stem conv_s's own (the same names, launch for launch, as conv_s
+    alone), its device ms and the depthwise kernel's share."""
+    from change3d_tpu_torch.inference import CaptionPredictor, Predictor
+    from change3d_tpu_torch.models.trainer import Change3D, Task
+    from change3d_tpu_torch.models.x3d import x3d_classifier, x3d_l_config
+    from change3d_tpu_torch.ops.layers import conv3d
+
+    rs = np.random.RandomState(seed + 17)
+    pairs = tuple(rs.randint(0, 256, (batch, 256, 256, 3)).astype(np.uint8) for _ in range(2))
+    counts = {}
+
+    def count(name, fn):
+        fn()  # load the kernels, warm the allocator
+        torch.cuda.synchronize()
+        dwc.depthwise_conv3d.launches = 0
+        fn()
+        torch.cuda.synchronize()
+        counts[name] = dwc.depthwise_conv3d.launches
+
+    preds = {}
+    for task in TASKS:
+        model = Change3D(Task(task), num_classes=NUM_CLASSES[task], device=dev, seed=seed)
+        preds[task] = Predictor(model, compute_dtype=torch.bfloat16, device=dev)
+        count(task, lambda: preds[task].predict_u8(*pairs))
+    int8 = Change3D(Task.BCD, backbone_cfg=x3d_l_config(quantized_eval=True), device=dev,
+                    seed=seed)
+    int8_pred = Predictor(int8, compute_dtype=torch.bfloat16, device=dev)
+    count("int8_bcd", lambda: int8_pred.predict_u8(*pairs))
+    cc = Change3D(Task.CC, vocab_size=CC_VOCAB, device=dev, seed=seed)
+    cc_pred = CaptionPredictor(cc, cc_words(), beam_size=1, compute_dtype=torch.bfloat16,
+                               device=dev)
+    count("cc", lambda: cc_pred.caption_u8(*pairs))
+    clf = x3d_classifier(device=dev, seed=seed)
+    clip = torch.from_numpy(rs.randn(2, 16, 224, 224, 3).astype(np.float32)).to(dev,
+                                                                                  torch.bfloat16)
+    with torch.no_grad():
+        count("x3d_m", lambda: clf(clip, classify=True))
+    if counts != DEPTHWISE_PER_FORWARD:
+        raise AssertionError(f"depthwise launches per forward {counts}, want "
+                             f"{DEPTHWISE_PER_FORWARD}")
+    del int8, int8_pred, cc, cc_pred, clf, clip
+    kernels = device_kernels(lambda: preds["bcd"].predict_u8(*pairs))
+    stem = preds["bcd"].model.encoder.x3d.stem
+    xs = torch.zeros((batch, 3, 256, 256, 3), device=dev, dtype=torch.bfloat16)
+    with torch.no_grad():
+        conv_s = device_kernels(lambda: conv3d(xs, stem.conv_s, padding=(0, 1, 1)))
+    per_channel = sorted(e.name for e in kernels if per_channel_conv(e.name))
+    conv_s_own = sorted(e.name for e in conv_s if per_channel_conv(e.name))
+    if per_channel != conv_s_own:
+        raise AssertionError(f"a BCD forward ran cuDNN's per-channel conv engines beyond the "
+                             f"stem's conv_s ({conv_s_own}): {per_channel}")
+    busy = lambda evs: sum(e.time_range.elapsed_us() for e in evs) / 1e3
+    dw_events = [e for e in kernels if "depthwise_conv3d_kernel" in e.name]
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    stats = {"launches_per_forward": counts, "batch": batch,
+             "bcd_profiled": {"device_ms": busy(kernels), "kernels": len(kernels),
+                              "depthwise_ms": busy(dw_events), "depthwise_kernels": len(dw_events),
+                              "top_kernels_ms": sorted(by_name.items(), key=lambda kv: -kv[1])[:12],
+                              "per_channel_engine_kernels": per_channel,
+                              "conv_s_ms": busy(conv_s),
+                              "conv_s_kernels": sorted(e.name for e in conv_s)}}
+    print(f"forward depthwise: {json.dumps(stats)}", flush=True)
+    return stats
+
+
+def depthwise_rows(dwc, dev, seed, card, iters=20):
+    """The depthwise kernel's ms per launch (CUDA events over ``iters``
+    launches) at each DEPTHWISE shape in bf16 at DW_BATCH on every clip and
+    at X3D-M's at CLASSIFY_BATCH, on operands first held against the plain
+    version: its plan, launches per forward (fused, unfused; detection, CC,
+    classify), its bound (bytes in, out and the fp32 weights at 3.35
+    TB/s), the plain version's ms, cuDNN's F.conv3d(groups=C) on [B, C, T,
+    H, W] (library_ms) and the same with x made contiguous in that layout
+    before and the output after (relayout_library_ms)."""
+    rs = np.random.RandomState(seed + 19)
+    cases = [(name, t, DW_BATCH, hw, c, ks, st, pad, {
+                 "launches_per_forward": n_det, "launches_per_cc_forward": n_cc if t == 3 else 0,
+                 "launches_per_unfused_forward": n_ud,
+                 "launches_per_unfused_cc_forward": n_ucc if t == 3 else 0})
+             for t in CLIPS for name, hw, c, ks, st, pad, n_det, n_cc, n_ud, n_ucc in DEPTHWISE
+             if n_det or n_ud or t == 3]
+    cases += [(name, t, CLASSIFY_BATCH, hw, c, ks, st, pad, {
+                  "model": "x3d_m", "launches_per_classify_forward": n_f,
+                  "launches_per_unfused_classify_forward": n_u})
+              for name, t, hw, c, ks, st, pad, n_f, n_u in DEPTHWISE_X3DM]
+    rows, worst = [], {"depthwise_conv3d": {}}
+    for name, t, b, hw, c, ks, stride, pad, launches in cases:
+        x, k = dw_operands(rs, b, t, hw, c, ks, torch.bfloat16, dev)
+        got = dwc.depthwise_conv3d(x, k, stride=stride, padding=pad)
+        hold(worst, "depthwise_conv3d", t, f"{name} T={t} B={b} timed operands", got,
+             dwc.depthwise_conv3d_reference(x, k, stride, pad), torch.bfloat16)
+        xc, kc = x.permute(0, 4, 1, 2, 3).contiguous(), k.to(torch.bfloat16)
+        library = lambda xc: torch.nn.functional.conv3d(xc, kc, stride=stride, padding=pad,
+                                                        groups=c)
+        plan = dwc.plan_depthwise(t, hw, hw, c, ks, stride, pad, 2)
+        nbytes = (x.numel() + got.numel()) * 2 + k.numel() * 4
+        rows.append({"kernel": "depthwise_conv3d", "stage": name, "t": t, "batch": b,
+                     "shape": list(x.shape), "out": list(got.shape), "kernel_size": list(ks),
+                     "stride": list(stride), "plan": plan._asdict(), **launches,
+                     "ms": event_ms(lambda: dwc.depthwise_conv3d(x, k, stride=stride,
+                                                                 padding=pad), iters),
+                     "plain_ms": event_ms(lambda: dwc.depthwise_conv3d_reference(
+                         x, k, stride, pad), 3),
+                     "library_ms": event_ms(lambda: library(xc), 3),
+                     "relayout_library_ms": event_ms(lambda: library(
+                         x.permute(0, 4, 1, 2, 3).contiguous()).permute(0, 2, 3, 4, 1)
+                         .contiguous(), 3),
+                     "bound_ms": nbytes / HBM_BYTES_S * 1e3, "bound_by": "bytes"})
+        print(f"time depthwise_conv3d {name} T={t} B={b} ({card}): {json.dumps(rows[-1])}",
+              flush=True)
+        del x, k, got, xc, kc
+    return rows, worst
+
+
+def depthwise_per_forward(rows):
+    """The depthwise rows summed over each forward at its batch: fused BCD,
+    SCD, BDA and CC; unfused (int8) BCD and CC; X3D-M fused and unfused.
+    Each sum's launches must equal those the forward makes."""
+    dw = "depthwise_conv3d"
+    per = {task: per_forward(rows, dw, CLIP_T[task], DW_BATCH) for task in TASKS}
+    per["cc"] = per_forward(rows, dw, 3, DW_BATCH, "launches_per_cc_forward")
+    per["int8_bcd"] = per_forward(rows, dw, 3, DW_BATCH, "launches_per_unfused_forward")
+    per["unfused_cc"] = per_forward(rows, dw, 3, DW_BATCH, "launches_per_unfused_cc_forward")
+    per["x3d_m"] = per_forward(rows, dw, 16, CLASSIFY_BATCH, "launches_per_classify_forward",
+                               "x3d_m")
+    per["unfused_x3d_m"] = per_forward(rows, dw, 16, CLASSIFY_BATCH,
+                                       "launches_per_unfused_classify_forward", "x3d_m")
+    want = {**DEPTHWISE_PER_FORWARD, "unfused_cc": 56, "unfused_x3d_m": 27}
+    got = {name: p["launches_per_forward"] for name, p in per.items()}
+    if got != want:
+        raise AssertionError(f"depthwise rows sum to {got} launches per forward, want {want}")
+    return per
+
+
+def depthwise_only(dwc, dev, args, card) -> int:
+    """``--depthwise-only``: the depthwise kernel's share of phases 2, 3 and
+    5, details beside ``--out`` as ``chip_smoke_depthwise.json``."""
+    seeds = list(range(args.seed, args.seed + KERNEL_SEEDS))
+    worst = {}
+    phase_depthwise(dwc, dev, seeds, args.batch, worst)
+    forwards = phase_depthwise_forwards(dwc, dev, args.seed, DW_BATCH)
+    rows, timed_worst = depthwise_rows(dwc, dev, args.seed, card)
+    per_fwd = depthwise_per_forward(rows)
+    out = os.path.splitext(args.out)[0] + "_depthwise.json"
+    if os.path.dirname(out):
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out, "w") as f:
+        json.dump({"card": card, "worst": worst, "timed_worst": timed_worst,
+                   "forwards": forwards, "rows": rows, "per_forward": per_fwd}, f, indent=1)
+    print(f"depthwise_conv3d per forward at batch {DW_BATCH} ({card}): "
+          f"{json.dumps(per_fwd)}", flush=True)
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
 
 
 def phase_forward(pkg, dev, task, batch, n_batches, seed):
@@ -2248,19 +2529,25 @@ def kernel_rows(fb, worst, batch, dev, seed, card, iters=10):
 
 
 def per_forward(rows, kernel, t, batch, launches="launches_per_forward", model=None):
-    """A kernel's summed ms, plain ms and bound over one forward on T-frame
-    clips at ``batch`` (``launches`` names the row's launch count: a
-    detection forward's, or a CC forward's; ``model`` a classifier's rows),
-    and what bounds most of it."""
+    """A kernel's summed ms, plain ms, bound and (where its rows time one)
+    library call over one forward on T-frame clips at ``batch``
+    (``launches`` names the row's launch count: a detection forward's, or a
+    CC forward's; ``model`` a classifier's rows), and what bounds most of it;
+    the relayouts around the library call too where every row times them."""
     mine = [r for r in rows if r["kernel"] == kernel and r["t"] == t and r["batch"] == batch
             and r.get("model") == model and r[launches]]
     total = lambda k: sum(r[k] * r[launches] for r in mine)
     by = {}
     for r in mine:
         by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + r["bound_ms"] * r[launches]
-    return {"ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
-            "bound_by": max(by, key=by.get), "batch": batch,
-            "launches_per_forward": sum(r[launches] for r in mine)}
+    library = all(r.get("library_ms") is not None for r in mine)
+    out = {"ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+           "library_ms": total("library_ms") if library else None,
+           "bound_by": max(by, key=by.get), "batch": batch,
+           "launches_per_forward": sum(r[launches] for r in mine)}
+    if all("relayout_library_ms" in r for r in mine):
+        out["relayout_library_ms"] = total("relayout_library_ms")
+    return out
 
 
 def multi_gpu_only(fb, dev, args, card) -> int:
@@ -2716,6 +3003,9 @@ def main(argv=None) -> int:
                     help="build the kernels and run the data phase and phase 9's cli cc alone")
     ap.add_argument("--classify-only", action="store_true",
                     help="build the kernels and run phase 15 (the Kinetics classifiers) alone")
+    ap.add_argument("--depthwise-only", action="store_true",
+                    help="build the kernels and run the depthwise kernel's checks, launch "
+                         "counts and timings alone")
     ap.add_argument("--rank-worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
@@ -2731,6 +3021,7 @@ def main(argv=None) -> int:
     from change3d_tpu_torch.models.trainer import Change3D, Task
     from change3d_tpu_torch.models.x3d import x3d_l_config
     from change3d_tpu_torch.ops import cuda_build
+    from change3d_tpu_torch.ops import depthwise_conv as dwc
     from change3d_tpu_torch.ops import fused_block as fb
     from change3d_tpu_torch.ops import repros as rp
     from change3d_tpu_torch.train.optim import torch_adam
@@ -2756,9 +3047,12 @@ def main(argv=None) -> int:
         return data_only(fb, dev, args, card)
     if args.classify_only:
         return classify_only(fb, dev, args, card)
+    if args.depthwise_only:
+        return depthwise_only(dwc, dev, args, card)
 
     seeds = list(range(args.seed, args.seed + KERNEL_SEEDS))
     worst = phase_kernels(fb, dev, seeds, args.batch)
+    phase_depthwise(dwc, dev, seeds, args.batch, worst)
     pkg = (fb, Change3D, Task, Predictor, x3d_l_config)
     serving = {task: phase_forward(pkg, dev, task, args.batch, args.batches, args.seed)
                for task in TASKS}
@@ -2770,12 +3064,16 @@ def main(argv=None) -> int:
     launches = {task: serving[task][3] for task in TASKS}
     forward_check = {task: serving[task][4] for task in TASKS}
     del serving, pred, plain_pred, pairs
+    torch.cuda.empty_cache()
+    dw_forwards = phase_depthwise_forwards(dwc, dev, args.seed, DW_BATCH)
     cc_model, cc_preds, cc_pairs, cc_launches, forward_check["cc"] = phase_cc_forward(
         fb, dev, args.batch, args.seed)
     cc_times = phase_cc_times(cc_preds, cc_pairs, args.batch, dev, card)
     del cc_model, cc_preds, cc_pairs
     torch.cuda.empty_cache()
     rows = kernel_rows(fb, worst, args.batch, dev, args.seed, card)
+    dw_rows, dw_timed = depthwise_rows(dwc, dev, args.seed, card)
+    rows += dw_rows
     rows += repro_rows(rp, dev, args.seed, card)
     classify, classify_rows_ = phase_classify(fb, dev, worst, args.seed, card)
     rows += classify_rows_
@@ -2894,6 +3192,30 @@ def main(argv=None) -> int:
                    f"4 at batch {CLASSIFY_BATCH}) too; classify_shapes their shapes, T-tiles "
                    f"(tt) and times",
         })
+    dw_worst = lambda dtype, k: max(w[dtype][k] for w in worst["depthwise_conv3d"].values()
+                                    if dtype in w)
+    dw_per_forward = depthwise_per_forward(rows)
+    kernels.append({
+        "name": "depthwise_conv3d", "route": "cuda", "source": DW_SOURCE,
+        "replaces": "none: an XLA conv on the TPU (change3d_tpu/ops/layers.py:depthwise_conv3d); "
+                    "on the card it replaces cuDNN's grouped conv3d",
+        "launches": dw_forwards["launches_per_forward"]["bcd"],
+        "launches_per_forward": dw_forwards["launches_per_forward"],
+        "max_abs_err": dw_worst("bfloat16", "max_abs_err"),
+        "limit_used": dw_worst("bfloat16", "limit_used"),
+        "max_abs_err_fp32": dw_worst("float32", "max_abs_err"),
+        "limit_used_fp32": dw_worst("float32", "limit_used"),
+        "worst_by_t": worst["depthwise_conv3d"], "timed_operands": dw_timed,
+        "ms": dw_per_forward["bcd"]["ms"], "plain_ms": dw_per_forward["bcd"]["plain_ms"],
+        "bound_ms": dw_per_forward["bcd"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": dw_per_forward["bcd"]["library_ms"], "per_forward": dw_per_forward,
+        "bcd_profiled": dw_forwards["bcd_profiled"],
+        "per": f"one bf16 BCD forward (T=3) at batch {DW_BATCH}, summed over its launches; "
+               f"per_forward gives SCD, BDA, CC, the int8 (unfused) BCD and CC and X3D-M; "
+               f"library_ms is cuDNN's F.conv3d(groups=C) on [B, C, T, H, W], "
+               f"relayout_library_ms the same with the relayouts to and from it; rows give "
+               f"every shape, X3D-M's included",
+    })
     for kernel, replaces in (("dot_1d", f"{REPRO_PALLAS}:25 (pallas_call :35)"),
                              ("manual_dma", f"{REPRO_PALLAS}:39 (pallas_call :48)")):
         row = next(r for r in rows if r["kernel"] == kernel)
@@ -2914,6 +3236,7 @@ def main(argv=None) -> int:
               "pairs_per_s": {task: times[task][0] for task in TASKS},
               "forward_ms": {task: times[task][1] for task in TASKS},
               "forward_check": forward_check, "cc_times": cc_times, "classify": classify,
+              "depthwise_forwards": dw_forwards,
               "rows": rows,
               "kernels": kernels, "train": train, "deploy": deploy, "export": export,
               "multi_gpu": multi_gpu, "quant": quant, "data": data}

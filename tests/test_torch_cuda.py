@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from change3d_tpu_torch.ops import depthwise_conv as dwc
 from change3d_tpu_torch.ops import fused_block as fb
 from change3d_tpu_torch.ops import repros
 
@@ -227,10 +228,102 @@ def test_tiny_bcd_model_fused_matches_plain_on_card(cuda):
     pre, post = (torch.from_numpy(rs.randn(2, 32, 32, 3).astype(np.float32)).to(cuda)
                  for _ in range(2))
     before = fb.fused_block_fwd.launches
+    dw_before = dwc.depthwise_conv3d.launches
     with torch.no_grad():
-        got, want = fused(pre, post)["change"], plain(pre, post)["change"]
+        got = fused(pre, post)["change"]
+        # The stem and each stage's block 0 (the others are fused).
+        assert dwc.depthwise_conv3d.launches - dw_before == 1 + 3
+        want = plain(pre, post)["change"]
+    assert dwc.depthwise_conv3d.launches - dw_before == 1 + 3 + 1 + 2 + 3 + 3
     assert fb.fused_block_fwd.launches - before == 1 + 2 + 2
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# (B, T, H, W, C, kernel, stride, padding) of every main path's depthwise
+# conv: X3D-L's stem and strided block 0s at 256² on T = 3 (BCD, CC; stage 4
+# CC only), 4 (BDA) and 5 (SCD), the stride-1 blocks of stages 1-4 on every
+# clip (the int8 and unfused forwards; stage 4 CC only), X3D-M's 16-frame
+# stem, stage 4 and stride-1 blocks, and a temporal stride of 2.
+DW_SHAPES = {
+    "stem": (2, 3, 256, 256, 24, (5, 1, 1), (1, 1, 1), (2, 0, 0)),
+    "stem_t16": (2, 16, 112, 112, 24, (5, 1, 1), (1, 1, 1), (2, 0, 0)),
+    "stem_st2": (2, 5, 64, 64, 24, (5, 1, 1), (2, 1, 1), (2, 0, 0)),
+    "stage1_s2": (2, 3, 256, 256, 54, (3, 3, 3), (1, 2, 2), (1, 1, 1)),
+    "stage2_s2": (2, 3, 128, 128, 108, (3, 3, 3), (1, 2, 2), (1, 1, 1)),
+    "stage3_s2": (2, 3, 64, 64, 216, (3, 3, 3), (1, 2, 2), (1, 1, 1)),
+    "stage4_s2": (2, 3, 32, 32, 432, (3, 3, 3), (1, 2, 2), (1, 1, 1)),
+    "stage1_s2_t5": (2, 5, 256, 256, 54, (3, 3, 3), (1, 2, 2), (1, 1, 1)),
+    "stage3_s2_t4": (2, 4, 64, 64, 216, (3, 3, 3), (1, 2, 2), (1, 1, 1)),
+    "stage1_s1": (2, 3, 128, 128, 54, (3, 3, 3), (1, 1, 1), (1, 1, 1)),
+    "stage2_s1": (2, 3, 64, 64, 108, (3, 3, 3), (1, 1, 1), (1, 1, 1)),
+    "stage3_s1": (2, 3, 32, 32, 216, (3, 3, 3), (1, 1, 1), (1, 1, 1)),
+    "stage4_s1": (2, 3, 16, 16, 432, (3, 3, 3), (1, 1, 1), (1, 1, 1)),
+    **{f"stage{i}_s1_t{t}": (2, t, hw, hw, c, (3, 3, 3), (1, 1, 1), (1, 1, 1))
+       for t in (4, 5) for i, hw, c in ((1, 128, 54), (2, 64, 108), (3, 32, 216))},
+    "x3dm_stage4_s2": (2, 16, 14, 14, 432, (3, 3, 3), (1, 2, 2), (1, 1, 1)),
+    **{f"x3dm_stage{i}_s1": (2, 16, hw, hw, c, (3, 3, 3), (1, 1, 1), (1, 1, 1))
+       for i, hw, c in ((1, 56, 54), (2, 28, 108), (3, 14, 216), (4, 7, 432))},
+}
+
+
+def _dw_operands(seed, dev, dtype, b, t, h, w, c, ks):
+    """x ~ N(0, 1) and weights U(+-1/sqrt(taps)), as torch initialises them."""
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(b, t, h, w, c).astype(np.float32)).to(dev, dtype)
+    taps = int(np.prod(ks))
+    k = torch.from_numpy((rng.uniform(-1, 1, (c, 1, *ks)) / np.sqrt(taps)).astype(np.float32))
+    return x, k.to(dev)
+
+
+def _assert_within(got, want, dtype):
+    """fp32: |d| <= 1e-5 (1 + |ref|); bf16: two bf16 ulps of max(|ref|, 1)."""
+    got, want = got.float(), want.float()
+    if dtype == torch.float32:
+        tol = 1e-5 * (1 + want.abs())
+    else:
+        tol = 2 * torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1.0))) - 7)
+    d = (got - want).abs()
+    assert bool(torch.isfinite(got).all()) and bool((d <= tol).all()), float((d / tol).max())
+
+
+@pytest.mark.parametrize("shape", list(DW_SHAPES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_depthwise_kernel_matches_plain_version(cuda, shape, dtype):
+    b, t, h, w, c, ks, stride, pad = DW_SHAPES[shape]
+    x, k = _dw_operands(0, cuda, dtype, b, t, h, w, c, ks)
+    before = dwc.depthwise_conv3d.launches
+    got = dwc.depthwise_conv3d(x, k, stride=stride, padding=pad)
+    torch.cuda.synchronize()
+    assert dwc.depthwise_conv3d.launches == before + 1
+    want = dwc.depthwise_conv3d_reference(x, k, stride, pad)
+    assert got.shape == want.shape and got.dtype == dtype and got.is_contiguous()
+    _assert_within(got, want, dtype)
+
+
+def test_depthwise_kernel_refuses_what_it_does_not_take(cuda):
+    x, k = _dw_operands(1, cuda, torch.bfloat16, 1, 3, 8, 8, 16, (3, 3, 3))
+    with pytest.raises(ValueError, match="contiguous"):
+        dwc.depthwise_conv3d(x.transpose(2, 3), k)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        dwc.depthwise_conv3d(x.half(), k)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        dwc.depthwise_conv3d(x, k[:8])
+
+
+def test_depthwise_routing_on_card(cuda):
+    """Gradients on: F.conv3d (no launch), the same values; off: the kernel."""
+    from change3d_tpu_torch.ops import layers
+
+    x, k = _dw_operands(2, cuda, torch.float32, 2, 3, 16, 16, 24, (3, 3, 3))
+    k.requires_grad_(True)
+    before = dwc.depthwise_conv3d.launches
+    y = layers.depthwise_conv3d(x, k, stride=(1, 2, 2))
+    y.sum().backward()
+    assert dwc.depthwise_conv3d.launches == before and k.grad is not None
+    with torch.no_grad():
+        z = layers.depthwise_conv3d(x, k, stride=(1, 2, 2))
+    assert dwc.depthwise_conv3d.launches == before + 1
+    _assert_within(z, y.detach(), torch.float32)
 
 
 # (K, N) of every int8 product of X3D-L: conv_a C -> Ci (block 0: the

@@ -10,6 +10,8 @@ symbolic-batch artifact of each package, inputs seeded with numpy.
 - ``ArtifactPredictor`` against the live ``Predictor`` (masks equal) and
   JAX's ``ArtifactPredictor`` (the same tolerance; masks equal away from
   the threshold).
+- The program calls ``c3d::depthwise_conv3d`` once for the stem's and each
+  unfused block's depthwise conv; the one ``aten.conv3d`` is the stem's dense conv.
 - ``fixed_batch``: None for a symbolic artifact, 4 for one pinned with
   ``batch=4``, which refuses another batch; ``input_shape`` read from the
   artifact; loaders without a card raise unless asked for the CPU.
@@ -88,6 +90,20 @@ def test_artifact_predictor_matches_live_and_jax_predictors(bcd):
     tiled = TiledPredictor(pred, overlap=4, batch_size=3).predict_scene(scene[0], scene[1])
     want = TiledPredictor(live, overlap=4, batch_size=3).predict_scene(scene[0], scene[1])
     assert tiled["change"].shape == (24, 20) and np.array_equal(tiled["change"], want["change"])
+
+
+def test_artifact_calls_the_depthwise_op(bcd):
+    model, pred, _ = bcd
+    from change3d_tpu_torch.models.x3d import X3DResBlock
+
+    unfused = [m for m in model.modules() if isinstance(m, X3DResBlock) and not m.fusable]
+    assert unfused  # every stage's block 0 strides
+    nodes = [n for n in pred._fn.program.graph.nodes if n.op == "call_function"]
+    targets = [n.target for n in nodes]
+    assert targets.count(torch.ops.c3d.depthwise_conv3d.default) == 1 + len(unfused)
+    convs = [n for n in nodes if n.target == torch.ops.aten.conv3d.default]
+    assert len(convs) == 1  # the stem's dense conv_s, groups 1
+    assert len(convs[0].args) < 7 or convs[0].args[6] == 1
 
 
 def test_pinned_batch_and_device(bcd, tmp_path):

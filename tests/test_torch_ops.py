@@ -10,11 +10,14 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import FlopCounterMode
 
 import jax.numpy as jnp
 
 from change3d_tpu.ops import layers as jl
 from change3d_tpu.ops.norm import batch_norm_inference
+from change3d_tpu_torch.ops import depthwise_conv
 from change3d_tpu_torch.ops import layers as tl
 from change3d_tpu_torch.ops.norm import BatchNorm
 
@@ -44,13 +47,95 @@ def test_conv3d_matches_jax(stride, padding, groups):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("stride", [(1, 1, 1), (1, 2, 2)])
-def test_depthwise_conv3d_matches_jax(stride):
+# The main paths' two geometries (kernel, stride, padding): X3D's 5x1x1 stem
+# conv at temporal stride 1 and 2, and the 3x3x3 bottleneck conv at stride 1
+# and at block 0's (1, 2, 2).
+DEPTHWISE = {
+    "stem_st1": ((5, 1, 1), (1, 1, 1), (2, 0, 0)),
+    "stem_st2": ((5, 1, 1), (2, 1, 1), (2, 0, 0)),
+    "block_s1": ((3, 3, 3), (1, 1, 1), (1, 1, 1)),
+    "block_s2": ((3, 3, 3), (1, 2, 2), (1, 1, 1)),
+}
+
+
+@pytest.mark.parametrize("geometry", list(DEPTHWISE))
+@pytest.mark.parametrize("c", [24, 54, 216])
+@pytest.mark.parametrize("t", [3, 4, 5, 16])
+def test_depthwise_conv3d_matches_jax(t, c, geometry):
+    """The op's plain version (the CPU kernel of ``c3d::depthwise_conv3d``)
+    against the JAX op, on the clips of BCD/CC, BDA, SCD and X3D-M."""
+    ks, stride, padding = DEPTHWISE[geometry]
     rs = np.random.RandomState(1)
-    x, k = _rand(rs, 2, 3, 8, 8, 10), _rand(rs, 3, 3, 3, 1, 10, scale=0.3)
-    want = jl.depthwise_conv3d(jnp.asarray(x), jnp.asarray(k), stride=stride)
-    got = tl.depthwise_conv3d(_t(x), _t(k.transpose(4, 3, 0, 1, 2)), stride=stride)
+    x, k = _rand(rs, 2, t, 7, 6, c), _rand(rs, *ks, 1, c, scale=0.3)
+    want = jl.depthwise_conv3d(jnp.asarray(x), jnp.asarray(k), stride=stride, padding=padding)
+    before = depthwise_conv.depthwise_conv3d.launches
+    got = tl.depthwise_conv3d(_t(x), _t(k.transpose(4, 3, 0, 1, 2)), stride=stride,
+                              padding=padding)
+    assert depthwise_conv.depthwise_conv3d.launches == before
+    assert got.is_contiguous() and got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+class _OpLog(TorchDispatchMode):
+    """The operators dispatched while it is on."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(func)
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("needs", ["x", "kernel"])
+def test_depthwise_conv3d_with_gradients_stays_on_conv3d(needs):
+    """A call that needs a gradient takes F.conv3d (the kernel has no
+    backward): no c3d op, no launch, the gradients of conv3d(groups=C); with
+    gradients off the op runs, its CPU kernel the plain version, and never
+    touches the kernel library."""
+    rs = np.random.RandomState(2)
+    x, k = _t(_rand(rs, 2, 3, 6, 5, 8)), _t(_rand(rs, 8, 1, 3, 3, 3, scale=0.3))
+    (x if needs == "x" else k).requires_grad_(True)
+    before = depthwise_conv.depthwise_conv3d.launches
+    with _OpLog() as log:
+        y = tl.depthwise_conv3d(x, k, stride=(1, 2, 2))
+    assert torch.ops.c3d.depthwise_conv3d.default not in log.ops
+    assert torch.ops.aten.convolution.default in log.ops
+    g = torch.from_numpy(_rand(rs, *y.shape))
+    got = torch.autograd.grad(y, x if needs == "x" else k, g)[0]
+    x2, k2 = x.detach().clone().requires_grad_(needs == "x"), \
+        k.detach().clone().requires_grad_(needs == "kernel")
+    y2 = tl.conv3d(x2, k2, stride=(1, 2, 2), padding=(1, 1, 1), groups=8)
+    want = torch.autograd.grad(y2, x2 if needs == "x" else k2, g)[0]
+    assert torch.equal(y.detach(), y2.detach()) and torch.equal(got, want)
+
+    def refuse(name):
+        raise AssertionError(f"a CPU tensor loaded the {name} library")
+
+    with torch.no_grad(), _OpLog() as log, pytest.MonkeyPatch.context() as mp:
+        mp.setattr(depthwise_conv.cuda_build, "load", refuse)
+        z = tl.depthwise_conv3d(x, k, stride=(1, 2, 2))
+    assert log.ops[0] == torch.ops.c3d.depthwise_conv3d.default
+    assert torch.equal(z, y.detach())
+    assert depthwise_conv.depthwise_conv3d.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_depthwise_op_opcheck_and_flops(dtype):
+    """``torch.library.opcheck`` on ``c3d::depthwise_conv3d`` (schema, fake
+    kernel, AOT dispatch), and FlopCounterMode counts it as conv3d(groups=C)."""
+    rs = np.random.RandomState(3)
+    x, k = _t(_rand(rs, 2, 4, 6, 5, 8)).to(dtype), _t(_rand(rs, 8, 1, 3, 3, 3, scale=0.3))
+    torch.library.opcheck(torch.ops.c3d.depthwise_conv3d.default, (x, k, [1, 2, 2], [1, 1, 1]))
+    counts = []
+    for fn in (lambda: tl.conv3d(x, k, stride=(1, 2, 2), padding=(1, 1, 1), groups=8),
+               lambda: tl.depthwise_conv3d(x, k, stride=(1, 2, 2))):
+        counter = FlopCounterMode(display=False)
+        with torch.no_grad(), counter:
+            fn()
+        counts.append(counter.get_total_flops())
+    assert counts[0] == counts[1] == 2 * 2 * 4 * 3 * 3 * 8 * 27
 
 
 @pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])

@@ -146,11 +146,11 @@ def test_library_path_follows_every_header(tmp_path, monkeypatch):
         (tmp_path / f.name).write_bytes(f.read_bytes())
     monkeypatch.setattr(cuda_build, "CSRC_DIR", tmp_path)
     before = {name: cuda_build.library_path(name) for name in cuda_build.SIGNATURES}
-    assert set(before) == {"fused_block", "repros", "meteor"}
+    assert set(before) == {"fused_block", "depthwise_conv3d", "repros", "meteor"}
     header = tmp_path / "ptx.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     after = {name: cuda_build.library_path(name) for name in cuda_build.SIGNATURES}
-    cuda = {"fused_block", "repros"}
+    cuda = {"fused_block", "depthwise_conv3d", "repros"}
     assert all(after[n] != before[n] for n in cuda) and after["meteor"] == before["meteor"]
     assert all(p.parent == cuda_build.BUILD_DIR for p in after.values())
     source = tmp_path / "meteor.cpp"
