@@ -34,7 +34,8 @@ first: ``calibrate_quant_scales`` records them with an fp32 unfused forward
 read and load them, and a Predictor refuses a static model without them.
 
 Spans (``utils/profiling.py``) mark the stages of ``predict_u8``
-(``c3d.predict``: ``.h2d``, ``.forward``, ``.d2h``, ``.wait``, ``.unpack``)
+(``c3d.predict``: ``.h2d``, ``.forward`` with its ``.encode`` and ``.heads``
+(the heads and the hardening), ``.d2h``, ``.wait``, ``.unpack``)
 and of a caption call (``c3d.caption``: ``.h2d``, ``.encode``, the search's
 ``.decode``, ``.detokenize``) in any trace.
 
@@ -294,20 +295,22 @@ class Predictor:
             return ((a.float() / 255.0 - 0.5) / 0.5).to(self.compute_dtype)
 
         with span("c3d.predict.forward"):
-            out = model(norm(pre), norm(post))
-            hard = {}
-            for key, val in out.items():
-                if key in _BINARY_KEYS:
-                    mask = val[..., 0] > 0.5
-                    b, h, w = mask.shape
-                    if w % 8 == 0:
-                        grouped = mask.reshape(b, h, w // 8, 8).to(torch.int32)
-                        mask = (grouped * self._pows[mask.device]).sum(-1).to(torch.uint8)
-                    hard[key] = mask
-                elif key in _CLASS_KEYS:
-                    hard[key] = torch.argmax(val, dim=-1).to(torch.uint8)
-                else:
-                    hard[key] = val
+            # The model's forward, called in its two halves so that each has
+            # a span: no span may sit inside a forward (utils/profiling.py).
+            with span("c3d.predict.encode"):
+                taps = model.encoder(norm(pre), norm(post))
+            with span("c3d.predict.heads"):
+                hard = {}
+                for key, val in model.heads(taps).items():
+                    if key in _BINARY_KEYS:
+                        mask = val[..., 0] > 0.5
+                        b, h, w = mask.shape
+                        if w % 8 == 0:
+                            grouped = mask.reshape(b, h, w // 8, 8).to(torch.int32)
+                            mask = (grouped * self._pows[mask.device]).sum(-1).to(torch.uint8)
+                        hard[key] = mask
+                    else:
+                        hard[key] = torch.argmax(val, dim=-1).to(torch.uint8)
         return hard
 
     @torch.inference_mode()

@@ -94,14 +94,21 @@ class Change3D(nn.Module):
             if captions is not None:
                 out["logits"] = self.decoder(out["memory"], captions, generator=generator)
             return out
-        taps = self.encoder(pre, post)
+        return self.heads(self.encoder(pre, post))
+
+    def heads(self, taps) -> Dict[str, torch.Tensor]:
+        """The detection heads (BCD, SCD, BDA) over the encoder's taps: 4
+        stages x N per-frame features. Returns the task's outputs (module
+        docstring)."""
         frame = lambda i: [stage[i] for stage in taps]
         if self.task == Task.BCD:
             return {"change": self.decoder(frame(0))}
         if self.task == Task.SCD:
             return {"pre": self.decoder_pre(frame(0)), "post": self.decoder_post(frame(2)),
                     "change": self.decoder_change(frame(1))}
-        return {"cls": self.decoder_cls(frame(0)), "loc": self.decoder_loc(frame(1))}
+        if self.task == Task.BDA:
+            return {"cls": self.decoder_cls(frame(0)), "loc": self.decoder_loc(frame(1))}
+        raise ValueError("CC has no detection heads")
 
     # -- the caption decode surface (CC) --------------------------------------
 

@@ -18,8 +18,10 @@ Spans are named ``c3d.<layer>[.<part>]`` with fixed strings (never a
 request's or a batch's own name); a span nested in another carries its
 parent's name as its prefix where it is a part of that work, as
 ``c3d.predict.h2d`` of ``c3d.predict``. The layers: ``c3d.predict``
-(``Predictor.predict_u8``), ``c3d.caption`` (``CaptionPredictor``'s
-captions and ``beam_search_decode``), ``c3d.serve`` (the server's threads).
+(``Predictor.predict_u8``; its ``.forward`` holds ``.encode``, the
+encoder, and ``.heads``, the detection heads with the hardening, for every
+detection task), ``c3d.caption`` (``CaptionPredictor``'s captions and
+``beam_search_decode``), ``c3d.serve`` (the server's threads).
 A span is a FUNCTION-scope ``RecordFunction`` range, as an aten op is: it
 shares the trace's clock with the kernels, adds no device event, and costs
 about a microsecond when no profiler runs. (``record_function`` opens a

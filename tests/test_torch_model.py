@@ -195,11 +195,17 @@ def test_postprocess_and_harden_match_jax_for_every_head_kind():
 
 
 class _TwoHeads(torch.nn.Module):
-    """A stand-in model with a binary and a class head, pixel-wise in its inputs."""
+    """A stand-in model with a binary and a class head, pixel-wise in its
+    inputs, split as ``Change3D`` is: ``forward`` = ``heads(encoder(...))``."""
+
+    def encoder(self, pre, post):
+        return pre - post
+
+    def heads(self, d):
+        return {"change": torch.sigmoid(d[..., :1]), "cls": d}
 
     def forward(self, pre, post):
-        d = pre - post
-        return {"change": torch.sigmoid(d[..., :1]), "cls": d}
+        return self.heads(self.encoder(pre, post))
 
 
 @pytest.mark.parametrize("width", [16, 12], ids=["bitpacked", "unpacked"])

@@ -201,10 +201,13 @@ def test_predict_u8_spans_on_the_cpu(bcd_predictor):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         pred.predict_u8(pre, post)
     spans = _spans(prof)
-    parts = ("c3d.predict.h2d", "c3d.predict.forward", "c3d.predict.wait", "c3d.predict.unpack")
+    parts = ("c3d.predict.h2d", "c3d.predict.forward", "c3d.predict.encode",
+             "c3d.predict.heads", "c3d.predict.wait", "c3d.predict.unpack")
     assert sorted(r[0] for r in spans) == sorted(("c3d.predict",) + parts)
-    (call,) = _named(spans, "c3d.predict")
+    (call,), (forward,) = _named(spans, "c3d.predict"), _named(spans, "c3d.predict.forward")
     assert all(_inside(r, call) for r in spans)
+    assert all(_inside(r, forward) for r in _named(spans, "c3d.predict.encode")
+               + _named(spans, "c3d.predict.heads"))
     # In the order the work runs.
     assert [r[0] for r in spans[1:]] == list(parts)
 
