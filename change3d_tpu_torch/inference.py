@@ -60,6 +60,7 @@ from change3d_tpu_torch.data.datasets import CaptionDataset
 from change3d_tpu_torch.device import resolve_device
 from change3d_tpu_torch.export import load_exported, load_exported_captioner
 from change3d_tpu_torch.models.caption_decoder import (
+    DecodeGraphs,
     MAX_CAPTION_LEN,
     beam_search_decode,
     incremental_fns,
@@ -451,7 +452,9 @@ def tokens_to_captions(tokens, word_map: Dict[str, int]) -> List[str]:
 class CaptionPredictor(Predictor):
     """Captions for image pairs from a CC ``Change3D``: the encoder in
     ``compute_dtype``, then ``beam_search_decode`` with ``beam_size`` beams
-    over the KV-cached decode step, at most MAX_CAPTION_LEN tokens.
+    over the KV-cached decode step, at most MAX_CAPTION_LEN tokens; on a
+    card each step replays a CUDA graph of the replica's ``DecodeGraphs``
+    (captured at a batch's first search).
     ``shard`` / ``devices`` as for ``Predictor`` (``caption`` and
     ``caption_u8`` split the batch; ``caption_device`` runs the first)."""
 
@@ -464,6 +467,7 @@ class CaptionPredictor(Predictor):
         self.beam_size = beam_size
         mean, std = torch.from_numpy(CaptionDataset.MEAN), torch.from_numpy(CaptionDataset.STD)
         self._mean_std = {d: (mean.to(d), std.to(d)) for d in self.devices}
+        self.decode_graphs = {id(m): DecodeGraphs(m.decoder) for m in self.replicas}
 
     @torch.inference_mode()
     def encode(self, pre: torch.Tensor, post: torch.Tensor, model=None) -> torch.Tensor:
@@ -487,7 +491,8 @@ class CaptionPredictor(Predictor):
         return beam_search_decode(
             model.decode_captions, memory, beam_size=self.beam_size,
             start_token=wm["<start>"], end_token=wm["<end>"], pad_token=wm.get("<pad>", 0),
-            max_len=MAX_CAPTION_LEN, incremental=incremental_fns(model), **kw)
+            max_len=MAX_CAPTION_LEN, incremental=incremental_fns(model),
+            graphs=self.decode_graphs.get(id(model)), **kw)
 
     def caption_device(self, pre: torch.Tensor, post: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -19,12 +19,15 @@ position table is a buffer outside the state_dict.
 shrinking live width, running best, the -1e6 log-prob clamp, the fallback to
 the best live beam, the k = 1 fast path) in a Python loop of fixed-shape
 device ops; ranking ties go to the lower index, as ``jax.lax.top_k`` ranks
-them.
+them. Given a ``DecodeGraphs`` and a memory on a card, it replays each
+KV-cached step as one CUDA graph instead of launching its ops one by one.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
+import threading
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -331,6 +334,7 @@ def beam_search_decode(
     max_len: int = MAX_CAPTION_LEN,
     incremental: Optional[Sequence[Callable]] = None,
     early_exit: bool = True,
+    graphs: Optional["DecodeGraphs"] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fixed-shape batched beam search with the JAX semantics: cumulative
     log-prob ranking; a beam that emits <end> retires (recorded, live width
@@ -355,9 +359,18 @@ def beam_search_decode(
     ``c3d.caption.alive_check`` over each early-exit check, the one place
     the search waits for the device.
 
+    With ``graphs`` (the model's ``DecodeGraphs``), ``incremental`` and a
+    memory on a card, each step is one replay of a CUDA graph of the same
+    ops (``DecodeGraphs.search``), with the same tokens and scores.
+
     memory: [B, S, E]. Returns (tokens [B, max_len] int64, scores [B] fp32).
     """
     with span("c3d.caption.decode"):
+        if graphs is not None and incremental is not None and memory.is_cuda:
+            tokens, scores, beam_search_decode.steps = graphs.search(
+                memory, incremental, beam_size=beam_size, start_token=start_token,
+                end_token=end_token, pad_token=pad_token, max_len=max_len, early_exit=early_exit)
+            return tokens, scores
         b = memory.shape[0]
         k = beam_size
         dev = memory.device
@@ -400,6 +413,162 @@ def beam_search_decode(
 
 
 beam_search_decode.steps = 0
+
+# Eager steps on the side stream before a capture (cuBLAS handles and
+# workspaces, the allocator's blocks for the step's temporaries).
+_WARMUP_STEPS = 2
+
+
+def _flat(cache: Cache) -> List[torch.Tensor]:
+    return [a for c in cache for a in c.values()]
+
+
+class _StaticSearch:
+    """One search shape's carry in fixed buffers, and the search step over
+    it: the position ``t`` (0-d int64), the beams, each layer's K/V cache and
+    the projected memory. ``step`` reads and writes only these buffers, so a
+    CUDA graph of it (``capture``) replays any search of the shape."""
+
+    def __init__(self, memory: torch.Tensor, incremental: Sequence[Callable], k: int,
+                 end_token: int, max_len: int):
+        self.precompute_fn, init_cache_fn, self.step_fn = incremental
+        b, dev = memory.shape[0], memory.device
+        self.b, self.k, self.end_token, self.max_len = b, k, end_token, max_len
+        self.batch_ids = torch.arange(b, device=dev)
+        self.slot = torch.arange(k, device=dev)[None, :]
+        self.t = torch.ones((), dtype=torch.int64, device=dev)
+        self.beams = _init_beams(b, k, max_len, 0, 0, dev)
+        self.cache = init_cache_fn(b * k, max_len, memory.dtype)
+        self.mem_kv = self._project(memory)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+
+    def _project(self, memory: torch.Tensor) -> MemoryKV:
+        mem_kv = self.precompute_fn(memory)
+        if self.k > 1:
+            mem_kv = tuple(tuple(a.repeat_interleave(self.k, dim=0) for a in kv)
+                           for kv in mem_kv)
+        return mem_kv
+
+    def load(self, memory: torch.Tensor, start_token: int, pad_token: int) -> None:
+        """Start a search over ``memory``: its projections copied in, the
+        position at 1, the beams as ``_init_beams`` makes them, the caches
+        zeroed."""
+        for dst, src in zip(itertools.chain(*self.mem_kv),
+                            itertools.chain(*self._project(memory))):
+            dst.copy_(src)
+        self.t.fill_(1)
+        init = _init_beams(self.b, self.k, self.max_len, start_token, pad_token, self.t.device)
+        for dst, src in zip(self.beams, init):
+            dst.copy_(src)
+        for a in _flat(self.cache):
+            a.zero_()
+
+    def step(self) -> None:
+        """``beam_search_decode``'s KV-cached step at position ``t``, its new
+        tensors copied back into the carry, then ``t`` advanced."""
+        t, beams = self.t, self.beams
+        tokens_t = beams.tokens.index_select(1, (t - 1).reshape(1))[:, 0]
+        step_logits, cache = self.step_fn(tokens_t, self.mem_kv, self.cache, t - 1)
+        new, parent = _advance(beams, torch.log_softmax(step_logits.float(), dim=-1), t,
+                               self.end_token, self.batch_ids, self.slot)
+        if self.k > 1:
+            cache = tuple({n: a[parent] for n, a in c.items()} for c in cache)
+        for dst, src in zip((*beams, *_flat(self.cache)), (*new, *_flat(cache))):
+            dst.copy_(src)
+        t.add_(1)
+
+    def capture(self) -> None:
+        """Warm up on a side stream, then capture one ``step`` into
+        ``graph``. The warm-up moves the carry: ``load`` before the next
+        search. The capture's errors are this thread's alone, so another
+        thread's synchronisation (a server's completer) does not break it."""
+        dev = self.t.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(_WARMUP_STEPS):
+                self.t.fill_(1)  # every warm-up step at a column the buffers hold
+                self.step()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.step()
+
+
+class DecodeGraphs:
+    """CUDA graphs of ``beam_search_decode``'s KV-cached search step over
+    ``module``'s parameters, one per search shape; one object per model
+    replica (``CaptionPredictor`` makes them).
+
+    A graph holds one whole step (``decode_step``, the log-softmax,
+    ``_advance`` and, at k > 1, the cache reorder) over a ``_StaticSearch``'s
+    buffers. A search copies its memory's projections in, resets the rest
+    and replays the graph once a step; the early exit stays on the host,
+    between replays. Tokens and scores equal the eager search's.
+
+    Searches are keyed on the device, batch·k, k, the memory's length, width
+    and dtype, ``max_len`` and <end>. Replacing a parameter or buffer of
+    ``module`` (a new ``nn.Parameter``, ``.to``) drops every graph; an update
+    in place (``load_state_dict``, an optimiser step) is read by the next
+    replay. On the CPU a search runs the same step eagerly over the same
+    buffers. ``stats`` counts ``captures``, ``replays`` and ``eager_steps``
+    (steps run over the buffers without a graph). One search at a time: the
+    buffers are shared."""
+
+    def __init__(self, module: nn.Module):
+        self.module = module
+        self.stats = {"captures": 0, "replays": 0, "eager_steps": 0}
+        self._searches: Dict[tuple, _StaticSearch] = {}
+        self._tensors: Tuple[int, ...] = ()
+        self._lock = threading.Lock()
+
+    def _search_for(self, memory: torch.Tensor, incremental: Sequence[Callable], k: int,
+                    end_token: int, max_len: int) -> _StaticSearch:
+        tensors = tuple(a.data_ptr() for a in itertools.chain(self.module.parameters(),
+                                                             self.module.buffers()))
+        if tensors != self._tensors:
+            self._searches.clear()
+            self._tensors = tensors
+        b, s, e = memory.shape
+        key = (memory.device, b * k, k, s, e, memory.dtype, max_len, end_token)
+        search = self._searches.get(key)
+        if search is None:
+            search = _StaticSearch(memory, incremental, k, end_token, max_len)
+            if memory.is_cuda and max_len > 1:
+                search.load(memory, 0, 0)  # valid values for the warm-up steps
+                search.capture()
+                self.stats["captures"] += 1
+            self._searches[key] = search  # kept only once its capture succeeded
+        return search
+
+    @torch.inference_mode()
+    def search(self, memory: torch.Tensor, incremental: Sequence[Callable], *, beam_size: int,
+               start_token: int, end_token: int, pad_token: int, max_len: int,
+               early_exit: bool) -> Tuple[torch.Tensor, torch.Tensor, int]:
+        """``beam_search_decode``'s KV-cached search over the fixed buffers,
+        with its spans; each replay under ``c3d.caption.replay``. Returns
+        (tokens, scores) as fresh tensors, and the steps run."""
+        with self._lock:
+            search = self._search_for(memory, incremental, beam_size, end_token, max_len)
+            search.load(memory, start_token, pad_token)
+            t = 1
+            while t < max_len:
+                if early_exit and t > 1:
+                    with span("c3d.caption.alive_check"):
+                        alive = bool(search.beams.alive.any())
+                    if not alive:
+                        break
+                with span("c3d.caption.step"):
+                    if search.graph is None:
+                        search.step()
+                        self.stats["eager_steps"] += 1
+                    else:
+                        with span("c3d.caption.replay"):
+                            search.graph.replay()
+                        self.stats["replays"] += 1
+                t += 1
+            tokens, scores = _result(search.beams, search.batch_ids, beam_size)
+            return tokens, scores, t - 1
 
 
 def beam_search_loop(

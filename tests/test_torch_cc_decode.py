@@ -6,7 +6,9 @@ and ``beam_search_decode``'s tokens (exact) and scores (1e-5) at k = 1, 3, 5
 in the KV-cached and the full-prefix mode with early exit on and off, a
 forced-tie stub whose log-probs tie at every step, and a search in which
 nothing completes (the fallback to the best live beam). A short length
-(10) keeps the JAX compiles cheap; dropout is 0."""
+(10) keeps the JAX compiles cheap; dropout is 0. ``DecodeGraphs``' step,
+run eagerly over its fixed buffers, is held to the eager search exactly,
+and its keys to the shapes and tensors it reads."""
 
 import jax
 import jax.numpy as jnp
@@ -214,3 +216,83 @@ def test_forced_ties_rank_by_lower_index_as_jax_does(k):
         assert got[0][0, :5].tolist() == [START, 4, 4, 4, END]
         # Every beam retires at step 4 (<end> at position 4): early exit stops there.
         assert cd.beam_search_decode.steps == (4 if early_exit else L - 1)
+
+
+
+def _graph_decoder(seed, end_bias):
+    """A decoder drawn by torch alone (no JAX init) whose <end> moves with
+    the prefix, as ``decoder_pair``'s does: attention biases 0.1-normal,
+    <end>'s output column x8 and its bias + ``end_bias``, embedding x5."""
+    g = torch.Generator().manual_seed(seed)
+    dec = cd.CaptionDecoder(V, E, HEADS, LAYERS, 0.0, generator=g)
+    with torch.no_grad():
+        dec.out_b.copy_(0.1 * torch.randn(V, generator=g))
+        dec.out_b[END] += end_bias
+        dec.out_w[:, END] *= 8.0
+        dec.vocab_embedding.mul_(5.0)
+        for name, p in dec.named_parameters():
+            if name.endswith(("in_proj_b", "attn.out_b")):
+                p.copy_(0.1 * torch.randn(p.shape, generator=g))
+    return dec.eval()
+
+
+def _static_search(graphs, dec, memory, k):
+    return graphs.search(memory, cd.incremental_fns(dec), beam_size=k, start_token=START,
+                         end_token=END, pad_token=PAD, max_len=L, early_exit=True)
+
+
+@pytest.mark.parametrize("ending", ["early_exit", "end_suppressed"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("k", [1, 3])
+def test_graph_body_over_the_static_carry_equals_the_eager_search(k, dtype, ending):
+    """``DecodeGraphs``' step, run eagerly on the CPU over its fixed
+    buffers (what a card captures and replays), gives the eager KV-cached
+    search's tokens, scores and step count exactly: with every beam retired
+    before ``max_len`` (the early exit fires, after 6 or 7 steps) and with
+    <end> suppressed (all ``max_len - 1`` steps). The second search over the
+    same buffers starts clean."""
+    dec = _graph_decoder(1, 0.5 if ending == "early_exit" else -100.0)
+    graphs = cd.DecodeGraphs(dec)
+    for seed in (5, 6):
+        memory = torch.from_numpy(np.random.RandomState(seed).randn(4, 6, E)
+                                  .astype(np.float32)).to(dtype)
+        with torch.no_grad():
+            want = cd.beam_search_decode(dec.decode, memory, beam_size=k, start_token=START,
+                                         end_token=END, pad_token=PAD, max_len=L,
+                                         incremental=cd.incremental_fns(dec), graphs=graphs)
+        want_steps = cd.beam_search_decode.steps
+        tokens, scores, steps = _static_search(graphs, dec, memory, k)
+        assert torch.equal(tokens, want[0]) and torch.equal(scores, want[1])
+        assert steps == want_steps
+        if ending == "early_exit":
+            assert 5 < steps < L - 1 and (tokens == END).any(1).all()
+        else:
+            assert steps == L - 1 and not (tokens == END).any()
+    assert graphs.stats["captures"] == graphs.stats["replays"] == 0
+    assert graphs.stats["eager_steps"] > 0
+
+
+def test_decode_graphs_key_shapes_and_replaced_parameters_not_updates():
+    """A new batch and a replaced parameter miss (the replaced one drops
+    every search of the old tensors); an update in place hits, and the
+    next search reads the new weights."""
+    dec = _graph_decoder(1, 0.5)
+    graphs = cd.DecodeGraphs(dec)
+    fns = cd.incremental_fns(dec)
+    memory = torch.from_numpy(np.random.RandomState(5).randn(4, 6, E).astype(np.float32))
+    find = lambda m: graphs._search_for(m, fns, 1, END, L)
+    first = find(memory)
+    assert find(memory) is first
+    assert find(memory[:2]) is not first and len(graphs._searches) == 2
+    before = _static_search(graphs, dec, memory, 1)
+    dec.load_state_dict(_graph_decoder(7, 0.5).state_dict())
+    assert find(memory) is first
+    got = _static_search(graphs, dec, memory, 1)
+    with torch.no_grad():
+        want = cd.beam_search_decode(None, memory, beam_size=1, start_token=START,
+                                     end_token=END, pad_token=PAD, max_len=L, incremental=fns)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert not torch.equal(got[0], before[0])
+    dec.out_b = torch.nn.Parameter(dec.out_b.detach().clone())
+    replaced = find(memory)
+    assert replaced is not first and len(graphs._searches) == 1
