@@ -484,15 +484,15 @@ class CaptionPredictor(Predictor):
         return model(pre.to(self.compute_dtype), post.to(self.compute_dtype))["memory"]
 
     @torch.inference_mode()
-    def decode(self, memory: torch.Tensor, model=None, **kw) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Beam search over ``memory``: (tokens [B, MAX_CAPTION_LEN],
-        scores [B]) on the device; ``kw`` goes to ``beam_search_decode``."""
+    def decode(self, memory: torch.Tensor, model=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """KV-cached beam search over ``memory``: (tokens [B,
+        MAX_CAPTION_LEN], scores [B]) on the device."""
         wm, model = self.word_map, model or self.model
         return beam_search_decode(
-            model.decode_captions, memory, beam_size=self.beam_size,
+            None, memory, beam_size=self.beam_size,
             start_token=wm["<start>"], end_token=wm["<end>"], pad_token=wm.get("<pad>", 0),
             max_len=MAX_CAPTION_LEN, incremental=incremental_fns(model),
-            graphs=self.decode_graphs.get(id(model)), **kw)
+            graphs=self.decode_graphs.get(id(model)))
 
     def caption_device(self, pre: torch.Tensor, post: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -17,10 +17,13 @@ position table is a buffer outside the state_dict.
 
 ``beam_search_decode`` keeps the JAX search step for step (retirement,
 shrinking live width, running best, the -1e6 log-prob clamp, the fallback to
-the best live beam, the k = 1 fast path) in a Python loop of fixed-shape
-device ops; ranking ties go to the lower index, as ``jax.lax.top_k`` ranks
-them. Given a ``DecodeGraphs`` and a memory on a card, it replays each
-KV-cached step as one CUDA graph instead of launching its ops one by one.
+the best live beam, the k = 1 fast path) in fixed-shape device ops; ranking
+ties go to the lower index, as ``jax.lax.top_k`` ranks them. The KV-cached
+step is written once (``_search_step``) and run by one host loop
+(``_search_loop``) over a ``_StaticSearch``'s buffers; ``DecodeGraphs``
+alone decides whether a step is a CUDA graph replay (on a card) or eager
+launches. ``beam_search_loop`` runs the same step in a ``while_loop`` for
+``torch.export``.
 """
 
 from __future__ import annotations
@@ -323,6 +326,42 @@ def _result(beams: _Beams, batch_ids: torch.Tensor, k: int) -> Tuple[torch.Tenso
             torch.where(any_done, beams.best_scores, live_scores[batch_ids, fb]))
 
 
+def _search_step(t: torch.Tensor, beams: _Beams, cache: Cache, mem_kv: MemoryKV,
+                 step_fn: Callable, end_token: int, batch_ids: torch.Tensor,
+                 slot: torch.Tensor) -> Tuple[_Beams, Cache]:
+    """The KV-cached search's step at position ``t`` (0-d int64), out of
+    place: ``step_fn`` on each beam's last token, the fp32 log-softmax,
+    ``_advance``, and at k > 1 the caches reordered by ``parent``."""
+    tokens_t = beams.tokens.index_select(1, (t - 1).reshape(1))[:, 0]
+    step_logits, cache = step_fn(tokens_t, mem_kv, cache, t - 1)
+    beams, parent = _advance(beams, torch.log_softmax(step_logits.float(), dim=-1), t,
+                             end_token, batch_ids, slot)
+    if slot.shape[1] > 1:
+        # Beams follow their parents: the caches reorder with the gather.
+        cache = tuple({n: a[parent] for n, a in c.items()} for c in cache)
+    return beams, cache
+
+
+def _search_loop(step: Callable[[int, _Beams], _Beams], beams: _Beams, max_len: int) -> _Beams:
+    """``beams = step(t, beams)`` at t = 1, 2, ... until ``max_len`` or no
+    beam is alive (after that no step changes the result), each under
+    ``c3d.caption.step``; each check before a step after the first, the one
+    wait for the device, under ``c3d.caption.alive_check``. The steps run
+    are left in ``beam_search_decode.steps``."""
+    t = 1
+    while t < max_len:
+        if t > 1:
+            with span("c3d.caption.alive_check"):
+                alive = bool(beams.alive.any())
+            if not alive:
+                break
+        with span("c3d.caption.step"):
+            beams = step(t, beams)
+        t += 1
+    beam_search_decode.steps = t - 1
+    return beams
+
+
 def beam_search_decode(
     apply_fn: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]],
     memory: torch.Tensor,
@@ -333,82 +372,48 @@ def beam_search_decode(
     pad_token: int = 0,
     max_len: int = MAX_CAPTION_LEN,
     incremental: Optional[Sequence[Callable]] = None,
-    early_exit: bool = True,
     graphs: Optional["DecodeGraphs"] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fixed-shape batched beam search with the JAX semantics: cumulative
     log-prob ranking; a beam that emits <end> retires (recorded, live width
     shrinks by one); the answer is the best completion over the whole
-    search; with no completion, the best live beam.
+    search; with no completion, the best live beam. ``_search_loop`` runs
+    it under ``c3d.caption.decode`` (``utils/profiling.py``).
 
+    ``incremental`` = (precompute(memory) -> memory_kv, init_cache(batch,
+    max_len, dtype) -> cache, step(tokens_t, memory_kv, cache, pos) ->
+    (logits, cache)) decodes one token a step (``_search_step``) over the
+    buffers of ``graphs`` (the model's ``DecodeGraphs``) or, without, of a
+    new ``_StaticSearch`` stepped eagerly. Without ``incremental``,
     ``apply_fn(tokens [B*k, L], memory [B*k, S, E]) -> logits [B*k, L, V]``
-    re-decodes the whole prefix each step. ``incremental`` = (precompute(memory)
-    -> memory_kv, init_cache(batch, max_len, dtype) -> cache, step(tokens_t,
-    memory_kv, cache, pos) -> (logits, cache)) decodes one token per step
-    against per-layer KV caches instead, with identical results.
-
-    With ``early_exit`` the loop stops once no beam in the batch is alive
-    (a check before each step, which waits for the device); a step after
-    every beam retired changes nothing the result depends on, so the
-    results equal the full ``max_len`` loop's. The number of steps run is
-    left in ``beam_search_decode.steps``.
-
-    Spans (``utils/profiling.py``): ``c3d.caption.decode`` over the search,
-    ``c3d.caption.step`` over each step's launches (the decode step, the
-    log-softmax, the bookkeeping, the cache reorder) and
-    ``c3d.caption.alive_check`` over each early-exit check, the one place
-    the search waits for the device.
-
-    With ``graphs`` (the model's ``DecodeGraphs``), ``incremental`` and a
-    memory on a card, each step is one replay of a CUDA graph of the same
-    ops (``DecodeGraphs.search``), with the same tokens and scores.
+    re-decodes the whole prefix each step: the reference the KV-cached
+    search is held to.
 
     memory: [B, S, E]. Returns (tokens [B, max_len] int64, scores [B] fp32).
     """
     with span("c3d.caption.decode"):
-        if graphs is not None and incremental is not None and memory.is_cuda:
-            tokens, scores, beam_search_decode.steps = graphs.search(
-                memory, incremental, beam_size=beam_size, start_token=start_token,
-                end_token=end_token, pad_token=pad_token, max_len=max_len, early_exit=early_exit)
-            return tokens, scores
-        b = memory.shape[0]
-        k = beam_size
-        dev = memory.device
+        if incremental is not None:
+            if graphs is not None:
+                return graphs.search(memory, incremental, beam_size=beam_size,
+                                     start_token=start_token, end_token=end_token,
+                                     pad_token=pad_token, max_len=max_len)
+            search = _StaticSearch(memory, incremental, beam_size, end_token, max_len,
+                                   start_token, pad_token)
+            return search.run({"eager_steps": 0})
+        b, k, dev = memory.shape[0], beam_size, memory.device
         batch_ids = torch.arange(b, device=dev)
         slot = torch.arange(k, device=dev)[None, :]
         # Position t as a 0-d view of a device tensor: no copy from the host per step.
         steps = torch.arange(max_len, device=dev)
-        beams = _init_beams(b, k, max_len, start_token, pad_token, dev)
-
-        # k = 1 (greedy): every repeat and parent gather is the identity; skip them.
+        # k = 1 (greedy): the repeat is the identity; skip it.
         mem = memory if k == 1 else memory.repeat_interleave(k, dim=0)  # [B*k, S, E]
-        if incremental is not None:
-            precompute_fn, init_cache_fn, step_fn = incremental
-            # Project from the un-repeated memory, then repeat the projections.
-            mem_kv = precompute_fn(memory)
-            if k > 1:
-                mem_kv = tuple(tuple(a.repeat_interleave(k, dim=0) for a in kv) for kv in mem_kv)
-            cache = init_cache_fn(b * k, max_len, memory.dtype)
 
-        t = 1
-        while t < max_len:
-            if early_exit and t > 1:
-                with span("c3d.caption.alive_check"):
-                    alive = bool(beams.alive.any())
-                if not alive:
-                    break
-            with span("c3d.caption.step"):
-                if incremental is not None:
-                    step_logits, cache = step_fn(beams.tokens[:, t - 1], mem_kv, cache, t - 1)
-                else:
-                    step_logits = apply_fn(beams.tokens, mem)[:, t - 1]
-                beams, parent = _advance(beams, torch.log_softmax(step_logits.float(), dim=-1),
-                                         steps[t], end_token, batch_ids, slot)
-                if incremental is not None and k > 1:
-                    # Beams follow their parents: the caches reorder with the gather.
-                    cache = tuple({n: a[parent] for n, a in c.items()} for c in cache)
-            t += 1
-        beam_search_decode.steps = t - 1
+        def step(t: int, beams: _Beams) -> _Beams:
+            logp = torch.log_softmax(apply_fn(beams.tokens, mem)[:, t - 1].float(), dim=-1)
+            return _advance(beams, logp, steps[t], end_token, batch_ids, slot)[0]
+
+        beams = _search_loop(step, _init_beams(b, k, max_len, start_token, pad_token, dev),
+                             max_len)
         return _result(beams, batch_ids, k)
 
 
@@ -426,18 +431,20 @@ def _flat(cache: Cache) -> List[torch.Tensor]:
 class _StaticSearch:
     """One search shape's carry in fixed buffers, and the search step over
     it: the position ``t`` (0-d int64), the beams, each layer's K/V cache and
-    the projected memory. ``step`` reads and writes only these buffers, so a
-    CUDA graph of it (``capture``) replays any search of the shape."""
+    the projected memory, made ready for a search over ``memory``. ``step``
+    reads and writes only these buffers, so a CUDA graph of it
+    (``capture``) replays any search of the shape; ``beam_search_loop``
+    takes them as its loop's first carry."""
 
     def __init__(self, memory: torch.Tensor, incremental: Sequence[Callable], k: int,
-                 end_token: int, max_len: int):
+                 end_token: int, max_len: int, start_token: int = 0, pad_token: int = 0):
         self.precompute_fn, init_cache_fn, self.step_fn = incremental
         b, dev = memory.shape[0], memory.device
         self.b, self.k, self.end_token, self.max_len = b, k, end_token, max_len
         self.batch_ids = torch.arange(b, device=dev)
         self.slot = torch.arange(k, device=dev)[None, :]
         self.t = torch.ones((), dtype=torch.int64, device=dev)
-        self.beams = _init_beams(b, k, max_len, 0, 0, dev)
+        self.beams = _init_beams(b, k, max_len, start_token, pad_token, dev)
         self.cache = init_cache_fn(b * k, max_len, memory.dtype)
         self.mem_kv = self._project(memory)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
@@ -445,6 +452,7 @@ class _StaticSearch:
     def _project(self, memory: torch.Tensor) -> MemoryKV:
         mem_kv = self.precompute_fn(memory)
         if self.k > 1:
+            # Project from the un-repeated memory, then repeat the projections.
             mem_kv = tuple(tuple(a.repeat_interleave(self.k, dim=0) for a in kv)
                            for kv in mem_kv)
         return mem_kv
@@ -464,18 +472,13 @@ class _StaticSearch:
             a.zero_()
 
     def step(self) -> None:
-        """``beam_search_decode``'s KV-cached step at position ``t``, its new
-        tensors copied back into the carry, then ``t`` advanced."""
-        t, beams = self.t, self.beams
-        tokens_t = beams.tokens.index_select(1, (t - 1).reshape(1))[:, 0]
-        step_logits, cache = self.step_fn(tokens_t, self.mem_kv, self.cache, t - 1)
-        new, parent = _advance(beams, torch.log_softmax(step_logits.float(), dim=-1), t,
-                               self.end_token, self.batch_ids, self.slot)
-        if self.k > 1:
-            cache = tuple({n: a[parent] for n, a in c.items()} for c in cache)
-        for dst, src in zip((*beams, *_flat(self.cache)), (*new, *_flat(cache))):
+        """``_search_step`` at position ``t``, its new tensors copied back
+        into the carry, then ``t`` advanced."""
+        new, cache = _search_step(self.t, self.beams, self.cache, self.mem_kv, self.step_fn,
+                                  self.end_token, self.batch_ids, self.slot)
+        for dst, src in zip((*self.beams, *_flat(self.cache)), (*new, *_flat(cache))):
             dst.copy_(src)
-        t.add_(1)
+        self.t.add_(1)
 
     def capture(self) -> None:
         """Warm up on a side stream, then capture one ``step`` into
@@ -494,17 +497,38 @@ class _StaticSearch:
         with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
             self.step()
 
+    def run(self, stats: Dict[str, int]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The search from the loaded carry (``_search_loop``), a step one
+        replay of ``graph`` (under ``c3d.caption.replay``) once captured,
+        else ``step`` run eagerly, counted in ``stats``. Returns (tokens,
+        scores) as fresh tensors."""
+
+        def step(t: int, beams: _Beams) -> _Beams:
+            if self.graph is None:
+                self.step()
+                stats["eager_steps"] += 1
+            else:
+                with span("c3d.caption.replay"):
+                    self.graph.replay()
+                stats["replays"] += 1
+            return beams
+
+        _search_loop(step, self.beams, self.max_len)
+        return _result(self.beams, self.batch_ids, self.k)
+
 
 class DecodeGraphs:
     """CUDA graphs of ``beam_search_decode``'s KV-cached search step over
     ``module``'s parameters, one per search shape; one object per model
-    replica (``CaptionPredictor`` makes them).
+    replica (``CaptionPredictor`` makes them). The one place that decides
+    whether a search is captured: on a card, at ``max_len`` > 1.
 
-    A graph holds one whole step (``decode_step``, the log-softmax,
-    ``_advance`` and, at k > 1, the cache reorder) over a ``_StaticSearch``'s
-    buffers. A search copies its memory's projections in, resets the rest
-    and replays the graph once a step; the early exit stays on the host,
-    between replays. Tokens and scores equal the eager search's.
+    A graph holds one whole step (``_search_step``: ``decode_step``, the
+    log-softmax, ``_advance`` and, at k > 1, the cache reorder) over a
+    ``_StaticSearch``'s buffers. A search copies its memory's projections
+    in, resets the rest and replays the graph once a step; the early exit
+    stays on the host, between replays. Tokens and scores equal the
+    uncaptured search's.
 
     Searches are keyed on the device, batch·k, k, the memory's length, width
     and dtype, ``max_len`` and <end>. Replacing a parameter or buffer of
@@ -535,7 +559,6 @@ class DecodeGraphs:
         if search is None:
             search = _StaticSearch(memory, incremental, k, end_token, max_len)
             if memory.is_cuda and max_len > 1:
-                search.load(memory, 0, 0)  # valid values for the warm-up steps
                 search.capture()
                 self.stats["captures"] += 1
             self._searches[key] = search  # kept only once its capture succeeded
@@ -543,32 +566,15 @@ class DecodeGraphs:
 
     @torch.inference_mode()
     def search(self, memory: torch.Tensor, incremental: Sequence[Callable], *, beam_size: int,
-               start_token: int, end_token: int, pad_token: int, max_len: int,
-               early_exit: bool) -> Tuple[torch.Tensor, torch.Tensor, int]:
-        """``beam_search_decode``'s KV-cached search over the fixed buffers,
-        with its spans; each replay under ``c3d.caption.replay``. Returns
-        (tokens, scores) as fresh tensors, and the steps run."""
+               start_token: int, end_token: int, pad_token: int,
+               max_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``beam_search_decode``'s KV-cached search over this shape's
+        buffers (``_StaticSearch.run``). Returns (tokens, scores) as fresh
+        tensors."""
         with self._lock:
             search = self._search_for(memory, incremental, beam_size, end_token, max_len)
             search.load(memory, start_token, pad_token)
-            t = 1
-            while t < max_len:
-                if early_exit and t > 1:
-                    with span("c3d.caption.alive_check"):
-                        alive = bool(search.beams.alive.any())
-                    if not alive:
-                        break
-                with span("c3d.caption.step"):
-                    if search.graph is None:
-                        search.step()
-                        self.stats["eager_steps"] += 1
-                    else:
-                        with span("c3d.caption.replay"):
-                            search.graph.replay()
-                        self.stats["replays"] += 1
-                t += 1
-            tokens, scores = _result(search.beams, search.batch_ids, beam_size)
-            return tokens, scores, t - 1
+            return search.run(self.stats)
 
 
 def beam_search_loop(
@@ -581,13 +587,12 @@ def beam_search_loop(
     pad_token: int = 0,
     max_len: int = MAX_CAPTION_LEN,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``beam_search_decode``'s KV-cached search with early exit as one
-    ``while_loop`` (``torch._higher_order_ops``), as JAX runs it (one
-    ``lax.while_loop``): the loop runs while ``t < max_len`` and any beam
-    of the batch is alive, and its body is the search's bookkeeping
-    (``_advance``) after one ``step(tokens_t, memory_kv, cache, pos)`` at a
-    0-d tensor position. ``torch.export`` traces it into one graph whatever
-    the batch (``export.py``); its tokens and scores are the Python loop's.
+    """``beam_search_decode``'s KV-cached search as one ``while_loop``
+    (``torch._higher_order_ops``), as JAX runs it (one ``lax.while_loop``):
+    the loop runs while ``t < max_len`` and any beam of the batch is alive,
+    and its body is ``_search_step`` at a 0-d tensor position.
+    ``torch.export`` traces it into one graph whatever the batch
+    (``export.py``); its tokens and scores are the Python loop's.
 
     The carry holds fixed shapes and dtypes, and the body returns new
     tensors only (a carried input is never aliased). Run it traced; eagerly
@@ -596,17 +601,9 @@ def beam_search_loop(
     """
     from torch._higher_order_ops import while_loop
 
-    b = memory.shape[0]
-    k = beam_size
-    dev = memory.device
-    batch_ids = torch.arange(b, device=dev)
-    slot = torch.arange(k, device=dev)[None, :]
-    precompute_fn, init_cache_fn, step_fn = incremental
-    mem_kv = precompute_fn(memory)
-    if k > 1:
-        mem_kv = tuple(tuple(a.repeat_interleave(k, dim=0) for a in kv) for kv in mem_kv)
-    cache = init_cache_fn(b * k, max_len, memory.dtype)
-    names = [tuple(c) for c in cache]
+    s = _StaticSearch(memory, incremental, beam_size, end_token, max_len, start_token,
+                      pad_token)
+    names = [tuple(c) for c in s.cache]
 
     def unflatten(flat):
         it = iter(flat)
@@ -616,19 +613,12 @@ def beam_search_loop(
         return (t < max_len) & _Beams(*carry[:6]).alive.any()
 
     def body(t, *carry):
-        beams, cache = _Beams(*carry[:6]), unflatten(carry[6:])
-        tokens_t = beams.tokens.index_select(1, (t - 1).reshape(1))[:, 0]
-        step_logits, cache = step_fn(tokens_t, mem_kv, cache, t - 1)
-        beams, parent = _advance(beams, torch.log_softmax(step_logits.float(), dim=-1), t,
-                                 end_token, batch_ids, slot)
-        if k > 1:
-            cache = tuple({n: a[parent] for n, a in c.items()} for c in cache)
-        return (t + 1, *beams, *(a for c in cache for a in c.values()))
+        beams, cache = _search_step(t, _Beams(*carry[:6]), unflatten(carry[6:]), s.mem_kv,
+                                    s.step_fn, end_token, s.batch_ids, s.slot)
+        return (t + 1, *beams, *_flat(cache))
 
-    t0 = torch.ones((), dtype=torch.int64, device=dev)
-    beams = _init_beams(b, k, max_len, start_token, pad_token, dev)
-    out = while_loop(cond, body, (t0, *beams, *(a for c in cache for a in c.values())))
-    return _result(_Beams(*out[1:7]), batch_ids, k)
+    out = while_loop(cond, body, (s.t, *s.beams, *_flat(s.cache)))
+    return _result(_Beams(*out[1:7]), s.batch_ids, beam_size)
 
 
 def incremental_fns(model) -> Tuple[Callable, Callable, Callable]:

@@ -57,7 +57,7 @@ from change3d_tpu_torch.ops.layers import (
     squeeze_excite_3d,
     swish,
 )
-from change3d_tpu_torch.ops.norm import BatchNorm, recomputing
+from change3d_tpu_torch.ops.norm import BatchNorm, InferenceCache, recomputing
 
 
 def round_width(width, multiplier, min_width: int = 8, divisor: int = 8) -> int:
@@ -212,6 +212,7 @@ class X3DBottleneck(nn.Module):
         if quant_mode not in (None,) + self.QUANT_MODES:
             raise ValueError(f"quant_mode {quant_mode!r}: one of {self.QUANT_MODES}")
         self.quant_mode = quant_mode
+        self._fused_weights = InferenceCache()
         self._int8_keys = {}
         for site in ("a", "c") if quant_mode else ():
             self.register_buffer(f"conv_{site}_q", torch.empty(0, dtype=torch.int8),
@@ -258,15 +259,19 @@ class X3DBottleneck(nn.Module):
         return self.bn_c(self._pointwise(x, "c"))
 
     def fused_residual(self, x: torch.Tensor) -> torch.Tensor:
-        """relu(x + self(x)) as one fused block (eval, stride 1, dim-preserving)."""
+        """relu(x + self(x)) as one fused block (eval, stride 1, dim-preserving).
+        The kernels' weights (conv_a and conv_c in x's dtype, the depthwise
+        taps as a contiguous [3, 3, 3, Ci]) and the folded BNs are kept
+        while their sources are unchanged (``InferenceCache``)."""
         a_a, b_a = self.bn_a.folded()
         a_b, b_b = self.bn_b.folded()
         a_c, b_c = self.bn_c.folded()
-        w_dw = self.conv_b[:, 0].permute(1, 2, 3, 0)  # [3, 3, 3, Ci]
+        w_a, w_dw, w_c = self._fused_weights.get(
+            lambda: (self.conv_a.to(x.dtype), self.conv_b[:, 0].permute(1, 2, 3, 0).contiguous(),
+                     self.conv_c.to(x.dtype)),
+            (self.conv_a, self.conv_b, self.conv_c), x.dtype)
         se = None if self.se is None else self.se.weights()
-        return fused_bottleneck_block(
-            x, self.conv_a, a_a, b_a, w_dw, a_b, b_b, self.conv_c, a_c, b_c, se
-        )
+        return fused_bottleneck_block(x, w_a, a_a, b_a, w_dw, a_b, b_b, w_c, a_c, b_c, se)
 
 
 def prepare_int8(model: nn.Module) -> None:

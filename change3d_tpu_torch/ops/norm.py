@@ -24,6 +24,10 @@ statistics again, collectives included, so every process issues the same
 all-reduces in the same order, but leaves the running statistics alone:
 they move once per step, as in JAX.
 
+In eval the folded (a, b) are kept (``InferenceCache``) while the four
+tensors they come from are unchanged and no gradient is recorded, so a
+forward does not fold again what the last one folded.
+
 ``F.batch_norm`` is not used: its variance rounds differently from the JAX
 formula this module is held to (and ``nn.SyncBatchNorm`` likewise).
 """
@@ -32,7 +36,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Tuple
+from typing import Callable, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -61,6 +65,32 @@ class _Recomputing(threading.local):
 recomputing = _Recomputing()
 
 
+class InferenceCache:
+    """A value made from parameters and buffers, kept for as long as they
+    are unchanged: the key is each source's version counter (which every
+    in-place write bumps: an optimizer step, ``load_state_dict``, a running
+    statistic) and its address (``.to``, a replaced parameter), and the
+    sources are held with the value, so no other tensor can take their
+    address meanwhile. While autograd records, under a trace such as
+    ``torch.export``, or for a source without a version counter (an
+    inference tensor) the value is made anew every time and not kept."""
+
+    def __init__(self):
+        self._key = self._value = self._held = None
+
+    def get(self, make: Callable, sources: Sequence[torch.Tensor], *extra):
+        """``make()``, or the value it gave under the same sources and
+        ``extra`` (hashable, e.g. a dtype)."""
+        if (torch.is_grad_enabled() or torch.compiler.is_compiling()
+                or any(t.is_inference() for t in sources)):
+            return make()
+        key = (*extra, *((t._version, t.data_ptr()) for t in sources))
+        if key != self._key:
+            self._value, self._key = make(), key
+            self._held = [t.detach() for t in sources]
+        return self._value
+
+
 class BatchNorm(nn.Module):
     """Channel-last BN over all leading axes. Parameters ``scale``/``bias``,
     buffers ``mean``/``var`` (the JAX variable names)."""
@@ -73,11 +103,16 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("mean", torch.zeros(num_features))
         self.register_buffer("var", torch.ones(num_features))
+        self._folded = InferenceCache()
 
     def folded(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """fp32 per-channel (a, b) with y = x * a + b, from the running stats."""
-        a = self.scale.float() * torch.rsqrt(self.var.float() + self.eps)
-        return a, self.bias.float() - self.mean.float() * a
+
+        def fold():
+            a = self.scale.float() * torch.rsqrt(self.var.float() + self.eps)
+            return a, self.bias.float() - self.mean.float() * a
+
+        return self._folded.get(fold, (self.scale, self.bias, self.mean, self.var), self.eps)
 
     def _batch_stats(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """fp32 batch mean and biased variance; updates the running stats

@@ -1296,8 +1296,7 @@ def classify_only(fb, dev, args, card) -> int:
 def phase_cc_times(preds, pairs, batch, dev, card, rounds=3):
     """caption_u8 captions/s at ``batch`` (host clock), the encoder's and the
     decode's CUDA-event ms, the decode's device-busy ms on the profiler's
-    timeline, its steps, and its host ms per step; the decode again without
-    early exit (no per-step sync)."""
+    timeline, its steps, and its host ms per step."""
     from change3d_tpu_torch.models import caption_decoder as cd
 
     dpre, dpost = (torch.from_numpy(a).to(dev) for a in pairs)
@@ -1318,7 +1317,6 @@ def phase_cc_times(preds, pairs, batch, dev, card, rounds=3):
         row = {"beam": beam, "batch": batch, "captions_per_s": caps_s,
                "encoder_ms": event_ms(lambda: pred.encode(dpre, dpost), 5),
                "decode_ms": event_ms(lambda: pred.decode(mem), 3),
-               "decode_ms_no_early_exit": event_ms(lambda: pred.decode(mem, early_exit=False), 3),
                "decode_device_busy_ms": device_ms(lambda: pred.decode(mem), 2),
                "decode_steps": steps, "decode_host_ms_per_step": wall_ms / steps,
                "card": card}

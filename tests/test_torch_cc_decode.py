@@ -3,12 +3,14 @@ change3d_tpu on the CPU: the attention pieces and LayerNorm (fp32 within
 1e-5 of the largest magnitude, bf16 within two bf16 ulps of it), the
 decoder's full decode, ``decode_step`` against column ``pos`` of ``decode``,
 and ``beam_search_decode``'s tokens (exact) and scores (1e-5) at k = 1, 3, 5
-in the KV-cached and the full-prefix mode with early exit on and off, a
-forced-tie stub whose log-probs tie at every step, and a search in which
-nothing completes (the fallback to the best live beam). A short length
-(10) keeps the JAX compiles cheap; dropout is 0. ``DecodeGraphs``' step,
-run eagerly over its fixed buffers, is held to the eager search exactly,
-and its keys to the shapes and tensors it reads."""
+in the KV-cached and the full-prefix mode, each held to JAX's search with
+early exit on and off (the port's search always exits early, which changes
+no result), a forced-tie stub whose log-probs tie at every step, and a
+search in which nothing completes (the fallback to the best live beam). A
+short length (10) keeps the JAX compiles cheap; dropout is 0.
+``DecodeGraphs``' step, run eagerly over its reused buffers, is held to a
+new search's exactly and to the full-prefix search's tokens, and its keys
+to the shapes and tensors it reads."""
 
 import jax
 import jax.numpy as jnp
@@ -120,12 +122,12 @@ def test_decode_and_decode_step_match_jax_and_each_other(dtype):
             close(step, full[:, pos], dtype, f"decode_step vs column {pos}")
 
 
-def _torch_search(dec, memory, k, incremental, early_exit, max_len=L):
+def _torch_search(dec, memory, k, incremental, max_len=L):
     with torch.no_grad():
         return cd.beam_search_decode(
             dec.decode, torch.from_numpy(memory), beam_size=k, start_token=START,
             end_token=END, pad_token=PAD, max_len=max_len,
-            incremental=cd.incremental_fns(dec) if incremental else None, early_exit=early_exit)
+            incremental=cd.incremental_fns(dec) if incremental else None)
 
 
 def _jax_search(jdec, variables, memory, k, incremental, early_exit, max_len=L):
@@ -145,18 +147,18 @@ def _same(got, want, msg):
 
 @pytest.mark.parametrize("k", [1, 3, 5])
 def test_beam_search_matches_jax(k):
-    """Tokens exact, scores 1e-5, in both modes with early exit on and off.
-    The rows complete at different steps (k = 1: <end> at 2 and 7) or not
-    at all (the fallback)."""
+    """Tokens exact, scores 1e-5, in both modes, against JAX's search with
+    early exit on and off. The rows complete at different steps (k = 1:
+    <end> at 2 and 7) or not at all (the fallback)."""
     jdec, variables, dec = decoder_pair(3, end_bias=1.0, end_scale=8.0, embed_scale=5.0)
     memory = np.random.RandomState(4).randn(4, 6, E).astype(np.float32)
     results = []
     for incremental in (True, False):
+        got = _torch_search(dec, memory, k, incremental)
         for early_exit in (True, False):
-            got = _torch_search(dec, memory, k, incremental, early_exit)
-            msg = f"k={k} incremental={incremental} early_exit={early_exit}"
+            msg = f"k={k} incremental={incremental} jax early_exit={early_exit}"
             _same(got, _jax_search(jdec, variables, memory, k, incremental, early_exit), msg)
-            results.append(got)
+        results.append(got)
     for tokens, scores in results[1:]:  # every mode gives the same tokens
         assert torch.equal(tokens, results[0][0])
         np.testing.assert_allclose(scores.numpy(), results[0][1].numpy(), rtol=1e-6)
@@ -170,7 +172,7 @@ def test_beam_search_matches_jax(k):
 def test_nothing_completes_falls_back_to_the_best_live_beam(k):
     jdec, variables, dec = decoder_pair(5, end_bias=-100.0)
     memory = np.random.RandomState(6).randn(2, 6, E).astype(np.float32)
-    got = _torch_search(dec, memory, k, True, True)
+    got = _torch_search(dec, memory, k, True)
     assert cd.beam_search_decode.steps == L - 1 and not (got[0] == END).any()
     assert (got[1] > -1e8).all()  # a live beam's score, not the dead-slot sentinel
     _same(got, _jax_search(jdec, variables, memory, k, True, True), f"fallback k={k}")
@@ -189,7 +191,8 @@ def _tie_logits(pos, batch, xp):
 @pytest.mark.parametrize("k", [3, 5])
 def test_forced_ties_rank_by_lower_index_as_jax_does(k):
     """A stub step whose log-probs tie at every step (dead slots tie at
-    -1e9 as well), through both packages' KV-cached search."""
+    -1e9 as well), through both packages' KV-cached search, JAX's with early
+    exit on and off."""
 
     def torch_step(tokens_t, mem_kv, cache, pos):
         cache[0]["k"][:, pos, 0] = tokens_t.float()  # a cache the beams reorder
@@ -205,17 +208,17 @@ def test_forced_ties_rank_by_lower_index_as_jax_does(k):
     jax_fns = (lambda variables, mem: ((mem, mem),),
                lambda variables, b, n, dtype=None: ({"k": jnp.zeros((b, n, 1))},), jax_step)
     memory = np.zeros((2, 3, 4), np.float32)
+    got = cd.beam_search_decode(None, torch.from_numpy(memory), beam_size=k,
+                                start_token=START, end_token=END, pad_token=PAD, max_len=L,
+                                incremental=torch_fns)
+    # Every beam retires at step 4 (<end> at position 4): the search stops there.
+    assert cd.beam_search_decode.steps == 4
+    assert got[0][0, :5].tolist() == [START, 4, 4, 4, END]
     for early_exit in (True, False):
-        got = cd.beam_search_decode(None, torch.from_numpy(memory), beam_size=k,
-                                    start_token=START, end_token=END, pad_token=PAD, max_len=L,
-                                    incremental=torch_fns, early_exit=early_exit)
         want = jcd.beam_search_decode(None, None, jnp.asarray(memory), beam_size=k,
                                       start_token=START, end_token=END, pad_token=PAD,
                                       max_len=L, incremental=jax_fns, early_exit=early_exit)
-        _same(got, want, f"ties k={k} early_exit={early_exit}")
-        assert got[0][0, :5].tolist() == [START, 4, 4, 4, END]
-        # Every beam retires at step 4 (<end> at position 4): early exit stops there.
-        assert cd.beam_search_decode.steps == (4 if early_exit else L - 1)
+        _same(got, want, f"ties k={k} jax early_exit={early_exit}")
 
 
 
@@ -237,33 +240,43 @@ def _graph_decoder(seed, end_bias):
 
 
 def _static_search(graphs, dec, memory, k):
-    return graphs.search(memory, cd.incremental_fns(dec), beam_size=k, start_token=START,
-                         end_token=END, pad_token=PAD, max_len=L, early_exit=True)
+    tokens, scores = graphs.search(memory, cd.incremental_fns(dec), beam_size=k,
+                                   start_token=START, end_token=END, pad_token=PAD, max_len=L)
+    return tokens, scores, cd.beam_search_decode.steps
+
+
+def _new_search(dec, memory, k, incremental=True):
+    """A search over buffers of its own (no ``graphs``), or the full-prefix one."""
+    with torch.no_grad():
+        out = cd.beam_search_decode(dec.decode, memory, beam_size=k, start_token=START,
+                                    end_token=END, pad_token=PAD, max_len=L,
+                                    incremental=cd.incremental_fns(dec) if incremental else None)
+    return (*out, cd.beam_search_decode.steps)
 
 
 @pytest.mark.parametrize("ending", ["early_exit", "end_suppressed"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("k", [1, 3])
 def test_graph_body_over_the_static_carry_equals_the_eager_search(k, dtype, ending):
-    """``DecodeGraphs``' step, run eagerly on the CPU over its fixed
-    buffers (what a card captures and replays), gives the eager KV-cached
-    search's tokens, scores and step count exactly: with every beam retired
-    before ``max_len`` (the early exit fires, after 6 or 7 steps) and with
-    <end> suppressed (all ``max_len - 1`` steps). The second search over the
-    same buffers starts clean."""
+    """``DecodeGraphs``' step, run eagerly on the CPU over its reused
+    buffers (what a card captures and replays), gives a new search's
+    tokens, scores and step count exactly, and in fp32 the full-prefix
+    search's tokens and steps: with every beam retired before ``max_len``
+    (the early exit fires, after 6 or 7 steps) and with <end> suppressed
+    (all ``max_len - 1`` steps). The second search over the same buffers
+    starts clean."""
     dec = _graph_decoder(1, 0.5 if ending == "early_exit" else -100.0)
     graphs = cd.DecodeGraphs(dec)
     for seed in (5, 6):
         memory = torch.from_numpy(np.random.RandomState(seed).randn(4, 6, E)
                                   .astype(np.float32)).to(dtype)
-        with torch.no_grad():
-            want = cd.beam_search_decode(dec.decode, memory, beam_size=k, start_token=START,
-                                         end_token=END, pad_token=PAD, max_len=L,
-                                         incremental=cd.incremental_fns(dec), graphs=graphs)
-        want_steps = cd.beam_search_decode.steps
+        want = _new_search(dec, memory, k)
         tokens, scores, steps = _static_search(graphs, dec, memory, k)
         assert torch.equal(tokens, want[0]) and torch.equal(scores, want[1])
-        assert steps == want_steps
+        assert steps == want[2]
+        if dtype == torch.float32:
+            full = _new_search(dec, memory, k, incremental=False)
+            assert torch.equal(tokens, full[0]) and steps == full[2]
         if ending == "early_exit":
             assert 5 < steps < L - 1 and (tokens == END).any(1).all()
         else:
@@ -288,9 +301,7 @@ def test_decode_graphs_key_shapes_and_replaced_parameters_not_updates():
     dec.load_state_dict(_graph_decoder(7, 0.5).state_dict())
     assert find(memory) is first
     got = _static_search(graphs, dec, memory, 1)
-    with torch.no_grad():
-        want = cd.beam_search_decode(None, memory, beam_size=1, start_token=START,
-                                     end_token=END, pad_token=PAD, max_len=L, incremental=fns)
+    want = _new_search(dec, memory, 1)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert not torch.equal(got[0], before[0])
     dec.out_b = torch.nn.Parameter(dec.out_b.detach().clone())

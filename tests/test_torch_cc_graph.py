@@ -1,7 +1,8 @@
 """The caption search's CUDA graphs (``DecodeGraphs``) on the card, against
-the eager KV-cached ``beam_search_decode``: bit-equal tokens and scores at
-k = 1 and 3, batch 4 and 16, fp32 and bf16, at the decoder's published
-widths; ``CaptionPredictor.caption_u8`` against the eager search; one
+the same KV-cached ``beam_search_decode`` run uncaptured (``graphs=None``: a
+new static search stepped eagerly): bit-equal tokens and scores at k = 1
+and 3, batch 4 and 16, fp32 and bf16, at the decoder's published widths;
+``CaptionPredictor.caption_u8`` against the uncaptured search; one
 capture per search shape and one replay per step; weights loaded in place
 after the capture read by the replays.
 
@@ -62,7 +63,7 @@ def _memory(dev, seed, b, dtype):
 @pytest.mark.parametrize("k", [1, 3])
 def test_graphed_search_is_bit_equal_to_the_eager_search(cuda, k, b, dtype, end_bias):
     """Two searches of one shape: one capture, one replay per step run,
-    tokens, scores and steps equal to the eager search's."""
+    tokens, scores and steps equal to the uncaptured search's."""
     dec = _decoder(cuda, 0, end_bias)
     graphs = cd.DecodeGraphs(dec)
     steps = 0
@@ -94,8 +95,8 @@ def test_loaded_weights_change_the_graphed_tokens_as_the_eager_ones(cuda):
 
 @pytest.mark.parametrize("beam", [1, 3])
 def test_caption_u8_equals_the_eager_search(cuda, beam):
-    """The predictor's captions (graphed decode) are the eager search's over
-    the same memory."""
+    """The predictor's captions (graphed decode) are the uncaptured
+    search's over the same memory."""
     from change3d_tpu_torch.inference import CaptionPredictor, tokens_to_captions
     from change3d_tpu_torch.models.trainer import Change3D, Task
     from change3d_tpu_torch.models.x3d import X3DConfig

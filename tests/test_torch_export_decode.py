@@ -64,7 +64,7 @@ def test_while_loop_search_equals_the_python_loop_and_jax(k):
     jdec, variables, dec = decoder_pair(3, end_bias=1.0, end_scale=8.0, embed_scale=5.0)
     memory = np.random.RandomState(4).randn(4, 6, E).astype(np.float32)
     got = _loop(dec, memory, k)
-    want = _torch_search(dec, memory, k, True, True)
+    want = _torch_search(dec, memory, k, True)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     _same(got, _jax_search(jdec, variables, memory, k, True, True), f"while_loop k={k}")
     done = (got[0] == END).any(1)
@@ -87,10 +87,7 @@ def test_forced_ties_rank_by_lower_index_in_the_while_loop():
     for k in (3, 5):
         got = cd.beam_search_loop(memory, beam_size=k, start_token=START, end_token=END,
                                   pad_token=PAD, max_len=L, incremental=fns)
-        tie_fns = (fns[0], fns[1],
-                   lambda t, m, c, pos: step(t, m, c, torch.tensor(pos)))
         want = cd.beam_search_decode(None, memory, beam_size=k, start_token=START,
-                                     end_token=END, pad_token=PAD, max_len=L,
-                                     incremental=tie_fns)
+                                     end_token=END, pad_token=PAD, max_len=L, incremental=fns)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
         assert got[0][0, :5].tolist() == [START, 4, 4, 4, END]
