@@ -41,7 +41,7 @@
 // in fp32 on CUDA cores (67 TFLOP/s), so at every X3D-L stage the bound is
 // the taps, at a few us per launch.
 //
-// bf16 (the serving path), one design for both kernels, 256 threads:
+// bf16 (the serving path), one tile code for both kernels, 256 threads a tile:
 //   front (shared):
 //     x tile + halo  -> shared memory as bf16 by 16-byte cp.async (zeros
 //                       outside the image and in the K padding);
@@ -63,8 +63,9 @@
 //   fused_block_se_sums: each thread sums its four outputs, the partial rows
 //     go to shared memory, and a fixed-order pass per channel writes the
 //     block's row of sums.
-//   Shared memory per block (rows padded by 8 bf16 = 16 bytes, so that the
-//   32-bit fragment loads of a warp hit 32 distinct banks):
+//   Shared memory per staged block, or per tile of a resident block, which
+//   holds no wa / wc (rows padded by 8 bf16 = 16 bytes, so that the 32-bit
+//   fragment loads of a warp hit 32 distinct banks):
 //   (F = halo_frames(T, tt): tt + 2, or T when tt = T)
 //     xt   bf16 [pad16(F*(tile+2)^2)][pad16(C)+8]   x tile with halo (+ output)
 //     wa   bf16 [pad16(ck)][pad16(C)+8]             w_a chunk, [n][k]
@@ -76,9 +77,28 @@
 //   two blocks fit an SM (112 KB each, with the L1 carveout set to the most
 //   shared memory) and a warp owns at most 16 conv_c tiles (64 fp32
 //   accumulators in registers, __launch_bounds__(256, 2) caps a thread at 128
-//   registers). Needs C % 8 == 0 and Ci % 2 == 0. Blocks are not persistent
-//   and the Ci chunks are not double-buffered: the x tile's cp.async overlaps
-//   the first chunk's weight loads only.
+//   registers). Needs C % 8 == 0 and Ci % 2 == 0.
+//
+// Two designs run those tiles, the same code per tile (bf16_tile):
+//   staged (fused_block_bf16_kernel): a block per (tile, sample), two blocks
+//     an SM; every chunk stages its slice of w_a and w_c transposed into the
+//     block's shared memory, so a 4 x 4 tile of 48-80 outputs re-stages up to
+//     ~90 KB of weights. The x tile's cp.async overlaps the first chunk's
+//     weight loads only.
+//   weight-resident (fused_block_resident_kernel; X3D-L's stage 3, where
+//     ops/fused_block.py:plan_block finds that the weights fit): persistent
+//     blocks, one an SM, of two 8-warp groups. A block copies all of w_a and
+//     w_c into shared memory once, by 16-byte cp.async, in their [k][n]
+//     global layout with rows padded to an odd number of 16-byte units; the
+//     mma's b fragments come from them by ldmatrix .trans, so a chunk costs
+//     barriers only. Each group works through its own tiles with its own
+//     named barrier, so one group's loads and barriers overlap the other's
+//     products, as two staged blocks on an SM do. Besides: the BN vectors
+//     also sit in shared memory (so L1 keeps the taps' w_dw), a tap thread
+//     owns two rows (their weight loads and two of three xa rows shared),
+//     and conv_c steps two accumulator tiles at a time. The same chunks
+//     give the same K order and every sum its order: the designs agree bit
+//     for bit at the same ck.
 //
 // fp32 (the correctness path) keeps the first, scalar design: both products
 // as fp32 FMAs on CUDA cores, conv_c accumulated in fp32 shared memory. It
@@ -111,7 +131,8 @@ struct Params {
   const float* a_c;   // [C]
   const float* b_c;   // [C]
   int T, H, W, C, Ci, tile, ck;
-  int tt;  // frames per T-tile; last, since only the T-tiled kernels read it
+  int tt;  // frames per T-tile; after the others, since only the T-tiled kernels read it
+  int B;   // samples; read by the persistent (resident) kernels only
 };
 
 // Frames a T-tile of tt frames reads (ops/fused_block.py:halo_frames).
@@ -119,25 +140,24 @@ __host__ __device__ __forceinline__ int halo_frames(int T, int tt) {
   return tt < T ? tt + 2 : T;
 }
 
-// Where a block's tile lies: its first output frame t0, the clip frame of
-// its halo frame 0 (f0), and its first output row and column. A kernel
+// Where tile `id` of a sample lies: its first output frame t0, the clip
+// frame of its halo frame 0 (f0), and its first output row and column. A kernel
 // instantiated without T-tiles (kTTiled false: one T-tile holds the clip)
 // has t0 = f0 = 0 and every frame check folded away at compile time, so it
 // runs the code of an untiled clip.
 template <bool kTTiled>
 struct TilePos {
   int t0 = 0, f0 = 0, y0, x0;
-  __device__ __forceinline__ TilePos(const Params& p) {
-    const int tiles_w = (p.W + p.tile - 1) / p.tile;
-    int id = blockIdx.x;
+  __device__ __forceinline__ TilePos(const Params& p, int id, int tile) {
+    const int tiles_w = (p.W + tile - 1) / tile;
     if (kTTiled) {
-      const int tiles_hw = ((p.H + p.tile - 1) / p.tile) * tiles_w;
+      const int tiles_hw = ((p.H + tile - 1) / tile) * tiles_w;
       t0 = (id / tiles_hw) * p.tt;
       f0 = t0 - 1;
       id %= tiles_hw;
     }
-    y0 = (id / tiles_w) * p.tile;
-    x0 = (id % tiles_w) * p.tile;
+    y0 = (id / tiles_w) * tile;
+    x0 = (id % tiles_w) * tile;
   }
   // Whether clip frame gt exists (always, for a frame of an untiled clip).
   __device__ __forceinline__ bool has_frame(int gt, int T) const {
@@ -159,7 +179,7 @@ __global__ void __launch_bounds__(kThreads) fused_block_f32_kernel(Params p) {
   const int n_core = tt * tile * tile;                 // output pixels
   const int tile_id = blockIdx.x;
   const int b = blockIdx.y;
-  const TilePos<kTTiled> P(p);
+  const TilePos<kTTiled> P(p, tile_id, p.tile);
   const int t0 = P.t0, f0 = P.f0, y0 = P.y0, x0 = P.x0;
 
   float* acc = reinterpret_cast<float*>(smem);
@@ -275,12 +295,20 @@ __global__ void __launch_bounds__(kThreads) fused_block_f32_kernel(Params p) {
 
 __host__ __device__ constexpr int round_up(int a, int m) { return (a + m - 1) / m * m; }
 
-// The bf16 shared-memory layout (byte offsets); ops/fused_block.py mirrors it
-// in _bf16_smem.
+// A row stride (elements) for rows of n bf16 that is an odd number of 16-byte
+// units, so that the eight rows an ldmatrix reads hit eight distinct groups
+// of four banks.
+__host__ __device__ constexpr int odd16_stride(int n) {
+  return round_up(n, 8) / 8 % 2 ? round_up(n, 8) : round_up(n, 8) + 8;
+}
+
+// The bf16 shared-memory layout of one tile (byte offsets); ops/fused_block.py
+// mirrors it in _bf16_smem. A weight-resident block's tiles hold no weights
+// (staged = false): its weights lie once in front of them (ResidentLayout).
 struct Bf16Layout {
   int hw, nh, nhp, nc, ncp, kp, sx, ckp, ss;
   int off_wa, off_xa, off_xs, off_wc, off_part, bytes_fwd, bytes_sums;
-  __host__ __device__ Bf16Layout(int T, int tt, int tile, int C, int ck) {
+  __host__ __device__ Bf16Layout(int T, int tt, int tile, int C, int ck, bool staged = true) {
     hw = tile + 2;
     nh = halo_frames(T, tt) * hw * hw;  // halo pixels
     nhp = round_up(nh, 16);             // ... padded to the mma's 16 rows
@@ -291,14 +319,61 @@ struct Bf16Layout {
     ckp = round_up(ck, 16);      // conv_a width, conv_c depth
     ss = ckp + 8;                // xs / wc row stride
     off_wa = nhp * sx * 2;
-    off_xa = off_wa + ckp * sx * 2;
+    off_xa = off_wa + (staged ? ckp * sx * 2 : 0);
     off_xs = off_xa + nh * ckp * 2;
     off_wc = off_xs + ncp * ss * 2;
-    bytes_fwd = off_wc + C * ss * 2;
+    bytes_fwd = off_wc + (staged ? C * ss * 2 : 0);
     off_part = off_xs;
     bytes_sums = off_part + tt * tile * (tile / 4) * ckp * 4;
   }
 };
+
+// The weight-resident block: w_a as [pad16(C)][sa] and (fwd) w_c as
+// [rows_c][sc], both [k][n] as they lie in global memory, rows padded to an
+// odd number of 16-byte units; the fp32 BN vectors a_a, b_a, a_b, b_b [Ci]
+// and (fwd) a_c, b_c [C]; then kGroups tiles (Bf16Layout, no weights).
+// w_c's rows reach the last chunk's start plus pad16(ck) (rows from Ci on
+// are zero); ops/fused_block.py mirrors it in _resident_smem. With the
+// vectors in shared memory, L1 (what the carveout leaves: 28 KB) keeps the
+// taps' fp32 w_dw.
+constexpr int kGroups = 2;
+constexpr int kResidentTile = 4;  // its tile side, and its tap threads' outputs along W
+struct ResidentLayout {
+  Bf16Layout tile;
+  int sa, sc, rows_c, off_wc, off_vec[2], off_tiles[2], bytes_fwd, bytes_sums;
+  __host__ __device__ ResidentLayout(int T, int tile_side, int C, int Ci, int ck)
+      : tile(T, T, tile_side, C, ck, false) {
+    sa = odd16_stride(Ci);
+    sc = odd16_stride(C);
+    rows_c = (Ci + ck - 1) / ck * ck - ck + round_up(ck, 16);
+    off_wc = round_up(C, 16) * sa * 2;
+    off_vec[0] = off_wc + rows_c * sc * 2;  // [0]: fwd, [1]: sums (no w_c, a_c, b_c)
+    off_vec[1] = off_wc;
+    off_tiles[0] = off_vec[0] + (4 * Ci + 2 * C) * 4;
+    off_tiles[1] = off_vec[1] + 4 * Ci * 4;
+    bytes_fwd = off_tiles[0] + kGroups * tile.bytes_fwd;
+    bytes_sums = off_tiles[1] + kGroups * tile.bytes_sums;
+  }
+};
+
+// A resident block's weights and BN vectors as a tile reads them (unused by
+// a staged block, which reads the vectors from global memory).
+struct Resident {
+  const bf16* wa;
+  const bf16* wc;
+  int sa, sc;
+  const float *a_a, *b_a, *a_b, *b_b, *a_c, *b_c;
+};
+
+// Two fp32 values of a BN vector: by a read-only global load, or from a
+// resident block's shared memory.
+template <bool kShared>
+__device__ __forceinline__ float2 ld_f2(const float* p) {
+  if constexpr (kShared)
+    return *reinterpret_cast<const float2*>(p);
+  else
+    return __ldg(reinterpret_cast<const float2*>(p));
+}
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -309,10 +384,10 @@ __device__ __forceinline__ uint32_t ld32(const bf16* p) {
 // row >= rows or col >= cols. Each thread keeps 8 loads in flight.
 __device__ __forceinline__ void stage_transposed(bf16* dst, int dst_ld, const bf16* src,
                                                  size_t ld, int n_row, int n_col, int rows,
-                                                 int cols) {
+                                                 int cols, int tid) {
   const int total = n_row * n_col;
   const bf16 zero = from_f<bf16>(0.f);
-  for (int e0 = threadIdx.x; e0 < total; e0 += 8 * kThreads) {
+  for (int e0 = tid; e0 < total; e0 += 8 * kThreads) {
     bf16 v[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
@@ -327,20 +402,36 @@ __device__ __forceinline__ void stage_transposed(bf16* dst, int dst_ld, const bf
   }
 }
 
+// The barrier of the threads that work on one tile: the whole block, or in
+// a resident block its group's named barrier (barrier 0 is __syncthreads').
+template <bool kResident>
+__device__ __forceinline__ void tile_sync(int group) {
+  if constexpr (kResident)
+    asm volatile("bar.sync %0, %1;\n" ::"r"(group + 1), "r"(kThreads) : "memory");
+  else
+    __syncthreads();
+}
+
+// One tile (sample b, tile tile_id of the sample's n_tiles) by kThreads
+// threads (tid), in the tile's shared memory `smem`. A staged block stages
+// each chunk's weights transposed ([n][k]) and reads them by 32-bit loads; a
+// resident block reads its resident [k][n] weights by ldmatrix .trans. Both
+// feed the mma the same fragments, in the same K order.
 // kXg: outputs along W per tap thread (4 or 8; the tile is a multiple).
-template <bool kSums, int kAcc, int kXg, bool kTTiled>
-__global__ void __launch_bounds__(kThreads, 2) fused_block_bf16_kernel(Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
+// kTile: the tile side where it is fixed at compile time (the resident
+// design's, so that the index arithmetic divides by constants), else 0.
+template <bool kSums, int kAcc, int kXg, bool kTTiled, bool kResident, int kTile = 0>
+__device__ __forceinline__ void bf16_tile(const Params& p, unsigned char* smem, const Resident& R,
+                                          int b, int tile_id, int n_tiles, int tid, int group) {
   const int T = p.T, H = p.H, W = p.W, C = p.C, Ci = p.Ci;
-  const int tile = p.tile, ck = p.ck, tt = kTTiled ? p.tt : T;  // tt = T untiled
-  const Bf16Layout L(T, tt, tile, C, ck);
+  const int tile = kTile ? kTile : p.tile, ck = p.ck, tt = kTTiled ? p.tt : T;  // tt = T untiled
+  const Bf16Layout L(T, tt, tile, C, ck, !kResident);
   const int hw = L.hw, sx = L.sx, ss = L.ss, ckp = L.ckp;
-  const int tile_id = blockIdx.x;
-  const int b = blockIdx.y;
-  const TilePos<kTTiled> P(p);
+  const TilePos<kTTiled> P(p, tile_id, tile);
   const int t0 = P.t0, f0 = P.f0, y0 = P.y0, x0 = P.x0;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, tq = lane & 3;  // mma fragment row / column pair
+  C3D_PHASE(0);
 
   bf16* xt = reinterpret_cast<bf16*>(smem);
   bf16* wa_s = reinterpret_cast<bf16*>(smem + L.off_wa);
@@ -353,6 +444,10 @@ __global__ void __launch_bounds__(kThreads, 2) fused_block_bf16_kernel(Params p)
   const bf16* xg = static_cast<const bf16*>(p.x) + (size_t)b * sample;
   const bf16* wa = static_cast<const bf16*>(p.w_a);
   const bf16* wc = static_cast<const bf16*>(p.w_c);
+  const float* a_a = kResident ? R.a_a : p.a_a;
+  const float* b_a = kResident ? R.b_a : p.b_a;
+  const float* a_b = kResident ? R.a_b : p.a_b;
+  const float* b_b = kResident ? R.b_b : p.b_b;
 
   // x tile with halo: 16-byte cp.async per 8 channels of an in-clip pixel;
   // zeros outside the clip, in the K padding and in the padding rows.
@@ -377,6 +472,7 @@ __global__ void __launch_bounds__(kThreads, 2) fused_block_bf16_kernel(Params p)
   if (!kSums)  // xs starts at zero: its padding rows and columns stay finite
     for (int e = tid; e < L.ncp * ss / 8; e += kThreads)
       reinterpret_cast<uint4*>(xs)[e] = make_uint4(0, 0, 0, 0);
+  C3D_PHASE(1);
 
   const int n_nt = C / 8;                  // conv_c n8 tiles
   const int n_tc = (L.ncp / 16) * n_nt;    // conv_c m16n8 tiles
@@ -386,13 +482,17 @@ __global__ void __launch_bounds__(kThreads, 2) fused_block_bf16_kernel(Params p)
 
   for (int ci0 = 0; ci0 < Ci; ci0 += ck) {
     const int kc = min(ck, Ci - ci0);
+    if (ci0 + ck >= Ci) C3D_PHASE(14);
 
-    // This chunk's weights, transposed to [n][k] and zero padded (the first
-    // chunk's loads overlap the x tile's cp.async).
-    stage_transposed(wa_s, sx, wa + ci0, Ci, L.kp, ckp, C, kc);
-    if (!kSums) stage_transposed(wc_s, ss, wc + (size_t)ci0 * C, C, ckp, C, kc, C);
+    // A staged block's chunk of weights, transposed to [n][k] and zero
+    // padded (the first chunk's loads overlap the x tile's cp.async).
+    if (!kResident) {
+      stage_transposed(wa_s, sx, wa + ci0, Ci, L.kp, ckp, C, kc, tid);
+      if (!kSums) stage_transposed(wc_s, ss, wc + (size_t)ci0 * C, C, ckp, C, kc, C, tid);
+    }
     c3d::cp_async_wait_all();
-    __syncthreads();
+    tile_sync<kResident>(group);
+    C3D_PHASE(ci0 == 0 ? 2 : 10);
 
     // conv_a on tensor cores -> BN_a -> ReLU -> bf16; 0 outside the clip.
     // A warp item is one m16 row tile x four n8 tiles: the A fragment is
@@ -408,8 +508,8 @@ __global__ void __launch_bounds__(kThreads, 2) fused_block_bf16_kernel(Params p)
           const int k = (n0 + j) * 8 + 2 * tq;
           aa[j] = ba[j] = make_float2(0.f, 0.f);
           if (k < kc) {
-            aa[j] = __ldg(reinterpret_cast<const float2*>(p.a_a + ci0 + k));
-            ba[j] = __ldg(reinterpret_cast<const float2*>(p.b_a + ci0 + k));
+            aa[j] = ld_f2<kResident>(a_a + ci0 + k);
+            ba[j] = ld_f2<kResident>(b_a + ci0 + k);
           }
         }
         float d[4][4];
@@ -418,14 +518,28 @@ __global__ void __launch_bounds__(kThreads, 2) fused_block_bf16_kernel(Params p)
         const bf16* a0 = xt + (mt * 16 + g) * sx + 2 * tq;
         const bf16* a1 = a0 + 8 * sx;
         const bf16* bw = wa_s + (n0 * 8 + g) * sx + 2 * tq;
+        // Resident: lane l addresses row k0 + l % 16 of n8 tile n0 + l / 16
+        // (+ j): two n8 tiles' b fragments per ldmatrix.x4.
+        const bf16* br = R.wa + (lane & 15) * R.sa + ci0 + (n0 + (lane >> 4)) * 8;
         for (int k0 = 0; k0 < L.kp; k0 += 16) {
           const uint32_t a[4] = {ld32(a0 + k0), ld32(a1 + k0), ld32(a0 + k0 + 8),
                                  ld32(a1 + k0 + 8)};
+          if constexpr (kResident) {
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-            if (n0 + j < n_at)
-              c3d::mma_bf16_16816(d[j], a, ld32(bw + j * 8 * sx + k0),
-                                  ld32(bw + j * 8 * sx + k0 + 8));
+            for (int j = 0; j < 4; j += 2)
+              if (n0 + j < n_at) {
+                uint32_t bq[4];
+                c3d::ldmatrix_x4_trans(bq, br + k0 * R.sa + j * 8);
+                c3d::mma_bf16_16816(d[j], a, bq[0], bq[1]);
+                if (n0 + j + 1 < n_at) c3d::mma_bf16_16816(d[j + 1], a, bq[2], bq[3]);
+              }
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (n0 + j < n_at)
+                c3d::mma_bf16_16816(d[j], a, ld32(bw + j * 8 * sx + k0),
+                                    ld32(bw + j * 8 * sx + k0 + 8));
+          }
         }
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
@@ -448,82 +562,100 @@ __global__ void __launch_bounds__(kThreads, 2) fused_block_bf16_kernel(Params p)
         }
       }
     }
-    __syncthreads();
+    tile_sync<kResident>(group);
+    C3D_PHASE(ci0 == 0 ? 3 : 11);
 
     // 27 depthwise taps in fp32 (T zero-padded) -> BN_b. A thread owns
-    // channels (k, k+1) of kXg outputs along W of one (t, y) row.
+    // channels (k, k+1) of kXg outputs along W in kRows neighbouring rows of
+    // one frame: one row in a staged block, two in a resident one, whose
+    // rows share their weight loads and two of their three xa rows. Each
+    // output sums its taps in (dt, dy, dx) order either way.
     {
-      const int pairs = kc / 2, xq_n = tile / kXg, rows = tt * tile;
+      constexpr int kRows = kResident ? 2 : 1;
+      const int pairs = kc / 2, xq_n = tile / kXg, rows = tt * tile / kRows;
       const int wstride = ckp / 2;  // 32-bit words between neighbouring pixels of xa
       for (int e = tid; e < pairs * rows * xq_n; e += kThreads) {
         const int pp = e % pairs, rest = e / pairs;
-        const int xq = rest % xq_n, r = rest / xq_n;
-        const int y = r % tile, t = r / tile;
+        const int xq = rest % xq_n, r0 = rest / xq_n * kRows;
+        const int y = r0 % tile, t = r0 / tile;
         const int k = 2 * pp, ci = ci0 + k, xb0 = kXg * xq;
-        float2 s[kXg];
+        float2 s[kRows][kXg];
 #pragma unroll
-        for (int i = 0; i < kXg; ++i) s[i] = make_float2(0.f, 0.f);
+        for (int rr = 0; rr < kRows; ++rr)
+#pragma unroll
+          for (int i = 0; i < kXg; ++i) s[rr][i] = make_float2(0.f, 0.f);
 #pragma unroll
         for (int dt = 0; dt < 3; ++dt) {
           const int gt = t0 + t + dt - 1;  // clip frame of the tap
           if (gt < 0 || gt >= T) continue;
 #pragma unroll
-          for (int dy = 0; dy < 3; ++dy) {
+          for (int iy = 0; iy < kRows + 2; ++iy) {  // xa row y + iy
             const uint32_t* row = reinterpret_cast<const uint32_t*>(
-                xa + (((gt - f0) * hw + y + dy) * hw + xb0) * ckp + k);
+                xa + (((gt - f0) * hw + y + iy) * hw + xb0) * ckp + k);
             float2 v[kXg + 2];
 #pragma unroll
             for (int i = 0; i < kXg + 2; ++i) v[i] = c3d::unpack_bf16x2(row[i * wstride]);
-            const float* wt = p.w_dw + (size_t)((dt * 3 + dy) * 3) * Ci + ci;
-            const float2 w0 = __ldg(reinterpret_cast<const float2*>(wt));
-            const float2 w1 = __ldg(reinterpret_cast<const float2*>(wt + Ci));
-            const float2 w2 = __ldg(reinterpret_cast<const float2*>(wt + 2 * Ci));
 #pragma unroll
-            for (int i = 0; i < kXg; ++i) {
-              s[i].x = fmaf(v[i].x, w0.x, s[i].x);
-              s[i].y = fmaf(v[i].y, w0.y, s[i].y);
-              s[i].x = fmaf(v[i + 1].x, w1.x, s[i].x);
-              s[i].y = fmaf(v[i + 1].y, w1.y, s[i].y);
-              s[i].x = fmaf(v[i + 2].x, w2.x, s[i].x);
-              s[i].y = fmaf(v[i + 2].y, w2.y, s[i].y);
+            for (int rr = 0; rr < kRows; ++rr) {
+              const int dy = iy - rr;  // the tap of output row y + rr
+              if (dy < 0 || dy > 2) continue;
+              const float* wt = p.w_dw + (size_t)((dt * 3 + dy) * 3) * Ci + ci;
+              const float2 w0 = __ldg(reinterpret_cast<const float2*>(wt));
+              const float2 w1 = __ldg(reinterpret_cast<const float2*>(wt + Ci));
+              const float2 w2 = __ldg(reinterpret_cast<const float2*>(wt + 2 * Ci));
+#pragma unroll
+              for (int i = 0; i < kXg; ++i) {
+                float2& o = s[rr][i];
+                o.x = fmaf(v[i].x, w0.x, o.x);
+                o.y = fmaf(v[i].y, w0.y, o.y);
+                o.x = fmaf(v[i + 1].x, w1.x, o.x);
+                o.y = fmaf(v[i + 1].y, w1.y, o.y);
+                o.x = fmaf(v[i + 2].x, w2.x, o.x);
+                o.y = fmaf(v[i + 2].y, w2.y, o.y);
+              }
             }
           }
         }
-        const float2 ab = __ldg(reinterpret_cast<const float2*>(p.a_b + ci));
-        const float2 bb = __ldg(reinterpret_cast<const float2*>(p.b_b + ci));
-        if (kSums) {
-          float2 tot = make_float2(0.f, 0.f);
-          const bool row_in = P.has_frame(t0 + t, T) && y0 + y < H;
+        const float2 ab = ld_f2<kResident>(a_b + ci);
+        const float2 bb = ld_f2<kResident>(b_b + ci);
 #pragma unroll
-          for (int i = 0; i < kXg; ++i)
-            if (row_in && x0 + xb0 + i < W) {
-              tot.x += s[i].x * ab.x + bb.x;
-              tot.y += s[i].y * ab.y + bb.y;
-            }
-          *reinterpret_cast<float2*>(part + (r * xq_n + xq) * ckp + k) = tot;
-        } else {
-          float2 gt = make_float2(1.f, 1.f);
-          if (p.gate != nullptr)
-            gt = __ldg(reinterpret_cast<const float2*>(p.gate + (size_t)b * Ci + ci));
+        for (int rr = 0; rr < kRows; ++rr) {
+          const int r = r0 + rr;
+          if (kSums) {
+            float2 tot = make_float2(0.f, 0.f);
+            const bool row_in = P.has_frame(t0 + t, T) && y0 + y + rr < H;
 #pragma unroll
-          for (int i = 0; i < kXg; ++i) {
-            float u = s[i].x * ab.x + bb.x, w = s[i].y * ab.y + bb.y;
-            if (p.gate != nullptr) {
-              u *= gt.x;
-              w *= gt.y;
+            for (int i = 0; i < kXg; ++i)
+              if (row_in && x0 + xb0 + i < W) {
+                tot.x += s[rr][i].x * ab.x + bb.x;
+                tot.y += s[rr][i].y * ab.y + bb.y;
+              }
+            *reinterpret_cast<float2*>(part + (r * xq_n + xq) * ckp + k) = tot;
+          } else {
+            float2 gt = make_float2(1.f, 1.f);
+            if (p.gate != nullptr)
+              gt = __ldg(reinterpret_cast<const float2*>(p.gate + (size_t)b * Ci + ci));
+#pragma unroll
+            for (int i = 0; i < kXg; ++i) {
+              float u = s[rr][i].x * ab.x + bb.x, w = s[rr][i].y * ab.y + bb.y;
+              if (p.gate != nullptr) {
+                u *= gt.x;
+                w *= gt.y;
+              }
+              *reinterpret_cast<uint32_t*>(xs + (r * tile + xb0 + i) * ss + k) =
+                  c3d::pack_bf16x2(u / (1.f + expf(-u)), w / (1.f + expf(-w)));
             }
-            *reinterpret_cast<uint32_t*>(xs + (r * tile + xb0 + i) * ss + k) =
-                c3d::pack_bf16x2(u / (1.f + expf(-u)), w / (1.f + expf(-w)));
           }
         }
       }
     }
-    __syncthreads();
+    tile_sync<kResident>(group);
+    C3D_PHASE(ci0 == 0 ? 4 : 12);
 
-    if (kSums) {
+    if constexpr (kSums) {
       // Fixed-order per-channel sums of the partial rows: four neighbouring
       // lanes split a channel's rows (i = j mod 4), then a fixed shuffle tree.
-      const int n_part = tt * tile * (tile / kXg), n_tiles = gridDim.x;
+      const int n_part = tt * tile * (tile / kXg);
       for (int e0 = 0; e0 < 4 * kc; e0 += kThreads) {
         const int e = e0 + tid, k = e >> 2, j = e & 3;
         float s = 0.f;
@@ -532,6 +664,34 @@ __global__ void __launch_bounds__(kThreads, 2) fused_block_bf16_kernel(Params p)
         s += __shfl_xor_sync(0xffffffffu, s, 1);
         s += __shfl_xor_sync(0xffffffffu, s, 2);
         if (e < 4 * kc && j == 0) p.sums[((size_t)b * n_tiles + tile_id) * Ci + ci0 + k] = s;
+      }
+    } else if constexpr (kResident) {
+      // conv_c over this chunk, into the warp's register accumulators, two
+      // tiles at a time (two independent mma chains). Lanes 0-15 address
+      // rows ci0 + k0 + lane of the tile's n8 columns of the resident w_c.
+#pragma unroll
+      for (int j = 0; j < kAcc; j += 2) {
+        const int it0 = warp + j * kWarps, it1 = it0 + kWarps;
+        if (it0 < n_tc) {
+          const bool two = it1 < n_tc;
+          const bf16* a0 = xs + ((it0 / n_nt) * 16 + g) * ss + 2 * tq;
+          const bf16* a1 = xs + ((it1 / n_nt) * 16 + g) * ss + 2 * tq;
+          const bf16* b0 = R.wc + (ci0 + (lane & 15)) * R.sc + (it0 % n_nt) * 8;
+          const bf16* b1 = R.wc + (ci0 + (lane & 15)) * R.sc + (it1 % n_nt) * 8;
+          for (int k0 = 0; k0 < ckp; k0 += 16) {
+            uint32_t bq[2];
+            const uint32_t a[4] = {ld32(a0 + k0), ld32(a0 + 8 * ss + k0), ld32(a0 + k0 + 8),
+                                   ld32(a0 + 8 * ss + k0 + 8)};
+            c3d::ldmatrix_x2_trans(bq, b0 + k0 * R.sc);
+            c3d::mma_bf16_16816(acc[j], a, bq[0], bq[1]);
+            if (two) {
+              const uint32_t a_[4] = {ld32(a1 + k0), ld32(a1 + 8 * ss + k0), ld32(a1 + k0 + 8),
+                                      ld32(a1 + 8 * ss + k0 + 8)};
+              c3d::ldmatrix_x2_trans(bq, b1 + k0 * R.sc);
+              c3d::mma_bf16_16816(acc[j + 1], a_, bq[0], bq[1]);
+            }
+          }
+        }
       }
     } else {
       // conv_c over this chunk, into the warp's register accumulators.
@@ -551,7 +711,8 @@ __global__ void __launch_bounds__(kThreads, 2) fused_block_bf16_kernel(Params p)
         }
       }
     }
-    __syncthreads();
+    tile_sync<kResident>(group);
+    C3D_PHASE(ci0 == 0 ? 5 : 13);
   }
 
   if (!kSums) {
@@ -561,8 +722,8 @@ __global__ void __launch_bounds__(kThreads, 2) fused_block_bf16_kernel(Params p)
       const int it = warp + j * kWarps;
       if (it < n_tc) {
         const int mt = it / n_nt, c = (it % n_nt) * 8 + 2 * tq;
-        const float2 ac = __ldg(reinterpret_cast<const float2*>(p.a_c + c));
-        const float2 bc = __ldg(reinterpret_cast<const float2*>(p.b_c + c));
+        const float2 ac = ld_f2<kResident>((kResident ? R.a_c : p.a_c) + c);
+        const float2 bc = ld_f2<kResident>((kResident ? R.b_c : p.b_c) + c);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int q = mt * 16 + g + 8 * h;
@@ -576,7 +737,8 @@ __global__ void __launch_bounds__(kThreads, 2) fused_block_bf16_kernel(Params p)
         }
       }
     }
-    __syncthreads();
+    tile_sync<kResident>(group);
+    C3D_PHASE(6);
     // 16-byte stores of the output pixels inside the image.
     bf16* og = static_cast<bf16*>(p.out) + (size_t)b * sample;
     const int c8 = C / 8;
@@ -589,7 +751,86 @@ __global__ void __launch_bounds__(kThreads, 2) fused_block_bf16_kernel(Params p)
           *reinterpret_cast<const uint4*>(xt + (((gt - f0) * hw + ty + 1) * hw + tx + 1) * sx +
                                           j * 8);
     }
+    C3D_PHASE(7);
+    // A resident group's next tile overwrites the x tile read above.
+    if constexpr (kResident) tile_sync<true>(group);
   }
+}
+
+// The staged design: a block per (tile, sample), two blocks per SM.
+template <bool kSums, int kAcc, int kXg, bool kTTiled>
+__global__ void __launch_bounds__(kThreads, 2) fused_block_bf16_kernel(Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16_tile<kSums, kAcc, kXg, kTTiled, false>(p, smem, Resident{}, blockIdx.y, blockIdx.x,
+                                               gridDim.x, threadIdx.x, 0);
+}
+
+// The weight-resident design (one T-tile, kResidentTile x kResidentTile
+// tiles): at most one block per SM, of kGroups groups of kThreads threads. The block copies w_a and
+// (fwd) w_c into shared memory once, then each group walks the (sample,
+// tile) items group, group + groups, ... of the launch (groups counted over
+// the grid), one tile at a time under its own named barrier, while the
+// other group's tile hides its latencies.
+template <bool kSums, int kAcc>
+__global__ void __launch_bounds__(kGroups * kThreads, 1) fused_block_resident_kernel(Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  C3D_PHASE(8);
+  const int C = p.C, Ci = p.Ci;
+  const ResidentLayout RL(p.T, kResidentTile, C, Ci, p.ck);
+  bf16* wa_s = reinterpret_cast<bf16*>(smem);
+  bf16* wc_s = reinterpret_cast<bf16*>(smem + RL.off_wc);
+  float* vec = reinterpret_cast<float*>(smem + RL.off_vec[kSums]);
+  const Resident R{wa_s,           wc_s,           RL.sa,          RL.sc,
+                   vec,            vec + Ci,       vec + 2 * Ci,   vec + 3 * Ci,
+                   vec + 4 * Ci,   vec + 4 * Ci + C};
+  {
+    // 16-byte cp.async per 8 channels of a row; zero rows past C (w_a's K
+    // padding) and past Ci (w_c's rows that a last, narrower chunk reads).
+    const bf16* wa = static_cast<const bf16*>(p.w_a);
+    const bf16* wc = static_cast<const bf16*>(p.w_c);
+    const int a8 = Ci / 8, c8 = C / 8;
+    for (int e = threadIdx.x; e < round_up(C, 16) * a8; e += blockDim.x) {
+      const int k = e / a8, j = e % a8;
+      uint4* dst = reinterpret_cast<uint4*>(wa_s + k * R.sa + j * 8);
+      if (k < C)
+        c3d::cp_async16(dst, wa + (size_t)k * Ci + j * 8);
+      else
+        *dst = make_uint4(0, 0, 0, 0);
+    }
+    if (!kSums)
+      for (int e = threadIdx.x; e < RL.rows_c * c8; e += blockDim.x) {
+        const int k = e / c8, j = e % c8;
+        uint4* dst = reinterpret_cast<uint4*>(wc_s + k * R.sc + j * 8);
+        if (k < Ci)
+          c3d::cp_async16(dst, wc + (size_t)k * C + j * 8);
+        else
+          *dst = make_uint4(0, 0, 0, 0);
+      }
+    for (int e = threadIdx.x; e < Ci; e += blockDim.x) {
+      vec[e] = p.a_a[e];
+      vec[Ci + e] = p.b_a[e];
+      vec[2 * Ci + e] = p.a_b[e];
+      vec[3 * Ci + e] = p.b_b[e];
+    }
+    if (!kSums)
+      for (int e = threadIdx.x; e < C; e += blockDim.x) {
+        vec[4 * Ci + e] = p.a_c[e];
+        vec[4 * Ci + C + e] = p.b_c[e];
+      }
+    c3d::cp_async_wait_all();
+    __syncthreads();
+  }
+  C3D_PHASE(9);
+  const int group = threadIdx.x / kThreads;
+  unsigned char* tile_smem = smem + RL.off_tiles[kSums] +
+                             group * (kSums ? RL.tile.bytes_sums : RL.tile.bytes_fwd);
+  constexpr int kTile = kResidentTile;
+  const int n_tiles = ((p.H + kTile - 1) / kTile) * ((p.W + kTile - 1) / kTile);
+  for (int item = blockIdx.x * kGroups + group; item < p.B * n_tiles;
+       item += gridDim.x * kGroups)
+    bf16_tile<kSums, kAcc, kTile, false, true, kTile>(p, tile_smem, R, item / n_tiles,
+                                                      item % n_tiles, n_tiles,
+                                                      threadIdx.x % kThreads, group);
 }
 
 // ---------------------------------------------------------------------------
@@ -623,8 +864,21 @@ KernelFn pick_kernel(int dtype, bool sums, const Params& p, int smem) {
   return nullptr;
 }
 
-KernelFn pick_kernel(int dtype, bool sums, const Params& p, int smem) {
+// The weight-resident instantiation: bf16, one T-tile of kResidentTile
+// tiles, at most 8 conv_c accumulator tiles a warp, C, Ci and ck multiples
+// of 8 (16-byte rows), and ResidentLayout's byte count.
+KernelFn pick_resident(int dtype, bool sums, const Params& p, int smem) {
+  const ResidentLayout RL(p.T, p.tile, p.C, p.Ci, p.ck);
+  const int per_warp = ((RL.tile.ncp / 16) * (p.C / 8) + kWarps - 1) / kWarps;
+  if (dtype != 1 || p.tt != p.T || p.tile != kResidentTile || per_warp > 8 || p.C % 8 != 0 ||
+      p.Ci % 8 != 0 || p.ck % 8 != 0 || smem != (sums ? RL.bytes_sums : RL.bytes_fwd))
+    return nullptr;
+  return sums ? fused_block_resident_kernel<true, 1> : fused_block_resident_kernel<false, 8>;
+}
+
+KernelFn pick_kernel(int dtype, bool sums, const Params& p, int smem, bool resident) {
   if (p.tt < 1 || p.tt > p.T) return nullptr;
+  if (resident) return pick_resident(dtype, sums, p, smem);
   return p.tt < p.T ? pick_kernel<true>(dtype, sums, p, smem)
                     : pick_kernel<false>(dtype, sums, p, smem);
 }
@@ -633,26 +887,39 @@ cudaError_t set_attributes(KernelFn kernel, int smem) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  // All of L1 that can be shared memory, so that two blocks fit an SM.
+  // All of L1 that can be shared memory, so that two blocks (or one
+  // resident block) fit an SM.
   return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                               (int)cudaSharedmemCarveoutMaxShared);
 }
 
-int launch(int dtype, bool sums, const Params& p, int B, int smem, void* stream) {
-  KernelFn kernel = pick_kernel(dtype, sums, p, smem);
+int launch(int dtype, bool sums, const Params& p, int smem, bool resident, void* stream) {
+  KernelFn kernel = pick_kernel(dtype, sums, p, smem, resident);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = set_attributes(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const int tiles = ((p.T + p.tt - 1) / p.tt) * ((p.H + p.tile - 1) / p.tile) *
                     ((p.W + p.tile - 1) / p.tile);
-  dim3 grid(tiles, B);
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  if (resident) {
+    // Persistent: one block per SM of the current card (the caller makes x's
+    // card current), fewer where the items do not fill them.
+    int dev = 0, sms = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return (int)err;
+    const int groups_needed = (p.B * tiles + kGroups - 1) / kGroups;
+    const int blocks = groups_needed < sms ? groups_needed : sms;
+    kernel<<<blocks, kGroups * kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  } else {
+    dim3 grid(tiles, p.B);
+    kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  }
   return (int)cudaGetLastError();
 }
 
 Params make_params(const void* x, const void* w_a, const void* a_a, const void* b_a,
-                   const void* w_dw, const void* a_b, const void* b_b, int T, int H, int W,
-                   int C, int Ci, int tt, int tile, int ck) {
+                   const void* w_dw, const void* a_b, const void* b_b, int B, int T, int H,
+                   int W, int C, int Ci, int tt, int tile, int ck) {
   Params p{};
   p.x = x;
   p.w_a = w_a;
@@ -661,48 +928,51 @@ Params make_params(const void* x, const void* w_a, const void* a_a, const void* 
   p.w_dw = static_cast<const float*>(w_dw);
   p.a_b = static_cast<const float*>(a_b);
   p.b_b = static_cast<const float*>(b_b);
-  p.T = T; p.H = H; p.W = W; p.C = C; p.Ci = Ci; p.tile = tile; p.ck = ck; p.tt = tt;
+  p.T = T; p.H = H; p.W = W; p.C = C; p.Ci = Ci; p.tile = tile; p.ck = ck; p.tt = tt; p.B = B;
   return p;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 on success).
+// dtype: 0 = float32, 1 = bfloat16; resident: the weight-resident design
+// (ops/fused_block.py:plan_block decides). Returns a cudaError_t (0 on
+// success).
 extern "C" int c3d_fused_block_fwd(int dtype, const void* x, void* out, const void* w_a,
                                    const void* a_a, const void* b_a, const void* w_dw,
                                    const void* a_b, const void* b_b, const void* gate,
                                    const void* w_c, const void* a_c, const void* b_c, int B,
                                    int T, int H, int W, int C, int Ci, int tt, int tile,
-                                   int ck, int smem, void* stream) {
-  Params p = make_params(x, w_a, a_a, b_a, w_dw, a_b, b_b, T, H, W, C, Ci, tt, tile, ck);
+                                   int ck, int smem, int resident, void* stream) {
+  Params p = make_params(x, w_a, a_a, b_a, w_dw, a_b, b_b, B, T, H, W, C, Ci, tt, tile, ck);
   p.out = out;
   p.gate = static_cast<const float*>(gate);
   p.w_c = w_c;
   p.a_c = static_cast<const float*>(a_c);
   p.b_c = static_cast<const float*>(b_c);
-  return launch(dtype, false, p, B, smem, stream);
+  return launch(dtype, false, p, smem, resident != 0, stream);
 }
 
 extern "C" int c3d_fused_block_se_sums(int dtype, const void* x, void* sums, const void* w_a,
                                        const void* a_a, const void* b_a, const void* w_dw,
                                        const void* a_b, const void* b_b, int B, int T, int H,
                                        int W, int C, int Ci, int tt, int tile, int ck, int smem,
-                                       void* stream) {
-  Params p = make_params(x, w_a, a_a, b_a, w_dw, a_b, b_b, T, H, W, C, Ci, tt, tile, ck);
+                                       int resident, void* stream) {
+  Params p = make_params(x, w_a, a_a, b_a, w_dw, a_b, b_b, B, T, H, W, C, Ci, tt, tile, ck);
   p.sums = static_cast<float*>(sums);
-  return launch(dtype, true, p, B, smem, stream);
+  return launch(dtype, true, p, smem, resident != 0, stream);
 }
 
 // Blocks of the chosen kernel that fit one SM at once (occupancy), or -1 if
 // the kernels do not take the call.
 extern "C" int c3d_fused_block_blocks_per_sm(int dtype, int se_sums, int T, int tt, int C,
-                                             int Ci, int tile, int ck, int smem) {
+                                             int Ci, int tile, int ck, int smem, int resident) {
   Params p{};
   p.T = T; p.tt = tt; p.C = C; p.Ci = Ci; p.tile = tile; p.ck = ck;
-  KernelFn kernel = pick_kernel(dtype, se_sums != 0, p, smem);
+  KernelFn kernel = pick_kernel(dtype, se_sums != 0, p, smem, resident != 0);
   if (kernel == nullptr || set_attributes(kernel, smem) != cudaSuccess) return -1;
   int n = -1;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads, smem) != cudaSuccess)
+  const int threads = resident ? kGroups * kThreads : kThreads;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem) != cudaSuccess)
     return -1;
   return n;
 }

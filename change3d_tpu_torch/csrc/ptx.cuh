@@ -1,5 +1,5 @@
 // Small device helpers shared by the port's kernels (sm_90a): bf16 <-> fp32,
-// 16-byte cp.async, bf16 tensor-core mma.sync, mbarrier and bulk copies,
+// 16-byte cp.async, bf16 tensor-core mma.sync, ldmatrix, mbarrier and bulk copies,
 // cluster barriers and distributed shared memory.
 #pragma once
 
@@ -8,14 +8,15 @@
 #include <stdint.h>
 
 // Phase clocks. Built with -DC3D_PHASE_CLOCKS (tools/phase_clocks.py),
-// C3D_PHASE(i) has thread 0 of each of the first 8 blocks record its SM's
-// clock at mark i (< 16), and c3d_phase_clocks copies the [8][16] clocks to
-// the host; otherwise C3D_PHASE is nothing.
+// C3D_PHASE(i) has thread 0 of each of the first 8 blocks of grid row 0
+// record its SM's clock at mark i (< 16), and c3d_phase_clocks copies the
+// [8][16] clocks to the host; otherwise C3D_PHASE is nothing.
 #ifdef C3D_PHASE_CLOCKS
 __device__ long long c3d_phase_clock[8][16];
 #define C3D_PHASE(i)                                                                  \
   do {                                                                                \
-    if (threadIdx.x == 0 && blockIdx.x < 8) c3d_phase_clock[blockIdx.x][i] = clock64(); \
+    if (threadIdx.x == 0 && blockIdx.x < 8 && blockIdx.y == 0)                        \
+      c3d_phase_clock[blockIdx.x][i] = clock64();                                     \
   } while (0)
 extern "C" int c3d_phase_clocks(long long* host) {
   return (int)cudaMemcpyFromSymbol(host, c3d_phase_clock, sizeof(c3d_phase_clock));
@@ -79,6 +80,23 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ldmatrix .trans: 8x8 b16 matrices from shared memory, transposed. Lane l
+// gives the address of row l % 8 of matrix l / 8 (16 bytes, 16-byte
+// aligned); r[i] gets matrix i's elements (2t, 2t+1) of column g (g = lane
+// / 4, t = lane % 4). A [k][n] matrix's rows k0..k0+7 and k0+8..k0+15 at
+// columns n0..n0+7 so give an m16n8k16 B fragment (b0, b1) of column n0 + g.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
 }
 
 __device__ __forceinline__ void mbarrier_init(uint64_t* bar, uint32_t count) {

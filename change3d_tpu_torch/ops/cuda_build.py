@@ -44,12 +44,12 @@ _D = ctypes.c_double
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "fused_block": {
         "c3d_fused_block_fwd": (
-            [_I] + [_VP] * 12 + [_I] * 10 + [_VP], _I,
+            [_I] + [_VP] * 12 + [_I] * 11 + [_VP], _I,
         ),
         "c3d_fused_block_se_sums": (
-            [_I] + [_VP] * 8 + [_I] * 10 + [_VP], _I,
+            [_I] + [_VP] * 8 + [_I] * 11 + [_VP], _I,
         ),
-        "c3d_fused_block_blocks_per_sm": ([_I] * 9, _I),
+        "c3d_fused_block_blocks_per_sm": ([_I] * 10, _I),
         "c3d_error_string": ([_I], ctypes.c_char_p),
     },
     "depthwise_conv3d": {

@@ -34,6 +34,13 @@ from change3d_tpu_torch.ops.layers import se_gate
 
 # Shared memory a block may take: two blocks fit one SM's 228 KB.
 SMEM_TARGET = 112 * 1024
+# ... and a weight-resident block, alone on its SM: the most one block may
+# take on an H100 (227 KB).
+SMEM_RESIDENT = 227 * 1024
+# Tiles a weight-resident block works on at once, each by WARPS warps, and
+# the most conv_c accumulator tiles its warps keep (it is built for 8).
+RESIDENT_GROUPS = 2
+RESIDENT_ACC_TILES = 8
 # The narrowest chunk of inner channels worth a pass over the tile.
 MIN_CHUNK = 16
 # bf16 kernels: threads (warps) per block, and the most conv_c m16n8 output
@@ -47,26 +54,53 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _bf16_smem(t: int, tile: int, c: int, ck: int, frames: Optional[int] = None) -> Tuple[int, int]:
+def _pad16(a: int) -> int:
+    return _ceil(a, 16) * 16
+
+
+def _bf16_smem(t: int, tile: int, c: int, ck: int, frames: Optional[int] = None,
+               staged: bool = True) -> Tuple[int, int]:
     """(fwd, se_sums) shared-memory bytes of the bf16 kernels for ``t``
     output frames read through ``frames`` halo frames (default t: the whole
     clip, no temporal halo): the layout of csrc/fused_block.cu (Bf16Layout),
     rows padded to 16 for the mma and row strides padded by 8 elements
-    against bank conflicts."""
-    pad = lambda a: _ceil(a, 16) * 16
+    against bank conflicts. ``staged`` False: one tile of a weight-resident
+    block, without the chunk's weights."""
     nh, nc = (t if frames is None else frames) * (tile + 2) ** 2, t * tile * tile
-    sx, ckp = pad(c) + 8, pad(ck)
-    front = (pad(nh) * sx + ckp * sx + nh * ckp) * 2
-    fwd = front + (pad(nc) + c) * (ckp + 8) * 2
+    sx, ckp = _pad16(c) + 8, _pad16(ck)
+    front = (_pad16(nh) * sx + (ckp * sx if staged else 0) + nh * ckp) * 2
+    fwd = front + (_pad16(nc) + (c if staged else 0)) * (ckp + 8) * 2
     sums = front + t * tile * (tile // 4) * ckp * 4
     return fwd, sums
+
+
+def _odd16_stride(n: int) -> int:
+    """A row stride (elements) for rows of n bf16 that is an odd number of
+    16-byte units (csrc/fused_block.cu: odd16_stride)."""
+    s = _ceil(n, 8) * 8
+    return s if s // 8 % 2 else s + 8
+
+
+def _resident_smem(t: int, tile: int, c: int, ci: int, ck: int) -> Tuple[int, int]:
+    """(fwd, se_sums) shared-memory bytes of the weight-resident block
+    (csrc/fused_block.cu: ResidentLayout): w_a as [pad16(C)] rows and, for
+    fwd, w_c as rows up to the last chunk's start plus pad16(ck), each row
+    an odd number of 16-byte units; the fp32 BN vectors (four of Ci, and
+    for fwd two of C); then RESIDENT_GROUPS tiles without weights."""
+    w_a = _pad16(c) * _odd16_stride(ci) * 2
+    w_c = ((_ceil(ci, ck) - 1) * ck + _pad16(ck)) * _odd16_stride(c) * 2
+    fwd, sums = _bf16_smem(t, tile, c, ck, staged=False)
+    return (w_a + w_c + (4 * ci + 2 * c) * 4 + RESIDENT_GROUPS * fwd,
+            w_a + 4 * ci * 4 + RESIDENT_GROUPS * sums)
 
 
 class BlockPlan(NamedTuple):
     """How the kernels cover one block shape: ``tt``-frame temporal tiles of
     ``tile`` x ``tile`` pixels, Ci walked in chunks of ``ck``, the bytes of
-    shared memory of each kernel, and the blocks per sample (T-tiles x
-    H-tiles x W-tiles, T outermost, each row-major)."""
+    shared memory of each kernel, the tiles per sample (T-tiles x H-tiles x
+    W-tiles, T outermost, each row-major), and whether the weight-resident
+    design runs them (persistent blocks that keep w_a and w_c in shared
+    memory) rather than a block per tile that stages each chunk's weights."""
 
     tt: int
     tile: int
@@ -74,6 +108,7 @@ class BlockPlan(NamedTuple):
     smem_fwd: int
     smem_sums: int
     n_tiles: int
+    resident: bool = False
 
 
 def halo_frames(t: int, tt: int) -> int:
@@ -115,19 +150,43 @@ def _plan_bf16(t: int, h: int, w: int, c: int, ci: int) -> BlockPlan:
     raise ValueError(f"no bf16 tile fits {SMEM_TARGET} B of shared memory for T={t} C={c} Ci={ci}")
 
 
+def _plan_resident(t: int, c: int, ci: int, staged: BlockPlan) -> Optional[BlockPlan]:
+    """The weight-resident plan for a block whose staged plan is one
+    T-tile of the register-capped 4 x 4 tiles (at most RESIDENT_ACC_TILES
+    accumulator tiles a warp): the fewest chunks of Ci (a multiple of 8
+    channels, at least MIN_CHUNK) with which all of w_a and w_c, the BN
+    vectors and RESIDENT_GROUPS tiles fit SMEM_RESIDENT; None where the
+    weights do not fit (X3D-L's stage 4) or the plan is another."""
+    acc_tiles = _ceil(_ceil(t * 16, 16) * _ceil(c, 8), WARPS)
+    if staged.tile != 4 or staged.tt != t or c % 8 or ci % 8 or acc_tiles > RESIDENT_ACC_TILES:
+        return None
+    n_chunks = 1
+    while True:
+        ck = min(ci, _ceil(_ceil(ci, n_chunks), 8) * 8)
+        if ck < min(ci, MIN_CHUNK):
+            return None
+        fwd, sums = _resident_smem(t, 4, c, ci, ck)
+        if fwd <= SMEM_RESIDENT:
+            return BlockPlan(t, 4, ck, fwd, sums, staged.n_tiles, True)
+        n_chunks += 1
+
+
 def plan_block(t: int, h: int, w: int, c: int, ci: int, itemsize: int) -> BlockPlan:
     """The kernels' plan for one block shape and I/O dtype size.
 
-    bf16 (itemsize 2): ``_plan_bf16``. fp32: the fewest T-tiles, then the
-    largest square tile in (8, 4, 2, 1), whose input tile, conv_c
-    accumulator and a chunk of at least MIN_CHUNK inner channels fit
-    SMEM_TARGET; Ci is then split into equal chunks. The byte counts follow
-    the shared-memory layouts documented in csrc/fused_block.cu. A T-tile
-    shorter than the clip reads one more frame on each side (zeros outside
-    the clip) and recomputes conv_a there: 2 / tt more conv_a work.
+    bf16 (itemsize 2): ``_plan_bf16``, run by the weight-resident design
+    where ``_plan_resident`` gives a plan (the shape alone decides). fp32:
+    the fewest T-tiles, then the largest square tile in (8, 4, 2, 1), whose
+    input tile, conv_c accumulator and a chunk of at least MIN_CHUNK inner
+    channels fit SMEM_TARGET; Ci is then split into equal chunks. The byte
+    counts follow the shared-memory layouts documented in
+    csrc/fused_block.cu. A T-tile shorter than the clip reads one more frame
+    on each side (zeros outside the clip) and recomputes conv_a there: 2 /
+    tt more conv_a work.
     """
     if itemsize == 2:
-        return _plan_bf16(t, h, w, c, ci)
+        staged = _plan_bf16(t, h, w, c, ci)
+        return _plan_resident(t, c, ci, staged) or staged
     for tt in _temporal_tiles(t):
         for tile in (8, 4, 2, 1):
             halo, core = halo_frames(t, tt) * (tile + 2) ** 2, tt * tile * tile
@@ -145,8 +204,8 @@ def plan_block(t: int, h: int, w: int, c: int, ci: int, itemsize: int) -> BlockP
 
 def plan_tiles(t: int, h: int, w: int, c: int, ci: int, itemsize: int):
     """(tile, ck, smem_fwd, smem_sums, n_tiles) of ``plan_block``: the plan
-    without its temporal tile."""
-    return tuple(plan_block(t, h, w, c, ci, itemsize))[1:]
+    without its temporal tile and its design."""
+    return tuple(plan_block(t, h, w, c, ci, itemsize))[1:6]
 
 
 # The launches' plans: a model has a handful of block shapes, and every
@@ -198,7 +257,7 @@ def se_sums_reference(x, w_a, a_a, b_a, w_dw, a_b, b_b) -> torch.Tensor:
     lies inside."""
     xb = _front_reference(x, w_a, a_a, b_a, w_dw, a_b, b_b)
     b, t, h, w, ci = xb.shape
-    tt, tile, _, _, _, _ = plan_block(t, h, w, x.shape[-1], ci, x.element_size())
+    tt, tile = plan_block(t, h, w, x.shape[-1], ci, x.element_size())[:2]
     nt, nh, nw = -(-t // tt), -(-h // tile), -(-w // tile)
     xb = F.pad(xb, (0, 0, 0, nw * tile - w, 0, nh * tile - h, 0, nt * tt - t))
     xb = xb.reshape(b, nt, tt, nh, tile, nw, tile, ci).sum(dim=(2, 4, 6))
@@ -289,28 +348,39 @@ _fwd_op = torch.library.custom_op("c3d::fused_block_fwd", _fwd_cpu, mutates_args
                                   device_types="cpu", schema=_FWD_SCHEMA)
 
 
-@_se_sums_op.register_kernel("cuda")
-def _se_sums_cuda(x, w_a, a_a, b_a, w_dw, a_b, b_b):
+def _launch_se_sums(x, w_a, a_a, b_a, w_dw, a_b, b_b,
+                    plan: Optional[BlockPlan] = None) -> torch.Tensor:
+    """``fused_block_se_sums`` on the card under ``plan_block``'s plan, or
+    under ``plan`` (the card tests and tools/phase_clocks.py run a shape's
+    staged plan too)."""
     b, t, h, w, c, ci = _check_cuda_args(x, w_a)
+    plan = plan or _launch_plan(t, h, w, c, ci, x.element_size())
     args = _front_args(x, w_a, a_a, b_a, w_dw, a_b, b_b)
-    tt, tile, ck, _, smem, n_tiles = _launch_plan(t, h, w, c, ci, x.element_size())
-    sums = torch.empty((b, n_tiles, ci), device=x.device, dtype=torch.float32)
+    sums = torch.empty((b, plan.n_tiles, ci), device=x.device, dtype=torch.float32)
     lib = cuda_build.load("fused_block")
     with torch.cuda.device(x.device):
         err = lib.c3d_fused_block_se_sums(
             _DTYPES[x.dtype], args[0].data_ptr(), sums.data_ptr(),
             *(a.data_ptr() for a in args[1:]),
-            b, t, h, w, c, ci, tt, tile, ck, smem,
+            b, t, h, w, c, ci, plan.tt, plan.tile, plan.ck, plan.smem_sums, int(plan.resident),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     cuda_build.check(lib, err, "fused_block_se_sums")
+    return sums
+
+
+@_se_sums_op.register_kernel("cuda")
+def _se_sums_cuda(x, w_a, a_a, b_a, w_dw, a_b, b_b):
+    sums = _launch_se_sums(x, w_a, a_a, b_a, w_dw, a_b, b_b)
     fused_block_se_sums.launches += 1
     return sums
 
 
-@_fwd_op.register_kernel("cuda")
-def _fwd_cuda(x, w_a, a_a, b_a, w_dw, a_b, b_b, w_c, a_c, b_c, gate):
+def _launch_fwd(x, w_a, a_a, b_a, w_dw, a_b, b_b, w_c, a_c, b_c, gate,
+                plan: Optional[BlockPlan] = None) -> torch.Tensor:
+    """``fused_block_fwd`` on the card (plans as ``_launch_se_sums``)."""
     b, t, h, w, c, ci = _check_cuda_args(x, w_a)
+    plan = plan or _launch_plan(t, h, w, c, ci, x.element_size())
     if w_c.shape != (ci, c):
         raise ValueError(f"w_c {tuple(w_c.shape)} != {(ci, c)}")
     args = _front_args(x, w_a, a_a, b_a, w_dw, a_b, b_b)
@@ -322,7 +392,6 @@ def _fwd_cuda(x, w_a, a_a, b_a, w_dw, a_b, b_b, w_c, a_c, b_c, gate):
         if gate.shape != (b, ci):
             raise ValueError(f"gate {tuple(gate.shape)} != {(b, ci)}")
         gate = _f32(gate, x, b * ci, "gate")
-    tt, tile, ck, smem, _, _ = _launch_plan(t, h, w, c, ci, x.element_size())
     out = torch.empty_like(args[0])
     lib = cuda_build.load("fused_block")
     with torch.cuda.device(x.device):
@@ -331,10 +400,16 @@ def _fwd_cuda(x, w_a, a_a, b_a, w_dw, a_b, b_b, w_c, a_c, b_c, gate):
             *(a.data_ptr() for a in args[1:]),
             None if gate is None else gate.data_ptr(),
             *(a.data_ptr() for a in back),
-            b, t, h, w, c, ci, tt, tile, ck, smem,
+            b, t, h, w, c, ci, plan.tt, plan.tile, plan.ck, plan.smem_fwd, int(plan.resident),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     cuda_build.check(lib, err, "fused_block_fwd")
+    return out
+
+
+@_fwd_op.register_kernel("cuda")
+def _fwd_cuda(x, w_a, a_a, b_a, w_dw, a_b, b_b, w_c, a_c, b_c, gate):
+    out = _launch_fwd(x, w_a, a_a, b_a, w_dw, a_b, b_b, w_c, a_c, b_c, gate)
     fused_block_fwd.launches += 1
     return out
 
@@ -374,11 +449,11 @@ def blocks_per_sm(dtype: torch.dtype, se_sums: bool, t: int, h: int, w: int, c: 
                   ci: int) -> int:
     """Blocks of the kernel for this shape that one SM of the current card
     holds at once (CUDA's occupancy calculator)."""
-    tt, tile, ck, smem_fwd, smem_sums, _ = plan_block(
-        t, h, w, c, ci, torch.empty((), dtype=dtype).element_size())
+    plan = plan_block(t, h, w, c, ci, torch.empty((), dtype=dtype).element_size())
     lib = cuda_build.load("fused_block")
-    return lib.c3d_fused_block_blocks_per_sm(_DTYPES[dtype], int(se_sums), t, tt, c, ci, tile,
-                                             ck, smem_sums if se_sums else smem_fwd)
+    return lib.c3d_fused_block_blocks_per_sm(
+        _DTYPES[dtype], int(se_sums), t, plan.tt, c, ci, plan.tile, plan.ck,
+        plan.smem_sums if se_sums else plan.smem_fwd, int(plan.resident))
 
 
 def fused_bottleneck_block(

@@ -9,11 +9,12 @@ import torch
 from change3d_tpu_torch.ops import fused_block as fb
 
 # (T, H, W, C, Ci) -> (tile, ck, smem_fwd, smem_sums, n_tiles), counted by
-# hand from the layout in csrc/fused_block.cu (Bf16Layout).
+# hand from the layouts in csrc/fused_block.cu (Bf16Layout; stage 3,
+# weight-resident, ResidentLayout below).
 X3D_L_STAGES = {
     "stage1": ((3, 128, 128, 24, 54), (8, 54, 98944, 80128, 256)),
     "stage2": ((3, 64, 64, 48, 108), (8, 56, 114176, 91904, 64)),
-    "stage3": ((3, 32, 32, 96, 216), (4, 112, 105344, 76160, 64)),
+    "stage3": ((3, 32, 32, 96, 216), (4, 112, 210304, 150656, 64)),
     "stage4": ((3, 16, 16, 192, 432), (4, 48, 101248, 76672, 16)),
 }
 
@@ -22,19 +23,38 @@ X3D_L_STAGES = {
 X3D_L_STAGES_T45 = {
     "t4_stage1": ((4, 128, 128, 24, 54), (8, 32, 82560, 68352, 256)),
     "t4_stage2": ((4, 64, 64, 48, 108), (8, 32, 98304, 82176, 64)),
-    "t4_stage3": ((4, 32, 32, 96, 216), (4, 72, 97792, 74752, 64)),
+    "t4_stage3": ((4, 32, 32, 96, 216), (4, 72, 220800, 161152, 64)),
     "t4_stage4": ((4, 16, 16, 192, 432), (4, 32, 100096, 81664, 16)),
     "t5_stage1": ((5, 128, 128, 24, 54), (8, 32, 103040, 85760, 256)),
     "t5_stage2": ((5, 64, 64, 48, 108), (8, 16, 92800, 80256, 64)),
-    "t5_stage3": ((5, 32, 32, 96, 216), (4, 56, 101632, 81408, 64)),
+    "t5_stage3": ((5, 32, 32, 96, 216), (4, 48, 227968, 167040, 64)),
     "t5_stage4": ((5, 16, 16, 192, 432), (4, 16, 102016, 90240, 16)),
 }
+# Stage 3 weight-resident (ResidentLayout): w_a 96 rows of 216 (27 16-byte
+# units, odd) = 41472 B; w_c rows up to the last chunk's start + pad16(ck),
+# rows of 96 + 8 (13 units); the fp32 BN vectors, (4*216 + 2*96) * 4 = 4224
+# (sums: 4*216*4 = 3456); then two tiles without weights (Bf16Layout,
+# staged = false). The fewest chunks that fit 227 KB = 232448 B:
+# T = 3: xt 112 x 104 x 2 = 23296; ck 216 needs 41472 + 224*208 + 4224 +
+#   2 * (23296 + 108*224*2 + 48*232*2) = 280192; ck 112: w_c 224 rows =
+#   46592, a tile 23296 + 108*112*2 + 48*120*2 = 59008, fwd 88064 + 4224 +
+#   2 * 59008 = 210304; sums (no w_c) 41472 + 3456 + 2 * (23296 + 24192 +
+#   3*4*1*112*4) = 150656.
+# T = 4: xt 144 x 208 = 29952; ck 112 needs 247424; ck 72: w_c 144 + 80 =
+#   224 rows, a tile 29952 + 144*80*2 + 64*88*2 = 64256, fwd 220800; sums
+#   41472 + 3456 + 2 * (29952 + 23040 + 4*4*1*80*4) = 161152.
+# T = 5: xt 192 x 208 = 39936; ck 56 needs 41472 + 232*208 + 4224 + 2 *
+#   (39936 + 180*64*2 + 80*72*2) = 242944; ck 48: w_c 192 + 48 = 240 rows =
+#   49920, a tile 39936 + 180*48*2 + 80*56*2 = 66176, fwd 41472 + 49920 +
+#   4224 + 132352 = 227968; sums 41472 + 3456 + 2 * (39936 + 17280 +
+#   5*4*1*48*4) = 167040.
+RESIDENT_STAGES = {"stage3", "t4_stage3", "t5_stage3"}
 # (chunks of Ci, width of the last chunk, conv_c m16n8 accumulator tiles per
 # warp, which picks the kernel's kAcc = 8 or 16).
 CHUNKS_AND_ACC = {
     "stage1": ((1, 54, 5), (2, 22, 6), (2, 22, 8)),
     "stage2": ((2, 52, 9), (4, 12, 12), (7, 12, 15)),
-    "stage3": ((2, 104, 5), (3, 72, 6), (4, 48, 8)),
+    "stage3": ((2, 104, 5), (3, 72, 6), (5, 24, 8)),
     "stage4": ((9, 48, 9), (14, 16, 12), (27, 16, 15)),
 }
 
@@ -64,13 +84,15 @@ def test_bf16_chunks_and_accumulators_at_t3_t4_t5(stage):
 def test_bf16_plan_respects_the_kernel_limits(shape):
     t, h, w, c, ci = shape
     tile, ck, smem_fwd, smem_sums, n_tiles = fb.plan_tiles(t, h, w, c, ci, 2)
+    resident = fb.plan_block(t, h, w, c, ci, 2).resident
     assert tile in (16, 8, 4) and ck % 2 == 0 and min(ci, fb.MIN_CHUNK) <= ck <= ci
     assert (ck % 8 == 0) or ck == ci
-    assert smem_sums < smem_fwd <= fb.SMEM_TARGET
+    assert smem_sums < smem_fwd <= (fb.SMEM_RESIDENT if resident else fb.SMEM_TARGET)
     m_tiles = -(-t * tile * tile // 16)
     assert -(-m_tiles * (c // 8) // fb.WARPS) <= fb.MAX_ACC_TILES  # accumulators per warp
     assert n_tiles == -(-h // tile) * -(-w // tile)
-    assert (smem_fwd, smem_sums) == fb._bf16_smem(t, tile, c, ck)
+    assert (smem_fwd, smem_sums) == (fb._resident_smem(t, tile, c, ci, ck) if resident
+                                     else fb._bf16_smem(t, tile, c, ck))
 
 
 def test_bf16_plain_se_sums_follow_the_bf16_tiles():
@@ -102,7 +124,8 @@ FAMILY_STAGES = {f"{v}_stage{i + 1}": (t, side // 2 ** (i + 2), c, ci)
                  for i, (c, ci) in enumerate(((24, 54), (48, 108), (96, 216), (192, 432)))}
 
 # X3D-M's 16-frame clip at stages 3 and 4 in bf16, counted by hand from
-# Bf16Layout: (T, H, W, C, Ci) -> (tt, tile, ck, smem_fwd, smem_sums, n_tiles).
+# Bf16Layout: (T, H, W, C, Ci) -> (tt, tile, ck, smem_fwd, smem_sums,
+# n_tiles, resident): T-tiled, so the staged design.
 # Stage 3: a whole clip needs 24 accumulator tiles per warp at tile 4, 8
 # frames need 12; then F = 10 halo frames of 6 x 6 (360 rows, 368 padded),
 # rows of 96 + 8, ck = 16 (14 chunks; 24 needs 124160 B):
@@ -113,8 +136,8 @@ FAMILY_STAGES = {f"{v}_stage{i + 1}": (t, side // 2 ** (i + 2), c, ci)
 # (192*200 + 16*200 + 180*16) * 2 = 88960, fwd + (48 + 192) * 24 * 2 = 100480,
 # sums + 3*4*1*16*4 = 89728; 6 T-tiles (the last of one frame) x 2 x 2.
 T16_PINNED = {
-    "stage3": ((16, 14, 14, 96, 216), (8, 4, 16, 102144, 93440, 32)),
-    "stage4": ((16, 7, 7, 192, 432), (3, 4, 16, 100480, 89728, 24)),
+    "stage3": ((16, 14, 14, 96, 216), (8, 4, 16, 102144, 93440, 32, False)),
+    "stage4": ((16, 7, 7, 192, 432), (3, 4, 16, 100480, 89728, 24, False)),
 }
 
 
@@ -122,7 +145,8 @@ T16_PINNED = {
 def test_whole_clip_plans_take_one_t_tile(stage):
     shape, want = {**X3D_L_STAGES, **X3D_L_STAGES_T45}[stage]
     plan = fb.plan_block(*shape, 2)
-    assert plan.tt == shape[0] and tuple(plan)[1:] == want
+    assert plan.tt == shape[0] and tuple(plan)[1:6] == want
+    assert plan.resident == (stage in RESIDENT_STAGES)
     assert fb.halo_frames(shape[0], plan.tt) == shape[0]
 
 
@@ -130,24 +154,26 @@ def test_whole_clip_plans_take_one_t_tile(stage):
 def test_bf16_t_tiled_plans_at_x3d_m_16_frames(stage):
     shape, want = T16_PINNED[stage]
     assert tuple(fb.plan_block(*shape, 2)) == want
-    assert fb.plan_tiles(*shape, 2) == want[1:]
+    assert fb.plan_tiles(*shape, 2) == want[1:6]
 
 
 @pytest.mark.parametrize("itemsize", [2, 4], ids=["bf16", "fp32"])
 @pytest.mark.parametrize("stage", list(FAMILY_STAGES))
 def test_x3d_family_stages_plan_within_the_limits(stage, itemsize):
     t, hw, c, ci = FAMILY_STAGES[stage]
-    tt, tile, ck, smem_fwd, smem_sums, n_tiles = fb.plan_block(t, hw, hw, c, ci, itemsize)
+    plan = fb.plan_block(t, hw, hw, c, ci, itemsize)
+    tt, tile, ck, smem_fwd, smem_sums, n_tiles = plan[:6]
     assert 1 <= tt <= t and min(ci, fb.MIN_CHUNK) <= ck <= ci
     assert n_tiles == -(-t // tt) * (-(-hw // tile)) ** 2
-    assert smem_sums < smem_fwd <= fb.SMEM_TARGET
+    assert smem_sums < smem_fwd <= (fb.SMEM_RESIDENT if plan.resident else fb.SMEM_TARGET)
     frames = fb.halo_frames(t, tt)
     assert frames == (t if tt == t else tt + 2)
     if itemsize == 2:
         assert tile in (16, 8, 4) and ck % 2 == 0 and (ck % 8 == 0 or ck == ci)
         m_tiles = -(-tt * tile * tile // 16)
         assert -(-m_tiles * (c // 8) // fb.WARPS) <= fb.MAX_ACC_TILES
-        assert (smem_fwd, smem_sums) == fb._bf16_smem(tt, tile, c, ck, frames)
+        assert (smem_fwd, smem_sums) == (fb._resident_smem(t, tile, c, ci, ck) if plan.resident
+                                         else fb._bf16_smem(tt, tile, c, ck, frames))
     else:
         halo, core = frames * (tile + 2) ** 2, tt * tile * tile
         assert tile in (8, 4, 2, 1)
@@ -170,7 +196,7 @@ def test_plain_se_sums_follow_the_t_tiles(itemsize):
            f(ci) * 0.1 + 1, f(ci) * 0.1]
     if itemsize == 2:
         ops[0] = ops[0].to(torch.bfloat16)
-    tt, tile, _, _, _, n_tiles = fb.plan_block(t, h, w, c, ci, itemsize)
+    tt, tile, _, _, _, n_tiles = fb.plan_block(t, h, w, c, ci, itemsize)[:6]
     assert tt < t and t % tt
     sums = fb.se_sums_reference(*ops)
     assert sums.shape == (2, n_tiles, ci) and sums.dtype == torch.float32
@@ -182,3 +208,80 @@ def test_plain_se_sums_follow_the_t_tiles(itemsize):
         want = xb[:, t0:t0 + tt, y0:y0 + tile, x0:x0 + tile].sum(dim=(1, 2, 3))
         torch.testing.assert_close(sums[:, k], want, rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(sums.sum(1), xb.sum(dim=(1, 2, 3)), rtol=1e-5, atol=1e-3)
+
+
+# Which design runs each block shape (``plan_block``, from the shape alone):
+# the weight-resident one exactly where the staged plan is one T-tile of the
+# register-capped 4 x 4 tiles and all of w_a and w_c fit one block with two
+# tiles. X3D-L at 256^2 on T = 3, 4, 5 and 16 (stage 4's weights, 2 x 192 x
+# 432 bf16, do not fit; 16 frames take T-tiles at stages 3 and 4).
+X3D_L_SHAPES = {"stage1": (128, 24, 54), "stage2": (64, 48, 108), "stage3": (32, 96, 216),
+                "stage4": (16, 192, 432)}
+RESIDENT_ROUTE = {("stage3", 3), ("stage3", 4), ("stage3", 5)}
+
+
+@pytest.mark.parametrize("t", [3, 4, 5, 16])
+@pytest.mark.parametrize("stage", list(X3D_L_SHAPES))
+def test_route_at_every_x3d_l_stage(stage, t):
+    hw, c, ci = X3D_L_SHAPES[stage]
+    plan, staged = fb.plan_block(t, hw, hw, c, ci, 2), fb._plan_bf16(t, hw, hw, c, ci)
+    assert plan.resident == ((stage, t) in RESIDENT_ROUTE)
+    # The same tiles either way: the se-sums rows and the plain sums hold.
+    assert (plan.tt, plan.tile, plan.n_tiles) == (staged.tt, staged.tile, staged.n_tiles)
+    assert not fb.plan_block(t, hw, hw, c, ci, 4).resident  # fp32 keeps its design
+    if not plan.resident:
+        assert plan == staged
+        return
+    assert (plan.tt, plan.tile) == (t, 4) and plan.ck % 8 == 0 and plan.ck >= fb.MIN_CHUNK
+    assert plan.smem_sums < plan.smem_fwd <= fb.SMEM_RESIDENT
+    assert (plan.smem_fwd, plan.smem_sums) == fb._resident_smem(t, 4, c, ci, plan.ck)
+    chunks = -(-ci // plan.ck)  # and one chunk fewer would not fit
+    fewer = min(ci, -(-(-(-ci // (chunks - 1))) // 8) * 8)
+    assert fb._resident_smem(t, 4, c, ci, fewer)[0] > fb.SMEM_RESIDENT
+
+
+def test_resident_layout_within_one_sm():
+    """SMEM_RESIDENT is the most dynamic shared memory one block may take on
+    an H100 (228 KB an SM, less 1 KB the card keeps per block), and the
+    weights alone, w_a and w_c in their padded rows, are what rules stage 4
+    out: 2 x 192 x 432 bf16 with padding is 342 KB even at the narrowest
+    chunk."""
+    assert fb.SMEM_RESIDENT == 228 * 1024 - 1024 == 232448
+    assert fb._odd16_stride(216) == 216 and fb._odd16_stride(96) == 104
+    assert fb._odd16_stride(432) == 440 and fb._odd16_stride(192) == 200
+    w_a = 192 * 440 * 2
+    w_c = (26 * 16 + 16) * 200 * 2
+    assert w_a + w_c == 341760 > fb.SMEM_RESIDENT
+    assert fb._resident_smem(3, 4, 192, 432, 16)[0] > w_a + w_c
+    assert fb._plan_resident(3, 192, 432, fb._plan_bf16(3, 16, 16, 192, 432)) is None
+
+
+@pytest.mark.parametrize("stage", list(FAMILY_STAGES))
+def test_route_at_every_x3d_family_stage(stage):
+    """X3D-XS's stage 3 (4 frames of 10 x 10) is the one resident shape of
+    the family; X3D-M's and X3D-S's stage 3 take T-tiles and stay staged."""
+    t, hw, c, ci = FAMILY_STAGES[stage]
+    plan = fb.plan_block(t, hw, hw, c, ci, 2)
+    assert plan.resident == (stage == "xs_stage3")
+    if not plan.resident:
+        assert plan == fb._plan_bf16(t, hw, hw, c, ci)
+
+
+def test_phase_clocks_read_every_fused_block_mark():
+    """tools/phase_clocks.py --fused turns every C3D_PHASE mark of
+    csrc/fused_block.cu into a phase (a mark's argument may pick the first
+    or the last chunk's slot)."""
+    import importlib.util
+    import re
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    source = (repo / "change3d_tpu_torch" / "csrc" / "fused_block.cu").read_text()
+    marks = {int(n) for arg in re.findall(r"C3D_PHASE\(([^;]*)\);", source)
+             for n in re.findall(r"\b\d+\b", arg.replace("ci0 == 0", ""))}
+    spec = importlib.util.spec_from_file_location("phase_clocks", repo / "tools" / "phase_clocks.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    read = {m for _, a, b, _ in tool.FUSED_PHASES for m in (a, b)}
+    read |= set(tool.RESIDENT_PHASE[1:])
+    assert marks == read == set(range(15))

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Where the time goes inside the two repro kernels on one NVIDIA GPU: SM
-clock cycles between the phase marks (C3D_PHASE) of csrc/repros.cu.
+"""Where the time goes inside the repro kernels or the fused block kernels
+on one NVIDIA GPU: SM clock cycles between the phase marks (C3D_PHASE) of
+csrc/repros.cu or csrc/fused_block.cu.
 
     python3 tools/phase_clocks.py [--runs 20] [--seed 0]
+    python3 tools/phase_clocks.py --fused [--batch 16] [--runs 20]
 
 Builds csrc/repros.cu with -DC3D_PHASE_CLOCKS into a library of its own in
 change3d_tpu_torch/_build/ (thread 0 of each of the first 8 blocks records
@@ -16,6 +18,15 @@ profiler's timeline (chip_smoke.device_ms; their difference is what the
 marks cost), the card's SM clock and power (nvidia-smi) and its name and
 power limit; writes the same to chiprun_out/phase_clocks.json. Exits
 non-zero when there is no card.
+
+With --fused it builds csrc/fused_block.cu so, loads that library in place
+of the wrapper's (``cuda_build.load``), and launches ``fused_block_fwd`` and
+``fused_block_se_sums`` at stage 3 of the X3D-L clips (T = 3, 4, 5 at
+--batch) under both designs' plans (``plan_block``'s weight-resident one
+and the staged ``_plan_bf16``): the marks of one tile of each of the first
+8 blocks of sample 0 (of a persistent block, its group 0's last tile), the
+phases of the first and of the last chunk of Ci, per design, kernel and
+clip. Writes chiprun_out/phase_clocks_fused.json.
 """
 
 from __future__ import annotations
@@ -49,24 +60,48 @@ PHASES = {
 }
 
 
-def build(out_dir: str) -> str:
+# The fused block kernels' marks: (phase, mark at its start, mark at its end,
+# whether only fused_block_fwd has it). Per tile 0 and 1 bound the x tile's
+# issue; each chunk of Ci runs weights-and-barrier, conv_a, taps, conv_c or
+# the sums (marks 2-5 after the first chunk's phases, 10-13 after the
+# last's, 14 at the last's start); fwd's epilogue ends at 6, its stores at
+# 7. A persistent block marks 8 at its start and 9 once its weights are in.
+FUSED_PHASES = (
+    ("x tile issue", 0, 1, False),
+    ("first chunk: weights staged, x landed, barrier", 1, 2, False),
+    ("first chunk: conv_a", 2, 3, False),
+    ("first chunk: taps", 3, 4, False),
+    ("first chunk: conv_c or sums", 4, 5, False),
+    ("last chunk: weights staged, barrier", 14, 10, False),
+    ("last chunk: conv_a", 10, 11, False),
+    ("last chunk: taps", 11, 12, False),
+    ("last chunk: conv_c or sums", 12, 13, False),
+    ("epilogue: BN_c, residual, ReLU", 13, 6, True),
+    ("stores", 6, 7, True),
+)
+RESIDENT_PHASE = ("weights resident (once a block)", 8, 9)
+# Stage 3 of X3D-L at 256^2: (H = W, C, Ci, Cr).
+STAGE3 = (32, 96, 216, 16)
+
+
+def build(out_dir: str, name: str = "repros") -> str:
     from change3d_tpu_torch.ops import cuda_build
 
     os.makedirs(out_dir, exist_ok=True)
-    target = os.path.join(out_dir, "repros-phase-clocks.so")
+    target = os.path.join(out_dir, f"{name}-phase-clocks.so")
     cmd = [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-DC3D_PHASE_CLOCKS", "-o", target,
-           str(cuda_build.CSRC_DIR / "repros.cu")]
+           str(cuda_build.CSRC_DIR / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed:\n{proc.stdout}\n{proc.stderr}")
     return target
 
 
-def load(path: str) -> ctypes.CDLL:
+def load(path: str, name: str = "repros") -> ctypes.CDLL:
     from change3d_tpu_torch.ops import cuda_build
 
     lib = ctypes.CDLL(path)
-    for fn, (argtypes, restype) in cuda_build.SIGNATURES["repros"].items():
+    for fn, (argtypes, restype) in cuda_build.SIGNATURES[name].items():
         getattr(lib, fn).argtypes, getattr(lib, fn).restype = argtypes, restype
     lib.c3d_phase_clocks.argtypes, lib.c3d_phase_clocks.restype = [ctypes.c_void_p], ctypes.c_int
     return lib
@@ -88,15 +123,93 @@ def phase_cycles(lib, launch, n_marks: int, blocks: int, runs: int) -> np.ndarra
     return np.concatenate(rows)
 
 
+def marks(lib, launch, runs: int) -> np.ndarray:
+    """[runs, 8, 16] clocks of the first 8 blocks after each of ``runs``
+    launches (each after 20 warm-up launches)."""
+    out = []
+    clocks = np.zeros((8, 16), np.int64)
+    for _ in range(runs):
+        for _ in range(20):
+            launch()
+        torch.cuda.synchronize()
+        err = lib.c3d_phase_clocks(clocks.ctypes.data)
+        if err:
+            raise RuntimeError(f"reading the phase clocks: CUDA error {err}")
+        out.append(clocks.copy())
+    return np.stack(out)
+
+
+def fused_main(args) -> int:
+    import chip_smoke
+    from change3d_tpu_torch.device import resolve_device
+    from change3d_tpu_torch.ops import cuda_build
+    from change3d_tpu_torch.ops import fused_block as fb
+
+    dev = resolve_device("cuda")
+    plain_lib = cuda_build.load("fused_block")
+    lib = load(build(str(cuda_build.BUILD_DIR), "fused_block"), "fused_block")
+    card = chip_smoke.card_line()
+    smi_before = chip_smoke.smi_sample()
+    hw, c, ci, cr = STAGE3
+    result = {"card": card, "batch": args.batch, "stage": list(STAGE3), "rows": []}
+    for t in (3, 4, 5):
+        ops, se = chip_smoke.operands(np.random.RandomState(args.seed + t), args.batch, t, hw, c,
+                                      ci, cr, torch.bfloat16, dev, True)
+        gate = fb.se_gate(fb.se_sums_reference(*ops[:7]).sum(1) / (t * hw * hw), *se)
+        plans = {fb.plan_block(t, hw, hw, c, ci, 2), fb._plan_bf16(t, hw, hw, c, ci)}
+        for plan, kernel in [(p, k) for p in sorted(plans, key=lambda p: p.resident)
+                             for k in ("fused_block_fwd", "fused_block_se_sums")]:
+            if kernel == "fused_block_fwd":
+                launch = lambda: fb._launch_fwd(*ops, gate, plan=plan)
+            else:
+                launch = lambda: fb._launch_se_sums(*ops[:7], plan=plan)
+            cuda_build._LOADED["fused_block"] = lib
+            try:
+                clocks = marks(lib, launch, args.runs)
+                ms_instrumented = chip_smoke.device_ms(launch, 50)
+            finally:
+                cuda_build._LOADED["fused_block"] = plain_lib
+            phases = [(name, a, b) for name, a, b, fwd_only in FUSED_PHASES
+                      if kernel == "fused_block_fwd" or not fwd_only]
+            if plan.resident:
+                phases.insert(0, RESIDENT_PHASE)
+            end = 7 if kernel == "fused_block_fwd" else 13
+            row = {"kernel": kernel, "t": t, "plan": plan._asdict(),
+                   "phases_median_cycles": {
+                       name: float(np.median(clocks[:, :, b] - clocks[:, :, a]))
+                       for name, a, b in phases},
+                   "tile_median_cycles": float(np.median(clocks[:, :, end] - clocks[:, :, 0])),
+                   "samples": int(clocks.shape[0] * clocks.shape[1]),
+                   "ms_instrumented": ms_instrumented,
+                   "ms_wrapper": chip_smoke.device_ms(launch, 50)}
+            result["rows"].append(row)
+            design = "resident" if plan.resident else "staged"
+            print(f"{kernel} {design} T={t} B={args.batch} ({card}): {json.dumps(row)}",
+                  flush=True)
+    result["nvidia_smi"] = {"clocks_sm,power_draw,power_limit": {"before": smi_before,
+                                                                 "after": chip_smoke.smi_sample()}}
+    print(f"nvidia-smi: {json.dumps(result['nvidia_smi'])}")
+    out = args.out or os.path.join("chiprun_out", "phase_clocks_fused.json")
+    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+    with open(out, "w") as f:
+        json.dump(result, f, indent=1)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--runs", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--out", default=os.path.join("chiprun_out", "phase_clocks.json"))
+    ap.add_argument("--fused", action="store_true", help="the fused block kernels at stage 3")
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("phase_clocks: CUDA is not available; this tool needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    if args.fused:
+        return fused_main(args)
+    args.out = args.out or os.path.join("chiprun_out", "phase_clocks.json")
     import chip_smoke
     from change3d_tpu_torch.device import resolve_device
     from change3d_tpu_torch.ops import cuda_build
