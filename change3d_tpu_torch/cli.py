@@ -39,6 +39,12 @@ from ``convert-reference``):
   python -m change3d_tpu_torch.cli convert-reference --model_task bcd --torch_checkpoint best_model.pth --out RUN
   python -m change3d_tpu_torch.cli verify-checkpoint --pretrained X3D_L.pyth [--trace ref_acts.npz]
 
+Kinetics-400 video classification with X3D-L (the ``X3D_L.pyth`` network,
+or weights drawn from ``--seed``) of uint8 [N, T, H, W, 3] clips (16 x 312^2
+as published), N = videos x ``--views``; top-5 classes per video to JSON:
+
+  python -m change3d_tpu_torch.cli classify --clips clips.npy --out top5.json [--pretrained X3D_L.pyth] [--views 30]
+
 Every subcommand runs on the card (``--device cuda``, the default; it
 raises without one) unless given ``--device cpu``, which runs the plain
 PyTorch versions on the host; nothing falls back from one to the other. The
@@ -247,7 +253,7 @@ def _add_train(sub) -> None:
 
 
 def _add_use(sub) -> None:
-    """predict, eval, serve, info, convert-reference, verify-checkpoint."""
+    """predict, eval, serve, info, convert-reference, verify-checkpoint, classify."""
     tasks = ["bcd", "scd", "bda", "cc"]
     p = sub.add_parser("predict", help="write masks (bcd/scd/bda) or captions.json (cc) for a "
                                        "split of a dataset")
@@ -369,6 +375,21 @@ def _add_use(sub) -> None:
     p.add_argument("--atol", type=float, default=None)
     _device(p)
     _refuse(p, {"--platform": _NOT_PORTED["--platform"]})
+
+    p = sub.add_parser("classify",
+                       help="Kinetics-400 top-5 classes of videos with X3D-L (ClipClassifier): "
+                            "each video's softmax averaged over its views")
+    p.add_argument("--clips", required=True,
+                   help=".npy of uint8 [N, T, H, W, 3] clips (16 x 312^2 as published), each "
+                        "video's --views clips in a row")
+    p.add_argument("--out", required=True, help="JSON file of each video's top-5 classes")
+    p.add_argument("--views", type=int, default=30,
+                   help="clips a video (the published test: 10 temporal x 3 spatial)")
+    p.add_argument("--pretrained", default=None,
+                   help="X3D_L.pyth (Kinetics-400); default: weights drawn from --seed")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--compute_dtype", default="bfloat16", choices=["float32", "bfloat16"])
+    _device(p)
 
     p = sub.add_parser("export", help="export a saved run to a torch.export artifact (.pt2; "
                                       "weights inside, symbolic batch; served by serve "
@@ -729,8 +750,46 @@ def run_verify_checkpoint(args) -> int:
     return 0 if report["all_pass"] in (True, None) else 1
 
 
+def run_classify(args) -> int:
+    """Top-5 Kinetics classes per video: ``ClipClassifier.classify_u8`` on
+    one video's ``--views`` clips a call, the views' softmax averaged."""
+    import numpy as np
+
+    from change3d_tpu_torch.checkpoint.convert import (
+        load_x3d_pretrained,
+        merge_backbone_variables,
+    )
+    from change3d_tpu_torch.inference import ClipClassifier
+    from change3d_tpu_torch.models.x3d import x3d_classifier
+
+    clips = np.load(args.clips, mmap_mode="r")
+    if clips.dtype != np.uint8 or clips.ndim != 5 or clips.shape[-1] != 3:
+        raise SystemExit(f"--clips holds {clips.dtype} {clips.shape}, not uint8 [N, T, H, W, 3]")
+    if args.views < 1 or len(clips) % args.views:
+        raise SystemExit(f"{len(clips)} clips do not split into videos of {args.views} views")
+    model = x3d_classifier("l", device=args.device, seed=args.seed)
+    if args.pretrained:
+        backbone = load_x3d_pretrained(args.pretrained, model.cfg)
+        model.load_state_dict(merge_backbone_variables(model.state_dict(), backbone,
+                                                       drop_head=False))
+    classifier = ClipClassifier(model, compute_dtype=_compute_dtype(args), device=args.device)
+    videos = []
+    for v in range(len(clips) // args.views):
+        logits = classifier.classify_u8(clips[v * args.views:(v + 1) * args.views])
+        e = np.exp(logits - logits.max(-1, keepdims=True))
+        probs = (e / e.sum(-1, keepdims=True)).mean(0)
+        top = np.argsort(-probs, kind="stable")[:5]
+        videos.append({"video": v, "top5": [{"class": int(c), "prob": float(probs[c])}
+                                            for c in top]})
+    with open(args.out, "w") as f:
+        json.dump(videos, f, indent=1)
+    print(f"classified {len(videos)} videos of {args.views} views -> {args.out}", flush=True)
+    return 0
+
+
 _RUN = {"eval": run_eval, "serve": run_serve, "info": run_info, "export": run_export,
-        "convert-reference": run_convert_reference, "verify-checkpoint": run_verify_checkpoint}
+        "convert-reference": run_convert_reference, "verify-checkpoint": run_verify_checkpoint,
+        "classify": run_classify}
 
 
 def main(argv=None):

@@ -15,10 +15,13 @@ kernel of ``ops/depthwise_conv.py`` whenever no gradient is taken
 (``ops/layers.depthwise_conv3d``).
 
 ``X3D(cfg, head=True)`` adds the Kinetics classifier head (``X3DHead``) and
-``forward(x, classify=True)`` returns its logits; ``x3d_classifier`` builds
-it on the card (or ``device="cpu"``) for ``x3d_m_config()`` (X3D-M, and
-X3D-S / XS, which share its weights at other clip sizes). No Change3D model
-builds a head, so their state_dict keys do not change.
+``forward(x, classify=True)`` returns its logits (``head(features(x))``);
+``x3d_classifier`` builds it on the card (or ``device="cpu"``): variant
+"m" is ``x3d_m_config()`` (X3D-M, and X3D-S / XS, which share its weights
+at other clip sizes), "l" is X3D-L as Kinetics-400 runs it (the
+``X3D_L.pyth`` network: ``x3d_l_config`` with the stock (1, 2, 2) stem
+stride, 16 x 312^2 clips). No Change3D model builds a head, so their
+state_dict keys do not change.
 
 ``quantized_eval`` runs each bottleneck's two pointwise convs at eval as
 int8 products (``ops/quant.py``) and turns fusion off, as in JAX; training
@@ -413,13 +416,18 @@ class X3D(nn.Module):
             return self.stem(x)
         return getattr(self, f"stage{i}")(x)
 
+    def features(self, x: torch.Tensor) -> torch.Tensor:
+        """x: [B, T, H, W, 3] clips -> the last stage's features."""
+        for i in range(self.num_stages + 1):
+            x = self.run_block(i, x)
+        return x
+
     def forward(self, x: torch.Tensor, classify: bool = False, *,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: [B, T, H, W, 3] clips. The last stage's features, or with
         ``classify`` the head's logits [B, num_classes] (``generator``: the
         head's dropout in train mode)."""
-        for i in range(self.num_stages + 1):
-            x = self.run_block(i, x)
+        x = self.features(x)
         if not classify:
             return x
         if self.head is None:
@@ -427,11 +435,15 @@ class X3D(nn.Module):
         return self.head(x, generator)
 
 
-def x3d_classifier(*, device="cuda", seed: int = 0) -> X3D:
-    """The X3D-M Kinetics video classifier in eval mode, ``X3D(x3d_m_config(),
-    head=True)`` with weights drawn from ``seed``, on ``device``: the card
-    unless the caller asks for the CPU. Call it as ``model(clip,
-    classify=True)`` on [B, T, H, W, 3] clips."""
+def x3d_classifier(variant: str = "m", *, device="cuda", seed: int = 0) -> X3D:
+    """A Kinetics video classifier in eval mode, ``X3D(cfg, head=True)`` with
+    weights drawn from ``seed``, on ``device``: the card unless the caller
+    asks for the CPU. ``variant`` "m": ``x3d_m_config()``; "l": X3D-L at the
+    (1, 2, 2) stem stride of its Kinetics checkpoint (Change3D's X3D-L keeps
+    stride 1). Call it as ``model(clip, classify=True)`` on [B, T, H, W, 3]
+    clips."""
+    if variant not in ("m", "l"):
+        raise ValueError(f"X3D classifier variant {variant!r}: 'm' or 'l'")
+    cfg = x3d_m_config() if variant == "m" else x3d_l_config(stem_conv_stride=(1, 2, 2))
     dev = resolve_device(device)
-    return X3D(x3d_m_config(), head=True,
-               generator=torch.Generator().manual_seed(seed)).to(dev).eval()
+    return X3D(cfg, head=True, generator=torch.Generator().manual_seed(seed)).to(dev).eval()

@@ -21,7 +21,9 @@ parent's name as its prefix where it is a part of that work, as
 (``Predictor.predict_u8``; its ``.forward`` holds ``.encode``, the
 encoder, and ``.heads``, the detection heads with the hardening, for every
 detection task), ``c3d.caption`` (``CaptionPredictor``'s captions and
-``beam_search_decode``), ``c3d.serve`` (the server's threads).
+``beam_search_decode``), ``c3d.classify`` (``ClipClassifier.classify_u8``:
+``.h2d``, then ``.forward`` holding ``.encode``, the stem and stages, and
+``.head``, then ``.d2h``), ``c3d.serve`` (the server's threads).
 A span is a FUNCTION-scope ``RecordFunction`` range, as an aten op is: it
 shares the trace's clock with the kernels, adds no device event, and costs
 about a microsecond when no profiler runs. (``record_function`` opens a

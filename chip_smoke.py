@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--batch 8] [--batches 3] [--seed 0]
                           [--multi-gpu-only | --int8-only | --data-only |
-                           --classify-only | --depthwise-only]
+                           --classify-only | --kinetics-only |
+                           --depthwise-only]
 
 Run from the repository root. Phases (any failure exits non-zero and prints
 no result line):
@@ -179,7 +180,23 @@ no result line):
    fused_inference=False within 1e-3 with equal top-1; clips/s and device
    ms per forward, fused and plain in turns; each kernel's time per shape
    with its T-tile, bound and plain time. Details under the ``classify``
-   key.
+   key;
+16. kinetics (``phase_kinetics``, run right after phase 15): X3D-L as the
+   Kinetics-400 classifier of the benchmark's x3dl-classify-v30 cell,
+   ``ClipClassifier(x3d_classifier("l"))`` with seeded weights on one
+   video's 30 views (B = 30 uint8 16 x 312² clips) in bf16: 51
+   fused_block_fwd, 25 fused_block_se_sums and 5 depthwise_conv3d
+   launches in one classify_u8 call (the counts set to 0 just before),
+   finite [30, 400] logits; both fused kernels held against their plain
+   versions on the operands the bf16 and the fp32 forwards give them at
+   the four stage shapes (ragged 4 x 4 tiles at 78, 39 and 10; stages 3
+   and 4 in T-tiles of 8 and 3), the depthwise kernel at the stem's and
+   the four strided conv_b's shapes (39 -> 20 among them), all at B = 30;
+   the fp32 logits fused vs fused_inference=False within 1e-3 of the
+   largest, with equal top-1; classify_u8 clips/s, the forward's and the
+   upload's ms on the device; each kernel's time per shape at B = 30, and
+   the three kernels summed per forward (``kernels x3d_l_k400`` line).
+   Details under the ``kinetics`` key.
 
 ``--int8-only`` builds the kernels, trains phase 9's ``cli bcd`` run and runs
 phase 13 on it, details beside ``--out`` as ``chip_smoke_int8.json``.
@@ -188,7 +205,10 @@ written layouts (the proof on several cards), its details beside ``--out``
 as ``chip_smoke_multi_gpu.json``. ``--data-only`` builds them and runs
 phase 14 and phase 9's ``cli cc``, details as ``chip_smoke_data.json``.
 ``--classify-only`` builds them and runs phase 15 alone, details as
-``chip_smoke_classify.json``. ``--depthwise-only`` builds them and runs the
+``chip_smoke_classify.json``. ``--kinetics-only`` builds them and runs
+phase 16 alone, details as ``chip_smoke_kinetics.json``; its last lines are
+the per-forward kernels JSON, the card line and the ok line.
+``--depthwise-only`` builds them and runs the
 depthwise kernel's part of phases 2, 3 and 5, details as
 ``chip_smoke_depthwise.json``.
 
@@ -290,6 +310,20 @@ DEPTHWISE_X3DM = (
     ("x3dm_stage2_s1", 16, 28, 108, *DW_S1, 0, 4),
     ("x3dm_stage3_s1", 16, 14, 216, *DW_S1, 0, 10),
     ("x3dm_stage4_s1", 16, 7, 432, *DW_S1, 0, 6),
+)
+# Phase 16: X3D-L as the benchmark's Kinetics-400 classifier (one video's
+# 30 views of 16 x 312², stem stride (1, 2, 2)): stages of depths 5, 10, 25,
+# 15 run 4 + 9 + 24 + 14 fused blocks, 2 + 4 + 12 + 7 of them SE; the stem's
+# conv_t and the four strided conv_b's run on the depthwise kernel, (name,
+# T, H=W of the input, C, kernel, stride, padding).
+KINETICS = ("x3d_l_k400", 30, 16, 312)
+KINETICS_PER_FORWARD = {"fused_block_fwd": 51, "fused_block_se_sums": 25, "depthwise_conv3d": 5}
+DEPTHWISE_X3DL = (
+    ("x3dl_stem", 16, 156, 24, (5, 1, 1), (1, 1, 1), (2, 0, 0)),
+    ("x3dl_stage1", 16, 156, 54, *DW_S2),
+    ("x3dl_stage2", 16, 78, 108, *DW_S2),
+    ("x3dl_stage3", 16, 39, 216, *DW_S2),
+    ("x3dl_stage4", 16, 20, 432, *DW_S2),
 )
 # Launches of one forward: the stem and each block 0 (the other blocks are
 # fused); an int8 detection forward fuses none: the stem and all 40 blocks.
@@ -1286,6 +1320,146 @@ def classify_only(fb, dev, args, card) -> int:
     with open(out, "w") as f:
         json.dump({"card": card, "classify": stats, "rows": rows, "worst": worst}, f, indent=1)
     print(f"kernels vs plain versions, worst over phase 15: {json.dumps(worst)}", flush=True)
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def kinetics_depthwise(dwc, dev, seed, worst, card, iters=20):
+    """The depthwise kernel at X3D-L's five Kinetics shapes at B = 30: held
+    against its plain version in fp32 (1e-5 * (1 + |ref|)) and bf16 (two
+    ulps), then timed in bf16 (its ms, the plain version's, the bound: bytes
+    in, out and the fp32 weights at 3.35 TB/s), one launch a forward each."""
+    name, b, _, _ = KINETICS
+    rs, rows = np.random.RandomState(seed + 29), []
+    for stage, t, hw, c, ks, stride, pad in DEPTHWISE_X3DL:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, k = dw_operands(rs, b, t, hw, c, ks, dtype, dev)
+            got = dwc.depthwise_conv3d(x, k, stride=stride, padding=pad)
+            hold(worst, "depthwise_conv3d", t, f"{stage} B={b}", got,
+                 dwc.depthwise_conv3d_reference(x, k, stride, pad), dtype, fp32_tol=1e-5)
+        plan = dwc.plan_depthwise(t, hw, hw, c, ks, stride, pad, 2)
+        nbytes = (x.numel() + got.numel()) * 2 + k.numel() * 4
+        rows.append({"kernel": "depthwise_conv3d", "model": name, "stage": stage, "t": t,
+                     "batch": b, "shape": list(x.shape), "out": list(got.shape),
+                     "kernel_size": list(ks), "stride": list(stride), "plan": plan._asdict(),
+                     "launches_per_classify_forward": 1,
+                     "ms": event_ms(lambda: dwc.depthwise_conv3d(x, k, stride=stride,
+                                                                 padding=pad), iters),
+                     "plain_ms": event_ms(lambda: dwc.depthwise_conv3d_reference(
+                         x, k, stride, pad), 3),
+                     "bound_ms": nbytes / HBM_BYTES_S * 1e3, "bound_by": "bytes", "card": card})
+        print(f"time depthwise_conv3d {name} {stage} T={t} B={b} ({card}): "
+              f"{json.dumps(rows[-1])}", flush=True)
+        del x, k, got
+    return rows
+
+
+def phase_kinetics(fb, dwc, dev, worst, seed, card):
+    """X3D-L as the Kinetics-400 classifier of the x3dl-classify-v30 cell
+    (``ClipClassifier(x3d_classifier("l"))``, seeded weights) on one
+    video's 30 views of uint8 16 x 312² clips in bf16: exactly 51 + 25
+    fused and 5 depthwise launches in one ``classify_u8`` call with the
+    counts set to 0 just before, finite [30, 400] logits; each fused kernel
+    held against its plain version on the operands the bf16 and the fp32
+    forwards give it (every block shape, with and without SE), the
+    depthwise kernel at its five shapes; the fp32 logits of the fused model
+    against fused_inference=False (1e-3 of the largest, equal top-1);
+    clips/s, the forward's and the upload's device ms; each kernel's time
+    per shape, summed per forward."""
+    from change3d_tpu_torch.inference import ClipClassifier
+    from change3d_tpu_torch.models.x3d import X3D, x3d_classifier, x3d_l_config
+
+    t_start = time.perf_counter()
+    name, b, t, side = KINETICS
+    model = lively_weights(x3d_classifier("l", device=dev, seed=seed), seed)
+    clf = ClipClassifier(model, device=dev)
+    clips = np.random.RandomState(seed + 23).randint(0, 256, (b, t, side, side, 3),
+                                                     dtype=np.uint8)
+    clf.classify_u8(clips)  # load the kernels, warm the allocator
+    torch.cuda.synchronize()
+    reset_counts(fb)
+    dwc.depthwise_conv3d.launches = 0
+    logits = clf.classify_u8(clips)
+    launches = {**fused_counts(fb), "depthwise_conv3d": dwc.depthwise_conv3d.launches}
+    if launches != KINETICS_PER_FORWARD:
+        raise AssertionError(f"{name} launches {launches}, want {KINETICS_PER_FORWARD}")
+    if logits.shape != (b, 400) or not np.isfinite(logits).all():
+        raise AssertionError(f"{name} logits {logits.shape} {logits.dtype}")
+
+    u8 = torch.from_numpy(clips).to(dev)
+    f32_clf = ClipClassifier(model, compute_dtype=torch.float32, device=dev)
+    ops16, calls = block_operands(model, clf.normalize(u8))
+    for dtype, ops in ((torch.bfloat16, ops16),
+                       (torch.float32, block_operands(model, f32_clf.normalize(u8))[0])):
+        for (shape, has_se), (o, se) in sorted(ops.items()):
+            check_block(fb, worst, f"{name} {shape} se={has_se} forward operands", o, se, dtype)
+        del ops
+    plain = X3D(x3d_l_config(stem_conv_stride=(1, 2, 2), fused_inference=False),
+                head=True).to(dev).eval()
+    plain.load_state_dict(model.state_dict())
+    f32 = f32_clf.classify_u8(clips)
+    p32 = ClipClassifier(plain, compute_dtype=torch.float32, device=dev).classify_u8(clips)
+    p16 = ClipClassifier(plain, device=dev).classify_u8(clips)
+    del plain
+    err, top = float(np.abs(f32 - p32).max()), float(np.abs(p32).max())
+    if not (err <= 1e-3 * max(1.0, top) and np.array_equal(f32.argmax(1), p32.argmax(1))):
+        raise AssertionError(f"{name} fp32 logits fused vs plain: max |d| {err} (largest "
+                             f"{top}), top-1 {f32.argmax(1).tolist()} vs {p32.argmax(1).tolist()}")
+
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(3):
+            clf.classify_u8(clips)
+        runs.append(3 * b / (time.perf_counter() - t0))
+    fwd_ms = event_ms(lambda: clf.logits_device(u8), 5)
+    h2d_ms = event_ms(lambda: clf._put(clips), 5)
+    rows = classify_rows(fb, name, ops16, calls, card)
+    del ops16, u8
+    torch.cuda.empty_cache()
+    rows += kinetics_depthwise(dwc, dev, seed, worst, card)
+    per = {k: per_forward(rows, k, t, b, model=name)
+           for k in ("fused_block_fwd", "fused_block_se_sums")}
+    per["depthwise_conv3d"] = per_forward(rows, "depthwise_conv3d", t, b,
+                                          "launches_per_classify_forward", name)
+    summed = {k: p["launches_per_forward"] for k, p in per.items()}
+    if summed != KINETICS_PER_FORWARD:
+        raise AssertionError(f"{name} rows sum to {summed} launches, want {KINETICS_PER_FORWARD}")
+    stats = {"frames": t, "side": side, "batch": b, "launches": launches,
+             "fp32_logit_max_abs_err": err, "logit_max_abs": top, "fp32_top1_equal": True,
+             "bf16_top1_agreement_vs_fp32_plain": float((logits.argmax(1) == p32.argmax(1))
+                                                        .mean()),
+             "bf16_top1_agreement_vs_bf16_plain": float((logits.argmax(1) == p16.argmax(1))
+                                                        .mean()),
+             "clips_per_s": runs, "forward_ms": fwd_ms, "h2d_ms": h2d_ms,
+             "per_forward": per, "card": card}
+    print(f"classify_u8 {name} {t}x{side}^2 bf16 batch {b}: {runs} clips/s end to end, "
+          f"{fwd_ms} ms per forward and {h2d_ms} ms per upload on the device ({card}); "
+          f"{json.dumps({k: v for k, v in stats.items() if k != 'per_forward'})}", flush=True)
+    print(f"kernels {name} {t}x{side}^2 bf16 batch {b}, per classify_u8 forward ({card}): "
+          f"{json.dumps(per)}", flush=True)
+    del model, clf, f32_clf
+    torch.cuda.empty_cache()
+    stats["seconds"] = time.perf_counter() - t_start
+    print(f"kinetics phase: {stats['seconds']:.1f} s", flush=True)
+    return stats, rows
+
+
+def kinetics_only(fb, dwc, dev, args, card) -> int:
+    """``--kinetics-only``: phase 16 alone, details beside ``--out`` as
+    ``chip_smoke_kinetics.json``; the per-forward kernels JSON last."""
+    worst = {"fused_block_fwd": {}, "fused_block_se_sums": {}, "depthwise_conv3d": {}}
+    stats, rows = phase_kinetics(fb, dwc, dev, worst, args.seed, card)
+    out = os.path.splitext(args.out)[0] + "_kinetics.json"
+    if os.path.dirname(out):
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out, "w") as f:
+        json.dump({"card": card, "kinetics": stats, "rows": rows, "worst": worst}, f, indent=1)
+    print(f"kernels vs plain versions, worst over phase 16: {json.dumps(worst)}", flush=True)
+    print(json.dumps({"kernels": {KINETICS[0]: stats["per_forward"]}}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -3001,6 +3175,8 @@ def main(argv=None) -> int:
                     help="build the kernels and run the data phase and phase 9's cli cc alone")
     ap.add_argument("--classify-only", action="store_true",
                     help="build the kernels and run phase 15 (the Kinetics classifiers) alone")
+    ap.add_argument("--kinetics-only", action="store_true",
+                    help="build the kernels and run phase 16 (X3D-L, 16 x 312^2, B = 30) alone")
     ap.add_argument("--depthwise-only", action="store_true",
                     help="build the kernels and run the depthwise kernel's checks, launch "
                          "counts and timings alone")
@@ -3045,6 +3221,8 @@ def main(argv=None) -> int:
         return data_only(fb, dev, args, card)
     if args.classify_only:
         return classify_only(fb, dev, args, card)
+    if args.kinetics_only:
+        return kinetics_only(fb, dwc, dev, args, card)
     if args.depthwise_only:
         return depthwise_only(dwc, dev, args, card)
 
@@ -3075,6 +3253,8 @@ def main(argv=None) -> int:
     rows += repro_rows(rp, dev, args.seed, card)
     classify, classify_rows_ = phase_classify(fb, dev, worst, args.seed, card)
     rows += classify_rows_
+    kinetics, kinetics_rows = phase_kinetics(fb, dwc, dev, worst, args.seed, card)
+    rows += kinetics_rows
 
     train = {"parity": {task: phase_train_parity(dev, args.seed, task) for task in TASKS}}
     train["parity"]["cc"] = phase_cc_train_parity(dev, args.seed)
@@ -3116,6 +3296,7 @@ def main(argv=None) -> int:
     print(f"int8 and remat phase: {quant['seconds']:.1f} s", flush=True)
     print(f"data phase: {data['seconds']:.1f} s", flush=True)
     print(f"classify phase: {classify['seconds']:.1f} s", flush=True)
+    print(f"kinetics phase: {kinetics['seconds']:.1f} s", flush=True)
     print(f"kernels vs plain versions, worst over every check: {json.dumps(worst)}", flush=True)
     for task in TASKS:
         runs, fwd_ms = times[task]
@@ -3129,6 +3310,9 @@ def main(argv=None) -> int:
             print(f"{name} classify bf16 {c['frames']}x{c['side']}^2 batch {c['batch']} {kind} "
                   f"blocks: {c['clips_per_s'][kind]} clips/s end to end, {c['forward_ms'][kind]} "
                   f"ms per forward on the device ({card})", flush=True)
+    print(f"{KINETICS[0]} classify_u8 bf16 {KINETICS[2]}x{KINETICS[3]}^2 batch {KINETICS[1]} "
+          f"fused blocks: {kinetics['clips_per_s']} clips/s end to end, "
+          f"{kinetics['forward_ms']} ms per forward on the device ({card})", flush=True)
     for beam, row in cc_times.items():
         print(f"cc caption_u8 bf16 256^2 batch {args.batch} beam {beam}: "
               f"{row['captions_per_s']} captions/s end to end, encoder {row['encoder_ms']} ms, "
@@ -3145,6 +3329,7 @@ def main(argv=None) -> int:
         forwards["cc_batch32"] = per_forward(rows, kernel, 3, CC_BATCH, "launches_per_cc_forward")
         for name, t, _ in CLASSIFY:
             forwards[name] = per_forward(rows, kernel, t, CLASSIFY_BATCH, model=name)
+        forwards[KINETICS[0]] = kinetics["per_forward"][kernel]
         shapes = [{k: r[k] for k in ("model", "stage", "shape", "tt", "tile", "chunk",
                                      "launches_per_forward", "ms", "plain_ms", "bound_ms",
                                      "bound_by")}
@@ -3155,8 +3340,9 @@ def main(argv=None) -> int:
             "launches_scd_forward": launches["scd"][kernel],
             "launches_bda_forward": launches["bda"][kernel],
             "launches_cc_forward": cc_launches[1][kernel],
-            "launches_classify_forward": {name: classify[name]["launches"][kernel]
-                                          for name, _, _ in CLASSIFY},
+            "launches_classify_forward": {**{name: classify[name]["launches"][kernel]
+                                             for name, _, _ in CLASSIFY},
+                                          KINETICS[0]: kinetics["launches"][kernel]},
             "launches_per_forward": forwards["bcd"]["launches_per_forward"],
             "launches_train_loop": {task: loop[0][kernel] for task, loop in loops.items()},
             "launches_deploy": {
@@ -3187,12 +3373,14 @@ def main(argv=None) -> int:
             "per": f"one bf16 BCD forward (T=3) at batch {args.batch}, summed over its launches; "
                    f"per_forward gives SCD (T=5), BDA (T=4), CC (T=3, stages 1-4, at batch "
                    f"{args.batch} and {CC_BATCH}) and the X3D-M / S / XS classifiers (T=16, 13, "
-                   f"4 at batch {CLASSIFY_BATCH}) too; classify_shapes their shapes, T-tiles "
+                   f"4 at batch {CLASSIFY_BATCH}) and X3D-L's Kinetics classifier (T=16 at "
+                   f"312^2, batch {KINETICS[1]}) too; classify_shapes their shapes, T-tiles "
                    f"(tt) and times",
         })
     dw_worst = lambda dtype, k: max(w[dtype][k] for w in worst["depthwise_conv3d"].values()
                                     if dtype in w)
     dw_per_forward = depthwise_per_forward(rows)
+    dw_per_forward[KINETICS[0]] = kinetics["per_forward"]["depthwise_conv3d"]
     kernels.append({
         "name": "depthwise_conv3d", "route": "cuda", "source": DW_SOURCE,
         "replaces": "none: an XLA conv on the TPU (change3d_tpu/ops/layers.py:depthwise_conv3d); "
@@ -3209,7 +3397,8 @@ def main(argv=None) -> int:
         "library_ms": dw_per_forward["bcd"]["library_ms"], "per_forward": dw_per_forward,
         "bcd_profiled": dw_forwards["bcd_profiled"],
         "per": f"one bf16 BCD forward (T=3) at batch {DW_BATCH}, summed over its launches; "
-               f"per_forward gives SCD, BDA, CC, the int8 (unfused) BCD and CC and X3D-M; "
+               f"per_forward gives SCD, BDA, CC, the int8 (unfused) BCD and CC, X3D-M and "
+               f"X3D-L's Kinetics classifier (batch {KINETICS[1]}); "
                f"library_ms is cuDNN's F.conv3d(groups=C) on [B, C, T, H, W], "
                f"relayout_library_ms the same with the relayouts to and from it; rows give "
                f"every shape, X3D-M's included",
@@ -3234,6 +3423,7 @@ def main(argv=None) -> int:
               "pairs_per_s": {task: times[task][0] for task in TASKS},
               "forward_ms": {task: times[task][1] for task in TASKS},
               "forward_check": forward_check, "cc_times": cc_times, "classify": classify,
+              "kinetics": kinetics,
               "depthwise_forwards": dw_forwards,
               "rows": rows,
               "kernels": kernels, "train": train, "deploy": deploy, "export": export,

@@ -65,6 +65,35 @@ def test_plan_fits_the_kernel_at_main_path_shapes(shape, itemsize):
         assert p.vec == 8  # 16-byte loads and stores
 
 
+# Today's plans, held fixed, at the stem's and the strided block 0s' shapes
+# of the benchmark's cells (BCD, serving and CC on T = 3, CC's stage 4
+# included; SCD on T = 5) and of X3D-L's Kinetics-400 clip (16 x 312^2 at
+# the (1, 2, 2) stem stride; stage 3 halves 39 to 20): (T, H, W, C, kernel,
+# stride, padding) -> DwPlan.
+STEM, S2 = ((5, 1, 1), (1, 1, 1), (2, 0, 0)), ((3, 3, 3), (1, 2, 2), (1, 1, 1))
+PINNED = {
+    (3, 256, 256, 24, *STEM): (8, 3, 1, 128, 24, 384, 18960, 512),
+    (3, 256, 256, 54, *S2): (2, 3, 4, 4, 54, 432, 32616, 1024),
+    (3, 128, 128, 108, *S2): (4, 3, 4, 8, 36, 288, 37584, 384),
+    (3, 64, 64, 216, *S2): (8, 3, 8, 8, 32, 256, 59760, 112),
+    (3, 32, 32, 432, *S2): (8, 3, 8, 8, 48, 384, 89232, 36),
+    (5, 256, 256, 24, *STEM): (8, 5, 1, 128, 24, 384, 31280, 512),
+    (5, 256, 256, 54, *S2): (2, 5, 4, 4, 54, 432, 50472, 1024),
+    (5, 128, 128, 108, *S2): (4, 5, 4, 8, 36, 288, 60048, 384),
+    (5, 64, 64, 216, *S2): (8, 5, 8, 8, 32, 256, 97296, 112),
+    (16, 156, 156, 24, *STEM): (8, 16, 4, 32, 24, 384, 99808, 195),
+    (16, 156, 156, 54, *S2): (2, 16, 2, 4, 54, 216, 85192, 780),
+    (16, 78, 78, 108, *S2): (4, 16, 4, 4, 36, 144, 100656, 300),
+    (16, 39, 39, 216, *S2): (8, 6, 4, 4, 72, 144, 102240, 225),
+    (16, 20, 20, 432, *S2): (8, 6, 4, 4, 72, 144, 102240, 162),
+}
+
+
+@pytest.mark.parametrize("shape", list(PINNED), ids=str)
+def test_depthwise_plans_are_pinned(shape):
+    assert tuple(dw.plan_depthwise(*shape, 2)) == PINNED[shape]
+
+
 def test_plan_vectors_follow_c():
     assert [dw.vector_width(c, 2) for c in (24, 54, 108, 216, 7)] == [8, 2, 4, 8, 1]
     assert [dw.vector_width(c, 4) for c in (24, 54, 108, 216, 7)] == [4, 2, 4, 4, 1]

@@ -135,9 +135,18 @@ FAMILY_STAGES = {f"{v}_stage{i + 1}": (t, side // 2 ** (i + 2), c, ci)
 # (ceil(16/6)): F = 5, 180 rows (192 padded) of 192 + 8:
 # (192*200 + 16*200 + 180*16) * 2 = 88960, fwd + (48 + 192) * 24 * 2 = 100480,
 # sums + 3*4*1*16*4 = 89728; 6 T-tiles (the last of one frame) x 2 x 2.
+# X3D-L's Kinetics-400 clip, 16 x 312^2 at the (1, 2, 2) stem stride: stages
+# 1 and 2 in one T-tile over ragged 4 x 4 tiles (78 and 39 are not multiples
+# of 4: 20 x 20 and 10 x 10 tiles), stages 3 and 4 in the T-tiles of X3D-M's
+# (the same layouts on 5 x 5 and 3 x 3 tiles; staged: the resident route
+# takes T <= 5 only).
 T16_PINNED = {
     "stage3": ((16, 14, 14, 96, 216), (8, 4, 16, 102144, 93440, 32, False)),
     "stage4": ((16, 7, 7, 192, 432), (3, 4, 16, 100480, 89728, 24, False)),
+    "k400_stage1": ((16, 78, 78, 24, 54), (16, 4, 32, 107904, 93696, 400, False)),
+    "k400_stage2": ((16, 39, 39, 48, 108), (16, 4, 16, 99328, 88832, 100, False)),
+    "k400_stage3": ((16, 20, 20, 96, 216), (8, 4, 16, 102144, 93440, 50, False)),
+    "k400_stage4": ((16, 10, 10, 192, 432), (3, 4, 16, 100480, 89728, 54, False)),
 }
 
 
