@@ -99,6 +99,20 @@
 //     and conv_c steps two accumulator tiles at a time. The same chunks
 //     give the same K order and every sum its order: the designs agree bit
 //     for bit at the same ck.
+//   split (T-tiled plans, tt < T: 16-frame Kinetics clips at stages 3-4):
+//     a staged T-tile recomputes conv_a on its tile's whole halo for every
+//     chunk (stage 4's 3 x 4 x 4 outputs read 5 x 6 x 6 halo pixels: 6.5x
+//     the conv_a work of the clip). Here fused_block_xa_kernel computes xa
+//     once per position into a bf16 [B,T,H,W,Ci] buffer (the same mma K
+//     order from zero, the same BN_a, ReLU and rounding: the same values),
+//     and fused_block_xa_tail_kernel runs the tile code without conv_a: each
+//     chunk's xa halo and w_c rows ([k][n], read by ldmatrix .trans) arrive
+//     by 16-byte cp.async, double-buffered so that the next chunk's copy
+//     overlaps this chunk's taps and conv_c; x is read only at the tile's
+//     core, for the residual. The staged plan's tt and tile, so the se-sums
+//     rows are the same; chunks of a multiple of 16 channels, so conv_c's
+//     16-deep K steps group the same channels as at ck = 16: bit-equal to
+//     the staged kernel.
 //
 // fp32 (the correctness path) keeps the first, scalar design: both products
 // as fp32 FMAs on CUDA cores, conv_c accumulated in fp32 shared memory. It
@@ -132,7 +146,8 @@ struct Params {
   const float* b_c;   // [C]
   int T, H, W, C, Ci, tile, ck;
   int tt;  // frames per T-tile; after the others, since only the T-tiled kernels read it
-  int B;   // samples; read by the persistent (resident) kernels only
+  int B;   // samples; read by the persistent (resident) kernels and the xa pass only
+  const void* xa;  // [B,T,H,W,round_up(Ci, 8)] bf16: the xa pass output, split tail input
 };
 
 // Frames a T-tile of tt frames reads (ops/fused_block.py:halo_frames).
@@ -356,6 +371,50 @@ struct ResidentLayout {
   }
 };
 
+// A split tail's tile (Bf16Layout's sizes, other regions): two buffers of
+// the xa halo chunk, [nh][pad16(ck)]; for fwd two of w_c's chunk rows,
+// [pad16(ck)][sc] ([k][n], rows an odd number of 16-byte units), xs as in
+// Bf16Layout and the x tile's core, [nc][sx] (the residual, then the
+// output); for se_sums the partial sums after the xa buffers.
+// ops/fused_block.py mirrors it in _split_smem.
+struct SplitLayout {
+  Bf16Layout g;
+  int sc, xa_bytes, wc_bytes, off_xs, off_xt, off_part, bytes_fwd, bytes_sums;
+  __host__ __device__ SplitLayout(int T, int tt, int tile, int C, int ck)
+      : g(T, tt, tile, C, ck) {
+    sc = odd16_stride(C);
+    xa_bytes = g.nh * g.ckp * 2;
+    wc_bytes = g.ckp * sc * 2;
+    off_xs = 2 * xa_bytes + 2 * wc_bytes;
+    off_xt = off_xs + g.ncp * g.ss * 2;
+    bytes_fwd = off_xt + g.nc * g.sx * 2;
+    off_part = 2 * xa_bytes;
+    bytes_sums = off_part + tt * tile * (tile / 4) * g.ckp * 4;
+  }
+  // Buffer i (0 or 1) of the xa halo chunk, and of w_c's chunk rows.
+  __device__ int off_xa(int i) const { return i * xa_bytes; }
+  __device__ int off_wc(int i) const { return 2 * xa_bytes + i * wc_bytes; }
+};
+
+// The xa pass: blocks of kXaRows positions, Ci in slabs of kXaCols
+// channels. Its shared memory: the x rows [kXaRows][pad16(C)+8], a slab of
+// w_a's columns [pad16(C)][sb] ([k][n], rows an odd number of 16-byte
+// units) and the slab's output [kXaRows][kXaCols+8]; ops/fused_block.py
+// mirrors it in _xa_smem.
+constexpr int kXaRows = 16 * kWarps, kXaCols = 64;
+struct XaLayout {
+  int kp, sx, sb, so, off_w, off_o, bytes;
+  __host__ __device__ explicit XaLayout(int C) {
+    kp = round_up(C, 16);
+    sx = kp + 8;
+    sb = odd16_stride(kXaCols);
+    so = kXaCols + 8;
+    off_w = kXaRows * sx * 2;
+    off_o = off_w + kp * sb * 2;
+    bytes = off_o + kXaRows * so * 2;
+  }
+};
+
 // A resident block's weights and BN vectors as a tile reads them (unused by
 // a staged block, which reads the vectors from global memory).
 struct Resident {
@@ -402,6 +461,55 @@ __device__ __forceinline__ void stage_transposed(bf16* dst, int dst_ld, const bf
   }
 }
 
+// A split tail's chunk ci0 (kc channels) into one of its buffers: the tile's
+// xa halo rows by 16-byte cp.async per 8 channels of an in-clip pixel
+// (zeros outside the clip; xa's rows hold Ci rounded up to 8, the last
+// channels zero) and, for fwd, w_c's rows ci0.. as [k][n] (zeros in the
+// rows past kc, which the last chunk's K padding reads).
+// Each thread walks its (row, 8-channel group) elements e = tid, tid +
+// kThreads, ... by stepping the row and the group, without a division per
+// element. kTile: the tile side where it is fixed at compile time, else 0.
+template <bool kSums, int kTile, bool kTTiled>
+__device__ __forceinline__ void split_chunk(const Params& p, const TilePos<kTTiled>& P,
+                                            const SplitLayout& S, int b, int ci0, int kc,
+                                            bf16* xa_s, bf16* wc_s, int tid) {
+  const int hw = kTile ? kTile + 2 : S.g.hw, k8 = (kc + 7) / 8, cis = round_up(p.Ci, 8);
+  const bf16* xag = static_cast<const bf16*>(p.xa) + (size_t)b * p.T * p.H * p.W * cis + ci0;
+  const int dq = kThreads / k8, dr = kThreads % k8;
+  for (int pos = tid / k8, j = tid % k8; pos < S.g.nh;) {
+    const int xx = pos % hw, yy = (pos / hw) % hw, gt = P.f0 + pos / (hw * hw);
+    const int gy = P.y0 - 1 + yy, gx = P.x0 - 1 + xx;
+    uint4* dst = reinterpret_cast<uint4*>(xa_s + pos * S.g.ckp + j * 8);
+    if (P.has_frame(gt, p.T) && gy >= 0 && gy < p.H && gx >= 0 && gx < p.W)
+      c3d::cp_async16(dst, xag + (((size_t)gt * p.H + gy) * p.W + gx) * cis + j * 8);
+    else
+      *dst = make_uint4(0, 0, 0, 0);
+    pos += dq;
+    j += dr;
+    if (j >= k8) {
+      j -= k8;
+      ++pos;
+    }
+  }
+  if (!kSums) {
+    const int c8 = p.C / 8, cq = kThreads / c8, cr = kThreads % c8;
+    const bf16* wc = static_cast<const bf16*>(p.w_c) + (size_t)ci0 * p.C;
+    for (int k = tid / c8, j = tid % c8; k < S.g.ckp;) {
+      uint4* dst = reinterpret_cast<uint4*>(wc_s + k * S.sc + j * 8);
+      if (k < kc)
+        c3d::cp_async16(dst, wc + (size_t)k * p.C + j * 8);
+      else
+        *dst = make_uint4(0, 0, 0, 0);
+      k += cq;
+      j += cr;
+      if (j >= c8) {
+        j -= c8;
+        ++k;
+      }
+    }
+  }
+}
+
 // The barrier of the threads that work on one tile: the whole block, or in
 // a resident block its group's named barrier (barrier 0 is __syncthreads').
 template <bool kResident>
@@ -415,17 +523,21 @@ __device__ __forceinline__ void tile_sync(int group) {
 // One tile (sample b, tile tile_id of the sample's n_tiles) by kThreads
 // threads (tid), in the tile's shared memory `smem`. A staged block stages
 // each chunk's weights transposed ([n][k]) and reads them by 32-bit loads; a
-// resident block reads its resident [k][n] weights by ldmatrix .trans. Both
-// feed the mma the same fragments, in the same K order.
+// resident block reads its resident [k][n] weights by ldmatrix .trans, a
+// split tail its chunk's [k][n] w_c rows likewise. All feed the mma the same
+// fragments, in the same K order. A split tail (kSplit) reads xa from the
+// xa pass's output instead of computing conv_a, and holds x's core only.
 // kXg: outputs along W per tap thread (4 or 8; the tile is a multiple).
 // kTile: the tile side where it is fixed at compile time (the resident
 // design's, so that the index arithmetic divides by constants), else 0.
-template <bool kSums, int kAcc, int kXg, bool kTTiled, bool kResident, int kTile = 0>
+template <bool kSums, int kAcc, int kXg, bool kTTiled, bool kResident, int kTile = 0,
+          bool kSplit = false>
 __device__ __forceinline__ void bf16_tile(const Params& p, unsigned char* smem, const Resident& R,
                                           int b, int tile_id, int n_tiles, int tid, int group) {
   const int T = p.T, H = p.H, W = p.W, C = p.C, Ci = p.Ci;
   const int tile = kTile ? kTile : p.tile, ck = p.ck, tt = kTTiled ? p.tt : T;  // tt = T untiled
   const Bf16Layout L(T, tt, tile, C, ck, !kResident);
+  const SplitLayout S(T, tt, tile, C, ck);  // read by a split tail only
   const int hw = L.hw, sx = L.sx, ss = L.ss, ckp = L.ckp;
   const TilePos<kTTiled> P(p, tile_id, tile);
   const int t0 = P.t0, f0 = P.f0, y0 = P.y0, x0 = P.x0;
@@ -433,12 +545,13 @@ __device__ __forceinline__ void bf16_tile(const Params& p, unsigned char* smem, 
   const int g = lane >> 2, tq = lane & 3;  // mma fragment row / column pair
   C3D_PHASE(0);
 
-  bf16* xt = reinterpret_cast<bf16*>(smem);
+  // A split tail's x tile is its core: row q for output pixel q.
+  bf16* xt = reinterpret_cast<bf16*>(smem + (kSplit ? S.off_xt : 0));
   bf16* wa_s = reinterpret_cast<bf16*>(smem + L.off_wa);
   bf16* xa = reinterpret_cast<bf16*>(smem + L.off_xa);
-  bf16* xs = reinterpret_cast<bf16*>(smem + L.off_xs);
+  bf16* xs = reinterpret_cast<bf16*>(smem + (kSplit ? S.off_xs : L.off_xs));
   bf16* wc_s = reinterpret_cast<bf16*>(smem + L.off_wc);
-  float* part = reinterpret_cast<float*>(smem + L.off_part);
+  float* part = reinterpret_cast<float*>(smem + (kSplit ? S.off_part : L.off_part));
 
   const size_t sample = (size_t)T * H * W * C;
   const bf16* xg = static_cast<const bf16*>(p.x) + (size_t)b * sample;
@@ -449,9 +562,26 @@ __device__ __forceinline__ void bf16_tile(const Params& p, unsigned char* smem, 
   const float* a_b = kResident ? R.a_b : p.a_b;
   const float* b_b = kResident ? R.b_b : p.b_b;
 
-  // x tile with halo: 16-byte cp.async per 8 channels of an in-clip pixel;
-  // zeros outside the clip, in the K padding and in the padding rows.
-  {
+  if constexpr (kSplit) {
+    // x's core (fwd: the residual) and the first chunk, by 16-byte cp.async.
+    if (!kSums) {
+      const int c8 = C / 8;
+      for (int e = tid; e < L.nc * c8; e += kThreads) {
+        const int j = e % c8, q = e / c8;
+        const int gt = t0 + q / (tile * tile), gy = y0 + (q / tile) % tile, gx = x0 + q % tile;
+        uint4* dst = reinterpret_cast<uint4*>(xt + q * sx + j * 8);
+        if (P.has_frame(gt, T) && gy < H && gx < W)
+          c3d::cp_async16(dst, xg + (((size_t)gt * H + gy) * W + gx) * C + j * 8);
+        else
+          *dst = make_uint4(0, 0, 0, 0);
+      }
+    }
+    split_chunk<kSums, kTile>(p, P, S, b, 0, min(ck, Ci),
+                              reinterpret_cast<bf16*>(smem + S.off_xa(0)),
+                              reinterpret_cast<bf16*>(smem + S.off_wc(0)), tid);
+  } else {
+    // x tile with halo: 16-byte cp.async per 8 channels of an in-clip pixel;
+    // zeros outside the clip, in the K padding and in the padding rows.
     const int c8 = C / 8, s8 = sx / 8;
     for (int e = tid; e < L.nhp * s8; e += kThreads) {
       const int j = e % s8, pos = e / s8;
@@ -486,7 +616,7 @@ __device__ __forceinline__ void bf16_tile(const Params& p, unsigned char* smem, 
 
     // A staged block's chunk of weights, transposed to [n][k] and zero
     // padded (the first chunk's loads overlap the x tile's cp.async).
-    if (!kResident) {
+    if (!kResident && !kSplit) {
       stage_transposed(wa_s, sx, wa + ci0, Ci, L.kp, ckp, C, kc, tid);
       if (!kSums) stage_transposed(wc_s, ss, wc + (size_t)ci0 * C, C, ckp, C, kc, C, tid);
     }
@@ -494,10 +624,23 @@ __device__ __forceinline__ void bf16_tile(const Params& p, unsigned char* smem, 
     tile_sync<kResident>(group);
     C3D_PHASE(ci0 == 0 ? 2 : 10);
 
+    // A split tail's buffers of this chunk (its xa, its [k][n] w_c rows),
+    // and the next chunk's copy into the others: all threads are past the
+    // barrier above, so done with the chunk that used them.
+    const bf16* xa_c = xa;
+    const bf16* wc_k = nullptr;
+    if constexpr (kSplit) {
+      const int buf = (ci0 / ck) & 1;
+      xa_c = reinterpret_cast<const bf16*>(smem + S.off_xa(buf));
+      wc_k = reinterpret_cast<const bf16*>(smem + S.off_wc(buf));
+      if (ci0 + ck < Ci)
+        split_chunk<kSums, kTile>(p, P, S, b, ci0 + ck, min(ck, Ci - ci0 - ck),
+                                  reinterpret_cast<bf16*>(smem + S.off_xa(buf ^ 1)),
+                                  reinterpret_cast<bf16*>(smem + S.off_wc(buf ^ 1)), tid);
+    } else {
     // conv_a on tensor cores -> BN_a -> ReLU -> bf16; 0 outside the clip.
     // A warp item is one m16 row tile x four n8 tiles: the A fragment is
     // loaded once per k step for four independent mma.
-    {
       const int n_at = (kc + 7) / 8, n_grp = (n_at + 3) / 4;
       const int items = (L.nhp / 16) * n_grp;
       for (int it = warp; it < items; it += kWarps) {
@@ -561,17 +704,18 @@ __device__ __forceinline__ void bf16_tile(const Params& p, unsigned char* smem, 
           }
         }
       }
+      tile_sync<kResident>(group);
     }
-    tile_sync<kResident>(group);
     C3D_PHASE(ci0 == 0 ? 3 : 11);
 
     // 27 depthwise taps in fp32 (T zero-padded) -> BN_b. A thread owns
     // channels (k, k+1) of kXg outputs along W in kRows neighbouring rows of
-    // one frame: one row in a staged block, two in a resident one, whose
-    // rows share their weight loads and two of their three xa rows. Each
-    // output sums its taps in (dt, dy, dx) order either way.
+    // one frame: one row in a staged block, two in a resident one or a
+    // split tail of 4-wide groups, whose rows share their weight loads and
+    // two of their three xa rows. Each output sums its taps in (dt, dy, dx)
+    // order either way.
     {
-      constexpr int kRows = kResident ? 2 : 1;
+      constexpr int kRows = kResident || (kSplit && kXg == 4) ? 2 : 1;
       const int pairs = kc / 2, xq_n = tile / kXg, rows = tt * tile / kRows;
       const int wstride = ckp / 2;  // 32-bit words between neighbouring pixels of xa
       for (int e = tid; e < pairs * rows * xq_n; e += kThreads) {
@@ -591,7 +735,7 @@ __device__ __forceinline__ void bf16_tile(const Params& p, unsigned char* smem, 
 #pragma unroll
           for (int iy = 0; iy < kRows + 2; ++iy) {  // xa row y + iy
             const uint32_t* row = reinterpret_cast<const uint32_t*>(
-                xa + (((gt - f0) * hw + y + iy) * hw + xb0) * ckp + k);
+                xa_c + (((gt - f0) * hw + y + iy) * hw + xb0) * ckp + k);
             float2 v[kXg + 2];
 #pragma unroll
             for (int i = 0; i < kXg + 2; ++i) v[i] = c3d::unpack_bf16x2(row[i * wstride]);
@@ -665,10 +809,12 @@ __device__ __forceinline__ void bf16_tile(const Params& p, unsigned char* smem, 
         s += __shfl_xor_sync(0xffffffffu, s, 2);
         if (e < 4 * kc && j == 0) p.sums[((size_t)b * n_tiles + tile_id) * Ci + ci0 + k] = s;
       }
-    } else if constexpr (kResident) {
+    } else if constexpr (kResident || kSplit) {
       // conv_c over this chunk, into the warp's register accumulators, two
       // tiles at a time (two independent mma chains). Lanes 0-15 address
-      // rows ci0 + k0 + lane of the tile's n8 columns of the resident w_c.
+      // rows ci0 + k0 + lane of the tile's n8 columns of the resident w_c,
+      // or rows k0 + lane of a split tail's chunk of w_c.
+      const int sc = kResident ? R.sc : S.sc;
 #pragma unroll
       for (int j = 0; j < kAcc; j += 2) {
         const int it0 = warp + j * kWarps, it1 = it0 + kWarps;
@@ -676,18 +822,20 @@ __device__ __forceinline__ void bf16_tile(const Params& p, unsigned char* smem, 
           const bool two = it1 < n_tc;
           const bf16* a0 = xs + ((it0 / n_nt) * 16 + g) * ss + 2 * tq;
           const bf16* a1 = xs + ((it1 / n_nt) * 16 + g) * ss + 2 * tq;
-          const bf16* b0 = R.wc + (ci0 + (lane & 15)) * R.sc + (it0 % n_nt) * 8;
-          const bf16* b1 = R.wc + (ci0 + (lane & 15)) * R.sc + (it1 % n_nt) * 8;
+          const bf16* b0 = kResident ? R.wc + (ci0 + (lane & 15)) * R.sc + (it0 % n_nt) * 8
+                                     : wc_k + (lane & 15) * sc + (it0 % n_nt) * 8;
+          const bf16* b1 = kResident ? R.wc + (ci0 + (lane & 15)) * R.sc + (it1 % n_nt) * 8
+                                     : wc_k + (lane & 15) * sc + (it1 % n_nt) * 8;
           for (int k0 = 0; k0 < ckp; k0 += 16) {
             uint32_t bq[2];
             const uint32_t a[4] = {ld32(a0 + k0), ld32(a0 + 8 * ss + k0), ld32(a0 + k0 + 8),
                                    ld32(a0 + 8 * ss + k0 + 8)};
-            c3d::ldmatrix_x2_trans(bq, b0 + k0 * R.sc);
+            c3d::ldmatrix_x2_trans(bq, b0 + k0 * sc);
             c3d::mma_bf16_16816(acc[j], a, bq[0], bq[1]);
             if (two) {
               const uint32_t a_[4] = {ld32(a1 + k0), ld32(a1 + 8 * ss + k0), ld32(a1 + k0 + 8),
                                       ld32(a1 + 8 * ss + k0 + 8)};
-              c3d::ldmatrix_x2_trans(bq, b1 + k0 * R.sc);
+              c3d::ldmatrix_x2_trans(bq, b1 + k0 * sc);
               c3d::mma_bf16_16816(acc[j + 1], a_, bq[0], bq[1]);
             }
           }
@@ -711,7 +859,8 @@ __device__ __forceinline__ void bf16_tile(const Params& p, unsigned char* smem, 
         }
       }
     }
-    tile_sync<kResident>(group);
+    // (A split tail's next chunk starts with a barrier before its writes.)
+    if constexpr (!kSplit) tile_sync<kResident>(group);
     C3D_PHASE(ci0 == 0 ? 5 : 13);
   }
 
@@ -729,8 +878,8 @@ __device__ __forceinline__ void bf16_tile(const Params& p, unsigned char* smem, 
           const int q = mt * 16 + g + 8 * h;
           if (q >= L.nc) continue;
           const int tx = q % tile, ty = (q / tile) % tile, f = t0 + q / (tile * tile) - f0;
-          uint32_t* xr =
-              reinterpret_cast<uint32_t*>(xt + ((f * hw + ty + 1) * hw + tx + 1) * sx + c);
+          uint32_t* xr = reinterpret_cast<uint32_t*>(
+              kSplit ? xt + q * sx + c : xt + ((f * hw + ty + 1) * hw + tx + 1) * sx + c);
           const float2 res = c3d::unpack_bf16x2(*xr);
           *xr = c3d::pack_bf16x2(fmaxf(acc[j][2 * h] * ac.x + bc.x + res.x, 0.f),
                                  fmaxf(acc[j][2 * h + 1] * ac.y + bc.y + res.y, 0.f));
@@ -748,8 +897,9 @@ __device__ __forceinline__ void bf16_tile(const Params& p, unsigned char* smem, 
       const int gy = y0 + ty, gx = x0 + tx;
       if (!P.has_frame(gt, T) || gy >= H || gx >= W) continue;
       *reinterpret_cast<uint4*>(og + (((size_t)gt * H + gy) * W + gx) * C + j * 8) =
-          *reinterpret_cast<const uint4*>(xt + (((gt - f0) * hw + ty + 1) * hw + tx + 1) * sx +
-                                          j * 8);
+          *reinterpret_cast<const uint4*>(
+              kSplit ? xt + q * sx + j * 8
+                     : xt + (((gt - f0) * hw + ty + 1) * hw + tx + 1) * sx + j * 8);
     }
     C3D_PHASE(7);
     // A resident group's next tile overwrites the x tile read above.
@@ -763,6 +913,132 @@ __global__ void __launch_bounds__(kThreads, 2) fused_block_bf16_kernel(Params p)
   extern __shared__ __align__(16) unsigned char smem[];
   bf16_tile<kSums, kAcc, kXg, kTTiled, false>(p, smem, Resident{}, blockIdx.y, blockIdx.x,
                                                gridDim.x, threadIdx.x, 0);
+}
+
+// The split design's tail (T-tiled plans): the staged grid and tiles, xa
+// from the xa pass (Params::xa). kTile: the tile side where it is 4 (every
+// T-tiled X3D stage), fixed at compile time as in the resident design, else 0.
+template <bool kSums, int kAcc, int kXg, int kTile>
+__global__ void __launch_bounds__(kThreads, 2) fused_block_xa_tail_kernel(Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16_tile<kSums, kAcc, kXg, true, false, kTile, true>(p, smem, Resident{}, blockIdx.y,
+                                                         blockIdx.x, gridDim.x, threadIdx.x, 0);
+}
+
+// The split design's xa pass: xa = round(relu(x @ w_a * a_a + b_a)) at every
+// position, [B*T*H*W, round_up(Ci, 8)] bf16 (zeros in the channels from Ci
+// on, so that every row is whole 16-byte units) into Params::out. A block
+// takes kXaRows positions, copies their x rows once and walks Ci in slabs
+// of kXaCols channels, each warp 16 rows x 8 n8 tiles of a slab; the next
+// slab's w_a columns are copied while this slab's epilogue runs. Copies by
+// 16-byte cp.async (4-byte where Ci is not a multiple of 8; zeros in the K
+// padding, past the last position and past Ci). conv_a as the tile
+// computes it: fp32 accumulators from 0, K in 16s from 0 over the
+// zero-padded pad16(C), then BN_a, ReLU and the bf16 rounding, so xa holds
+// the values the tile would have made. Each slab's output goes through
+// shared memory to 16-byte stores.
+constexpr int kXaN8 = kXaCols / 8;
+
+// w_a's columns col0 .. col0 + kXaCols as [k][n] rows of stride sb.
+__device__ __forceinline__ void xa_columns(bf16* ws, const bf16* wa, const XaLayout& X, int C,
+                                           int Ci, int col0, int tid) {
+  if (Ci % 8 == 0) {
+    for (int e = tid; e < X.kp * kXaN8; e += kThreads) {
+      const int j = e % kXaN8, k = e / kXaN8;
+      uint4* dst = reinterpret_cast<uint4*>(ws + k * X.sb + j * 8);
+      if (k < C && col0 + j * 8 < Ci)
+        c3d::cp_async16(dst, wa + (size_t)k * Ci + col0 + j * 8);
+      else
+        *dst = make_uint4(0, 0, 0, 0);
+    }
+  } else {
+    constexpr int n2 = kXaCols / 2;
+    for (int e = tid; e < X.kp * n2; e += kThreads) {
+      const int j = e % n2, k = e / n2;
+      uint32_t* dst = reinterpret_cast<uint32_t*>(ws + k * X.sb + j * 2);
+      if (k < C && col0 + j * 2 < Ci)
+        c3d::cp_async4(dst, wa + (size_t)k * Ci + col0 + j * 2);
+      else
+        *dst = 0u;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 2) fused_block_xa_kernel(Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  C3D_PHASE(0);
+  const int C = p.C, Ci = p.Ci, cis = round_up(Ci, 8);
+  const XaLayout X(C);
+  const long long rows = (long long)p.B * p.T * p.H * p.W;
+  const long long row0 = (long long)blockIdx.x * kXaRows;
+  bf16* xs = reinterpret_cast<bf16*>(smem);
+  bf16* ws = reinterpret_cast<bf16*>(smem + X.off_w);
+  bf16* os = reinterpret_cast<bf16*>(smem + X.off_o);
+  const bf16* xg = static_cast<const bf16*>(p.x);
+  const bf16* wa = static_cast<const bf16*>(p.w_a);
+  bf16* xa = static_cast<bf16*>(p.out);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  {
+    const int c8 = C / 8, s8 = X.kp / 8;
+    for (int e = tid; e < kXaRows * s8; e += kThreads) {
+      const int j = e % s8, r = e / s8;
+      uint4* dst = reinterpret_cast<uint4*>(xs + r * X.sx + j * 8);
+      if (j < c8 && row0 + r < rows)
+        c3d::cp_async16(dst, xg + (size_t)(row0 + r) * C + j * 8);
+      else
+        *dst = make_uint4(0, 0, 0, 0);
+    }
+  }
+  xa_columns(ws, wa, X, C, Ci, 0, tid);
+  const bf16* a0 = xs + (warp * 16 + g) * X.sx + 2 * tq;
+  const bf16* a1 = a0 + 8 * X.sx;
+  // Lane l addresses row k0 + l % 16 of n8 tile l / 16 (+ j): two n8
+  // tiles' b fragments per ldmatrix.x4.
+  const bf16* br = ws + (lane & 15) * X.sb + (lane >> 4) * 8;
+  for (int col0 = 0; col0 < cis; col0 += kXaCols) {
+    c3d::cp_async_wait_all();
+    __syncthreads();  // this slab's columns landed; the last slab's stores read os
+    if (col0 == 0) C3D_PHASE(1);
+    float d[kXaN8][4];
+#pragma unroll
+    for (int j = 0; j < kXaN8; ++j) d[j][0] = d[j][1] = d[j][2] = d[j][3] = 0.f;
+    for (int k0 = 0; k0 < X.kp; k0 += 16) {
+      const uint32_t a[4] = {ld32(a0 + k0), ld32(a1 + k0), ld32(a0 + k0 + 8), ld32(a1 + k0 + 8)};
+#pragma unroll
+      for (int j = 0; j < kXaN8; j += 2) {
+        uint32_t bq[4];
+        c3d::ldmatrix_x4_trans(bq, br + k0 * X.sb + j * 8);
+        c3d::mma_bf16_16816(d[j], a, bq[0], bq[1]);
+        c3d::mma_bf16_16816(d[j + 1], a, bq[2], bq[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this slab's columns
+    if (col0 == 0) C3D_PHASE(2);
+    if (col0 + kXaCols < cis) xa_columns(ws, wa, X, C, Ci, col0 + kXaCols, tid);
+#pragma unroll
+    for (int j = 0; j < kXaN8; ++j) {
+      const int k = j * 8 + 2 * tq;  // the slab's channels of d[j][2h], d[j][2h+1]
+      float2 aa = make_float2(0.f, 0.f), ba = make_float2(0.f, 0.f);
+      if (col0 + k < Ci) {
+        aa = __ldg(reinterpret_cast<const float2*>(p.a_a + col0 + k));
+        ba = __ldg(reinterpret_cast<const float2*>(p.b_a + col0 + k));
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<uint32_t*>(os + (warp * 16 + g + 8 * h) * X.so + k) =
+            c3d::pack_bf16x2(fmaxf(d[j][2 * h] * aa.x + ba.x, 0.f),
+                             fmaxf(d[j][2 * h + 1] * aa.y + ba.y, 0.f));
+    }
+    __syncthreads();
+    for (int e = tid; e < kXaRows * kXaN8; e += kThreads) {
+      const int j = e % kXaN8, r = e / kXaN8;
+      if (row0 + r < rows && col0 + j * 8 < cis)
+        *reinterpret_cast<uint4*>(xa + (size_t)(row0 + r) * cis + col0 + j * 8) =
+            *reinterpret_cast<const uint4*>(os + r * X.so + j * 8);
+    }
+  }
+  C3D_PHASE(3);
 }
 
 // The weight-resident design (one T-tile, kResidentTile x kResidentTile
@@ -876,9 +1152,37 @@ KernelFn pick_resident(int dtype, bool sums, const Params& p, int smem) {
   return sums ? fused_block_resident_kernel<true, 1> : fused_block_resident_kernel<false, 8>;
 }
 
-KernelFn pick_kernel(int dtype, bool sums, const Params& p, int smem, bool resident) {
+// The split design's tail: bf16, T-tiles shorter than the clip, C a
+// multiple of 8 and Ci of 2, chunks that start at a multiple of 8 channels
+// (16-byte copies), and SplitLayout's byte count.
+KernelFn pick_split(int dtype, bool sums, const Params& p, int smem) {
+  const SplitLayout S(p.T, p.tt, p.tile, p.C, p.ck);
+  if (dtype != 1 || p.tt >= p.T || p.C % 8 != 0 || p.Ci % 2 != 0 ||
+      (p.ck % 8 != 0 && p.ck < p.Ci) || p.tile % 4 != 0 ||
+      smem != (sums ? S.bytes_sums : S.bytes_fwd))
+    return nullptr;
+  const bool wide = p.tile % 8 == 0, four = p.tile == 4;
+  if (sums)
+    return wide ? fused_block_xa_tail_kernel<true, 1, 8, 0>
+                : four ? fused_block_xa_tail_kernel<true, 1, 4, 4> : nullptr;
+  const int per_warp = ((S.g.ncp / 16) * (p.C / 8) + kWarps - 1) / kWarps;
+  if (per_warp <= 8)
+    return wide ? fused_block_xa_tail_kernel<false, 8, 8, 0>
+                : four ? fused_block_xa_tail_kernel<false, 8, 4, 4> : nullptr;
+  if (per_warp <= 16)
+    return four ? fused_block_xa_tail_kernel<false, 16, 4, 4>
+                : fused_block_xa_tail_kernel<false, 16, 4, 0>;
+  return nullptr;
+}
+
+// The designs, as ops/fused_block.py passes them.
+enum Design { kStaged = 0, kResidentDesign = 1, kSplitDesign = 2 };
+
+KernelFn pick_kernel(int dtype, bool sums, const Params& p, int smem, int design) {
   if (p.tt < 1 || p.tt > p.T) return nullptr;
-  if (resident) return pick_resident(dtype, sums, p, smem);
+  if (design == kResidentDesign) return pick_resident(dtype, sums, p, smem);
+  if (design == kSplitDesign) return pick_split(dtype, sums, p, smem);
+  if (design != kStaged) return nullptr;
   return p.tt < p.T ? pick_kernel<true>(dtype, sums, p, smem)
                     : pick_kernel<false>(dtype, sums, p, smem);
 }
@@ -893,14 +1197,15 @@ cudaError_t set_attributes(KernelFn kernel, int smem) {
                               (int)cudaSharedmemCarveoutMaxShared);
 }
 
-int launch(int dtype, bool sums, const Params& p, int smem, bool resident, void* stream) {
-  KernelFn kernel = pick_kernel(dtype, sums, p, smem, resident);
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+int launch(int dtype, bool sums, const Params& p, int smem, int design, void* stream) {
+  KernelFn kernel = pick_kernel(dtype, sums, p, smem, design);
+  if (kernel == nullptr || (design == kSplitDesign && p.xa == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = set_attributes(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const int tiles = ((p.T + p.tt - 1) / p.tt) * ((p.H + p.tile - 1) / p.tile) *
                     ((p.W + p.tile - 1) / p.tile);
-  if (resident) {
+  if (design == kResidentDesign) {
     // Persistent: one block per SM of the current card (the caller makes x's
     // card current), fewer where the items do not fill them.
     int dev = 0, sms = 0;
@@ -934,44 +1239,66 @@ Params make_params(const void* x, const void* w_a, const void* a_a, const void* 
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; resident: the weight-resident design
-// (ops/fused_block.py:plan_block decides). Returns a cudaError_t (0 on
-// success).
+// dtype: 0 = float32, 1 = bfloat16; design: 0 staged, 1 weight-resident, 2
+// the split design's tail, which reads xa (the xa pass's output; null
+// otherwise) (ops/fused_block.py:plan_block decides). Returns a cudaError_t
+// (0 on success).
 extern "C" int c3d_fused_block_fwd(int dtype, const void* x, void* out, const void* w_a,
                                    const void* a_a, const void* b_a, const void* w_dw,
                                    const void* a_b, const void* b_b, const void* gate,
                                    const void* w_c, const void* a_c, const void* b_c, int B,
                                    int T, int H, int W, int C, int Ci, int tt, int tile,
-                                   int ck, int smem, int resident, void* stream) {
+                                   int ck, int smem, int design, const void* xa, void* stream) {
   Params p = make_params(x, w_a, a_a, b_a, w_dw, a_b, b_b, B, T, H, W, C, Ci, tt, tile, ck);
   p.out = out;
   p.gate = static_cast<const float*>(gate);
   p.w_c = w_c;
   p.a_c = static_cast<const float*>(a_c);
   p.b_c = static_cast<const float*>(b_c);
-  return launch(dtype, false, p, smem, resident != 0, stream);
+  p.xa = xa;
+  return launch(dtype, false, p, smem, design, stream);
 }
 
 extern "C" int c3d_fused_block_se_sums(int dtype, const void* x, void* sums, const void* w_a,
                                        const void* a_a, const void* b_a, const void* w_dw,
                                        const void* a_b, const void* b_b, int B, int T, int H,
                                        int W, int C, int Ci, int tt, int tile, int ck, int smem,
-                                       int resident, void* stream) {
+                                       int design, const void* xa, void* stream) {
   Params p = make_params(x, w_a, a_a, b_a, w_dw, a_b, b_b, B, T, H, W, C, Ci, tt, tile, ck);
   p.sums = static_cast<float*>(sums);
-  return launch(dtype, true, p, smem, resident != 0, stream);
+  p.xa = xa;
+  return launch(dtype, true, p, smem, design, stream);
+}
+
+// The split design's xa pass (bf16): xa [B,T,H,W,round_up(Ci, 8)] from x,
+// w_a and BN_a; C a multiple of 8 and Ci of 2, smem XaLayout's byte count.
+extern "C" int c3d_fused_block_xa(const void* x, void* xa, const void* w_a, const void* a_a,
+                                  const void* b_a, int B, int T, int H, int W, int C, int Ci,
+                                  int smem, void* stream) {
+  Params p = make_params(x, w_a, a_a, b_a, nullptr, nullptr, nullptr, B, T, H, W, C, Ci, T, 4,
+                         Ci);
+  p.out = xa;
+  const long long blocks = ((long long)B * T * H * W + kXaRows - 1) / kXaRows;
+  if (C % 8 != 0 || Ci % 2 != 0 || smem != XaLayout(C).bytes || blocks > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = set_attributes(fused_block_xa_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (blocks > 0)
+    fused_block_xa_kernel<<<(unsigned)blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        p);
+  return (int)cudaGetLastError();
 }
 
 // Blocks of the chosen kernel that fit one SM at once (occupancy), or -1 if
 // the kernels do not take the call.
 extern "C" int c3d_fused_block_blocks_per_sm(int dtype, int se_sums, int T, int tt, int C,
-                                             int Ci, int tile, int ck, int smem, int resident) {
+                                             int Ci, int tile, int ck, int smem, int design) {
   Params p{};
   p.T = T; p.tt = tt; p.C = C; p.Ci = Ci; p.tile = tile; p.ck = ck;
-  KernelFn kernel = pick_kernel(dtype, se_sums != 0, p, smem, resident != 0);
+  KernelFn kernel = pick_kernel(dtype, se_sums != 0, p, smem, design);
   if (kernel == nullptr || set_attributes(kernel, smem) != cudaSuccess) return -1;
   int n = -1;
-  const int threads = resident ? kGroups * kThreads : kThreads;
+  const int threads = design == kResidentDesign ? kGroups * kThreads : kThreads;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem) != cudaSuccess)
     return -1;
   return n;

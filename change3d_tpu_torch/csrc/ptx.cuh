@@ -66,6 +66,12 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
                : "memory");
 }
 
+// 4-byte global -> shared copy (through L1); completes at cp_async_wait_all.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(smem)), "l"(gmem)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }

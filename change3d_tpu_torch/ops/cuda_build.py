@@ -43,12 +43,15 @@ _D = ctypes.c_double
 # C signatures of every exported function, by library name.
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "fused_block": {
+        # ..., then the design, the xa pass's output (or null) and the stream
         "c3d_fused_block_fwd": (
-            [_I] + [_VP] * 12 + [_I] * 11 + [_VP], _I,
+            [_I] + [_VP] * 12 + [_I] * 11 + [_VP] * 2, _I,
         ),
         "c3d_fused_block_se_sums": (
-            [_I] + [_VP] * 8 + [_I] * 11 + [_VP], _I,
+            [_I] + [_VP] * 8 + [_I] * 11 + [_VP] * 2, _I,
         ),
+        # x, xa, w_a, a_a, b_a, B, T, H, W, C, Ci, shared-memory bytes, stream
+        "c3d_fused_block_xa": ([_VP] * 5 + [_I] * 7 + [_VP], _I),
         "c3d_fused_block_blocks_per_sm": ([_I] * 10, _I),
         "c3d_error_string": ([_I], ctypes.c_char_p),
     },

@@ -17,8 +17,11 @@ where round() is a cast to the activation dtype. Two kernels
 needs. Each is a ``torch.library`` custom op (``c3d::fused_block_fwd``,
 ``c3d::fused_block_se_sums``) whose CPU kernel is its plain version and
 whose CUDA kernel launches the CUDA kernel (or raises); the CUDA kernel
-counts its launches in ``<wrapper>.launches``. The fake kernels let
-``torch.export`` keep both as single graph nodes (``export.py``).
+counts its launches in ``<wrapper>.launches``. Where ``plan_block`` gives a
+T-tiled bf16 shape the split design, the CUDA kernel of either op runs
+the xa pass (xa at every position, into a scratch buffer) and then the
+kernel's tail on it. The fake kernels let ``torch.export`` keep both as
+single graph nodes (``export.py``).
 """
 
 from __future__ import annotations
@@ -47,6 +50,8 @@ MIN_CHUNK = 16
 # tiles a warp keeps in registers (4 fp32 each).
 WARPS = 8
 MAX_ACC_TILES = 16
+# The split design's xa pass: positions x channels a block computes.
+XA_ROWS, XA_COLS = 16 * WARPS, 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -94,13 +99,35 @@ def _resident_smem(t: int, tile: int, c: int, ci: int, ck: int) -> Tuple[int, in
             w_a + 4 * ci * 4 + RESIDENT_GROUPS * sums)
 
 
+def _split_smem(tt: int, tile: int, c: int, ck: int, frames: int) -> Tuple[int, int]:
+    """(fwd, se_sums) shared-memory bytes of a split tail's tile
+    (csrc/fused_block.cu: SplitLayout): two buffers of the xa halo chunk,
+    [nh][pad16(ck)]; for fwd two of w_c's chunk rows, [pad16(ck)][C as an
+    odd number of 16-byte units], xs [pad16(nc)][pad16(ck) + 8] and x's core
+    [nc][pad16(C) + 8]; for se_sums the partial sums after the xa buffers."""
+    nh, nc, ckp = frames * (tile + 2) ** 2, tt * tile * tile, _pad16(ck)
+    xa = 2 * nh * ckp * 2
+    fwd = xa + (2 * ckp * _odd16_stride(c) + _pad16(nc) * (ckp + 8) + nc * (_pad16(c) + 8)) * 2
+    return fwd, xa + tt * tile * (tile // 4) * ckp * 4
+
+
+def _xa_smem(c: int) -> int:
+    """Shared-memory bytes of the xa pass (csrc/fused_block.cu: XaLayout):
+    XA_ROWS rows of x, w_a's XA_COLS columns as [pad16(C)] rows of an odd
+    number of 16-byte units, the output tile."""
+    kp = _pad16(c)
+    return (XA_ROWS * (kp + 8) + kp * _odd16_stride(XA_COLS) + XA_ROWS * (XA_COLS + 8)) * 2
+
+
 class BlockPlan(NamedTuple):
     """How the kernels cover one block shape: ``tt``-frame temporal tiles of
     ``tile`` x ``tile`` pixels, Ci walked in chunks of ``ck``, the bytes of
     shared memory of each kernel, the tiles per sample (T-tiles x H-tiles x
-    W-tiles, T outermost, each row-major), and whether the weight-resident
-    design runs them (persistent blocks that keep w_a and w_c in shared
-    memory) rather than a block per tile that stages each chunk's weights."""
+    W-tiles, T outermost, each row-major), and the design that runs them:
+    weight-resident (``resident``: persistent blocks that keep w_a and w_c
+    in shared memory), split (``split``: an xa pass computes conv_a once per
+    position, then a block per tile reads its xa halo), else a block per
+    tile that stages each chunk's weights and computes conv_a on its halo."""
 
     tt: int
     tile: int
@@ -109,6 +136,7 @@ class BlockPlan(NamedTuple):
     smem_sums: int
     n_tiles: int
     resident: bool = False
+    split: bool = False
 
 
 def halo_frames(t: int, tt: int) -> int:
@@ -171,22 +199,43 @@ def _plan_resident(t: int, c: int, ci: int, staged: BlockPlan) -> Optional[Block
         n_chunks += 1
 
 
+def _plan_split(t: int, c: int, ci: int, staged: BlockPlan) -> Optional[BlockPlan]:
+    """The split plan for a block whose staged plan takes T-tiles (tt < T,
+    where each tile recomputes conv_a on a halo of tt + 2 frames): the
+    staged plan's tt and tile (so the se-sums rows), with the fewest chunks
+    of Ci, each a multiple of 16 channels (conv_c's K steps then group the
+    channels as at any such ck: the same numbers bit for bit), with which
+    the tail fits SMEM_TARGET; None for a one-T-tile plan or an xa pass
+    that does not fit."""
+    if staged.tt == t or _xa_smem(c) > SMEM_TARGET:
+        return None
+    frames = halo_frames(t, staged.tt)
+    for n_chunks in range(1, _ceil(ci, MIN_CHUNK) + 1):
+        ck = min(ci, _pad16(_ceil(ci, n_chunks)))
+        fwd, sums = _split_smem(staged.tt, staged.tile, c, ck, frames)
+        if fwd <= SMEM_TARGET:
+            return staged._replace(ck=ck, smem_fwd=fwd, smem_sums=sums, split=True)
+    return None
+
+
 def plan_block(t: int, h: int, w: int, c: int, ci: int, itemsize: int) -> BlockPlan:
     """The kernels' plan for one block shape and I/O dtype size.
 
-    bf16 (itemsize 2): ``_plan_bf16``, run by the weight-resident design
-    where ``_plan_resident`` gives a plan (the shape alone decides). fp32:
+    bf16 (itemsize 2): ``_plan_bf16``, run by the split design where
+    ``_plan_split`` gives a plan (T-tiles shorter than the clip), by the
+    weight-resident design where ``_plan_resident`` does (the shape alone
+    decides either). fp32:
     the fewest T-tiles, then the largest square tile in (8, 4, 2, 1), whose
     input tile, conv_c accumulator and a chunk of at least MIN_CHUNK inner
     channels fit SMEM_TARGET; Ci is then split into equal chunks. The byte
     counts follow the shared-memory layouts documented in
     csrc/fused_block.cu. A T-tile shorter than the clip reads one more frame
-    on each side (zeros outside the clip) and recomputes conv_a there: 2 /
-    tt more conv_a work.
+    on each side (zeros outside the clip); in fp32 it recomputes conv_a
+    there: 2 / tt more conv_a work.
     """
     if itemsize == 2:
         staged = _plan_bf16(t, h, w, c, ci)
-        return _plan_resident(t, c, ci, staged) or staged
+        return _plan_split(t, c, ci, staged) or _plan_resident(t, c, ci, staged) or staged
     for tt in _temporal_tiles(t):
         for tile in (8, 4, 2, 1):
             halo, core = halo_frames(t, tt) * (tile + 2) ** 2, tt * tile * tile
@@ -348,21 +397,62 @@ _fwd_op = torch.library.custom_op("c3d::fused_block_fwd", _fwd_cpu, mutates_args
                                   device_types="cpu", schema=_FWD_SCHEMA)
 
 
-def _launch_se_sums(x, w_a, a_a, b_a, w_dw, a_b, b_b,
-                    plan: Optional[BlockPlan] = None) -> torch.Tensor:
+def _design(plan: BlockPlan) -> int:
+    """The design as the C entry points take it: 0 staged, 1 resident, 2 split."""
+    return 2 if plan.split else int(plan.resident)
+
+
+def _launch_xa(x, w_a, a_a, b_a) -> torch.Tensor:
+    """The split design's xa pass on the card: round(relu(x @ w_a * a_a +
+    b_a)) at every position, [B, T, H, W, Ci rounded up to 8] bf16 (zeros
+    in the channels from Ci on; ``fused_block_xa_kernel``; the operands as
+    ``_front_args`` makes them)."""
+    b, t, h, w, c, ci = _check_cuda_args(x, w_a)
+    xa = torch.empty((b, t, h, w, _ceil(ci, 8) * 8), device=x.device, dtype=x.dtype)
+    lib = cuda_build.load("fused_block")
+    with torch.cuda.device(x.device):
+        err = lib.c3d_fused_block_xa(
+            x.data_ptr(), xa.data_ptr(), w_a.data_ptr(), a_a.data_ptr(), b_a.data_ptr(),
+            b, t, h, w, c, ci, _xa_smem(c), torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    cuda_build.check(lib, err, "fused_block_xa")
+    return xa
+
+
+def _split_input(plan: BlockPlan, args, xa: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The xa a split plan's tail reads: ``xa`` where given (checked), else
+    the xa pass's output on ``_front_args``' operands; None for the other
+    designs."""
+    if not plan.split:
+        return None
+    if xa is None:
+        return _launch_xa(*args[:4])
+    b, t, h, w, _ = args[0].shape
+    want = (b, t, h, w, _ceil(args[1].shape[1], 8) * 8)
+    if xa.shape != want or xa.dtype != args[0].dtype or not xa.is_contiguous():
+        raise ValueError(f"xa {tuple(xa.shape)} {xa.dtype} is not the xa pass's {want}")
+    return xa
+
+
+def _launch_se_sums(x, w_a, a_a, b_a, w_dw, a_b, b_b, plan: Optional[BlockPlan] = None,
+                    xa: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``fused_block_se_sums`` on the card under ``plan_block``'s plan, or
     under ``plan`` (the card tests and tools/phase_clocks.py run a shape's
-    staged plan too)."""
+    staged plan too). A split plan runs the xa pass, then the tail on its
+    output, or the tail alone on ``xa`` where given (the tools time the two
+    apart)."""
     b, t, h, w, c, ci = _check_cuda_args(x, w_a)
     plan = plan or _launch_plan(t, h, w, c, ci, x.element_size())
     args = _front_args(x, w_a, a_a, b_a, w_dw, a_b, b_b)
+    xa = _split_input(plan, args, xa)
     sums = torch.empty((b, plan.n_tiles, ci), device=x.device, dtype=torch.float32)
     lib = cuda_build.load("fused_block")
     with torch.cuda.device(x.device):
         err = lib.c3d_fused_block_se_sums(
             _DTYPES[x.dtype], args[0].data_ptr(), sums.data_ptr(),
             *(a.data_ptr() for a in args[1:]),
-            b, t, h, w, c, ci, plan.tt, plan.tile, plan.ck, plan.smem_sums, int(plan.resident),
+            b, t, h, w, c, ci, plan.tt, plan.tile, plan.ck, plan.smem_sums, _design(plan),
+            None if xa is None else xa.data_ptr(),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     cuda_build.check(lib, err, "fused_block_se_sums")
@@ -377,8 +467,9 @@ def _se_sums_cuda(x, w_a, a_a, b_a, w_dw, a_b, b_b):
 
 
 def _launch_fwd(x, w_a, a_a, b_a, w_dw, a_b, b_b, w_c, a_c, b_c, gate,
-                plan: Optional[BlockPlan] = None) -> torch.Tensor:
-    """``fused_block_fwd`` on the card (plans as ``_launch_se_sums``)."""
+                plan: Optional[BlockPlan] = None, xa: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+    """``fused_block_fwd`` on the card (plans and ``xa`` as ``_launch_se_sums``)."""
     b, t, h, w, c, ci = _check_cuda_args(x, w_a)
     plan = plan or _launch_plan(t, h, w, c, ci, x.element_size())
     if w_c.shape != (ci, c):
@@ -392,6 +483,7 @@ def _launch_fwd(x, w_a, a_a, b_a, w_dw, a_b, b_b, w_c, a_c, b_c, gate,
         if gate.shape != (b, ci):
             raise ValueError(f"gate {tuple(gate.shape)} != {(b, ci)}")
         gate = _f32(gate, x, b * ci, "gate")
+    xa = _split_input(plan, args, xa)
     out = torch.empty_like(args[0])
     lib = cuda_build.load("fused_block")
     with torch.cuda.device(x.device):
@@ -400,7 +492,8 @@ def _launch_fwd(x, w_a, a_a, b_a, w_dw, a_b, b_b, w_c, a_c, b_c, gate,
             *(a.data_ptr() for a in args[1:]),
             None if gate is None else gate.data_ptr(),
             *(a.data_ptr() for a in back),
-            b, t, h, w, c, ci, plan.tt, plan.tile, plan.ck, plan.smem_fwd, int(plan.resident),
+            b, t, h, w, c, ci, plan.tt, plan.tile, plan.ck, plan.smem_fwd, _design(plan),
+            None if xa is None else xa.data_ptr(),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     cuda_build.check(lib, err, "fused_block_fwd")
@@ -453,7 +546,7 @@ def blocks_per_sm(dtype: torch.dtype, se_sums: bool, t: int, h: int, w: int, c: 
     lib = cuda_build.load("fused_block")
     return lib.c3d_fused_block_blocks_per_sm(
         _DTYPES[dtype], int(se_sums), t, plan.tt, c, ci, plan.tile, plan.ck,
-        plan.smem_sums if se_sums else plan.smem_fwd, int(plan.resident))
+        plan.smem_sums if se_sums else plan.smem_fwd, _design(plan))
 
 
 def fused_bottleneck_block(

@@ -1210,7 +1210,12 @@ def clips_per_s(model, clip, rounds=3):
 def classify_rows(fb, name, ops, calls, card, iters=10):
     """Each fused kernel's time at every block shape of one bf16 forward (on
     the SE block's operands, held against the plain version just before),
-    its launches per forward, its plan, bound and plain time."""
+    its launches per forward, its plan, bound and plain time. Where the
+    plan is the split design (T-tiles shorter than the clip), its two
+    launches apart too, the xa pass (``xa_ms``) and the tail on the xa
+    pass's output (``tail_ms``), and beside them the staged T-tiled kernel
+    (``staged_ms``, ``_plan_bf16``), whose outputs the split's equal bit for
+    bit (``staged_equal``)."""
     rows = []
     for (shape, has_se), (o, se) in sorted(ops.items()):
         if not has_se:
@@ -1220,20 +1225,37 @@ def classify_rows(fb, name, ops, calls, card, iters=10):
         gate = fb.se_gate(fb.se_sums_reference(*o[:7]).sum(1) / (t * h * w), *se)
         plan = fb.plan_block(t, h, w, c, ci, 2)
         n_se = calls[(shape, True)]
-        for kernel, fn, plain, n, sums in (
+        staged = fb._plan_bf16(t, h, w, c, ci)
+        front = fb._front_args(*o[:7])
+        xa = fb._launch_xa(*front[:4]) if plan.split else None
+        for kernel, fn, plain, n, sums, tail, old in (
             ("fused_block_fwd", lambda: fb.fused_block_fwd(*o, gate),
-             lambda: fb.fused_block_fwd_reference(*o, gate), n_se + calls[(shape, False)], False),
+             lambda: fb.fused_block_fwd_reference(*o, gate), n_se + calls[(shape, False)], False,
+             lambda: fb._launch_fwd(*o, gate, plan=plan, xa=xa),
+             lambda: fb._launch_fwd(*o, gate, plan=staged)),
             ("fused_block_se_sums", lambda: fb.fused_block_se_sums(*o[:7]),
-             lambda: fb.se_sums_reference(*o[:7]), n_se, True),
+             lambda: fb.se_sums_reference(*o[:7]), n_se, True,
+             lambda: fb._launch_se_sums(*o[:7], plan=plan, xa=xa),
+             lambda: fb._launch_se_sums(*o[:7], plan=staged)),
         ):
             b_ms, b_by = bound(b, t, h, c, ci, 2, sums=sums, n_tiles=plan.n_tiles)
             rows.append({"kernel": kernel, "model": name, "stage": STAGE_OF_WIDTH[c], "t": t,
                          "batch": b, "shape": list(shape), "inner": ci, "tt": plan.tt,
                          "tile": plan.tile, "chunk": plan.ck, "n_tiles": plan.n_tiles,
+                         "design": ("split" if plan.split else
+                                    "resident" if plan.resident else "staged"),
                          "launches_per_forward": n,
                          "blocks_per_sm": fb.blocks_per_sm(torch.bfloat16, sums, t, h, w, c, ci),
                          "ms": event_ms(fn, iters), "plain_ms": event_ms(plain, 3),
                          "bound_ms": b_ms, "bound_by": b_by, "card": card})
+            if plan.split:
+                rows[-1].update({
+                    "xa_ms": event_ms(lambda: fb._launch_xa(*front[:4]), iters),
+                    "tail_ms": event_ms(tail, iters), "staged_ms": event_ms(old, iters),
+                    "staged_chunk": staged.ck, "staged_equal": bool(torch.equal(tail(), old()))})
+                if not rows[-1]["staged_equal"]:
+                    raise AssertionError(f"{kernel} {name} {shape}: the split design differs "
+                                         f"from the staged kernel")
             print(f"time {kernel} {name} {STAGE_OF_WIDTH[c]} T={t} tt={plan.tt} B={b} "
                   f"({card}): {json.dumps(rows[-1])}", flush=True)
     return rows

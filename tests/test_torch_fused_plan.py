@@ -123,9 +123,11 @@ FAMILY_STAGES = {f"{v}_stage{i + 1}": (t, side // 2 ** (i + 2), c, ci)
                  for v, (t, side) in X3D_FAMILY.items()
                  for i, (c, ci) in enumerate(((24, 54), (48, 108), (96, 216), (192, 432)))}
 
-# X3D-M's 16-frame clip at stages 3 and 4 in bf16, counted by hand from
-# Bf16Layout: (T, H, W, C, Ci) -> (tt, tile, ck, smem_fwd, smem_sums,
-# n_tiles, resident): T-tiled, so the staged design.
+# X3D-M's 16-frame clip at stages 3 and 4 in bf16, the staged plan
+# (``_plan_bf16``) counted by hand from Bf16Layout: (T, H, W, C, Ci) ->
+# (tt, tile, ck, smem_fwd, smem_sums, n_tiles, resident, split). T-tiled,
+# so ``plan_block`` runs them on the split design, at the staged plan's tt
+# and tiles (T16_PINNED below).
 # Stage 3: a whole clip needs 24 accumulator tiles per warp at tile 4, 8
 # frames need 12; then F = 10 halo frames of 6 x 6 (360 rows, 368 padded),
 # rows of 96 + 8, ck = 16 (14 chunks; 24 needs 124160 B):
@@ -138,15 +140,31 @@ FAMILY_STAGES = {f"{v}_stage{i + 1}": (t, side // 2 ** (i + 2), c, ci)
 # X3D-L's Kinetics-400 clip, 16 x 312^2 at the (1, 2, 2) stem stride: stages
 # 1 and 2 in one T-tile over ragged 4 x 4 tiles (78 and 39 are not multiples
 # of 4: 20 x 20 and 10 x 10 tiles), stages 3 and 4 in the T-tiles of X3D-M's
-# (the same layouts on 5 x 5 and 3 x 3 tiles; staged: the resident route
-# takes T <= 5 only).
+# (the same layouts on 5 x 5 and 3 x 3 tiles; the resident route takes
+# T <= 5 only).
+T16_STAGED = {
+    "stage3": ((16, 14, 14, 96, 216), (8, 4, 16, 102144, 93440, 32, False, False)),
+    "stage4": ((16, 7, 7, 192, 432), (3, 4, 16, 100480, 89728, 24, False, False)),
+    "k400_stage3": ((16, 20, 20, 96, 216), (8, 4, 16, 102144, 93440, 50, False, False)),
+    "k400_stage4": ((16, 10, 10, 192, 432), (3, 4, 16, 100480, 89728, 54, False, False)),
+}
+# ``plan_block``'s plans at 16 frames. Stages 3 and 4 take the split design
+# (SplitLayout): the staged tt and tiles, the fewest chunks of a multiple of
+# 16 channels that fit 112 KB = 114688 B.
+# Stage 3: 360 halo rows, C 96 (w_c rows of 104, 13 16-byte units), 128
+# outputs: ck 48 needs 2*360*48*2 + 2*48*104*2 + 128*56*2 + 128*104*2 =
+# 130048; ck 32 (7 chunks): 46080 + 13312 + 10240 + 26624 = 96256, sums
+# 46080 + 8*4*1*32*4 = 50176. Stage 4: 180 halo rows, C 192 (rows of 200,
+# 25 units), 48 outputs: ck 64 needs 46080 + 51200 + 48*72*2 + 48*200*2 =
+# 123392; ck 48 (9 chunks): 34560 + 38400 + 5376 + 19200 = 97536, sums
+# 34560 + 3*4*1*48*4 = 36864. Stages 1 and 2 take one T-tile: staged.
 T16_PINNED = {
-    "stage3": ((16, 14, 14, 96, 216), (8, 4, 16, 102144, 93440, 32, False)),
-    "stage4": ((16, 7, 7, 192, 432), (3, 4, 16, 100480, 89728, 24, False)),
-    "k400_stage1": ((16, 78, 78, 24, 54), (16, 4, 32, 107904, 93696, 400, False)),
-    "k400_stage2": ((16, 39, 39, 48, 108), (16, 4, 16, 99328, 88832, 100, False)),
-    "k400_stage3": ((16, 20, 20, 96, 216), (8, 4, 16, 102144, 93440, 50, False)),
-    "k400_stage4": ((16, 10, 10, 192, 432), (3, 4, 16, 100480, 89728, 54, False)),
+    "stage3": ((16, 14, 14, 96, 216), (8, 4, 32, 96256, 50176, 32, False, True)),
+    "stage4": ((16, 7, 7, 192, 432), (3, 4, 48, 97536, 36864, 24, False, True)),
+    "k400_stage1": ((16, 78, 78, 24, 54), (16, 4, 32, 107904, 93696, 400, False, False)),
+    "k400_stage2": ((16, 39, 39, 48, 108), (16, 4, 16, 99328, 88832, 100, False, False)),
+    "k400_stage3": ((16, 20, 20, 96, 216), (8, 4, 32, 96256, 50176, 50, False, True)),
+    "k400_stage4": ((16, 10, 10, 192, 432), (3, 4, 48, 97536, 36864, 54, False, True)),
 }
 
 
@@ -155,7 +173,7 @@ def test_whole_clip_plans_take_one_t_tile(stage):
     shape, want = {**X3D_L_STAGES, **X3D_L_STAGES_T45}[stage]
     plan = fb.plan_block(*shape, 2)
     assert plan.tt == shape[0] and tuple(plan)[1:6] == want
-    assert plan.resident == (stage in RESIDENT_STAGES)
+    assert plan.resident == (stage in RESIDENT_STAGES) and not plan.split
     assert fb.halo_frames(shape[0], plan.tt) == shape[0]
 
 
@@ -164,6 +182,17 @@ def test_bf16_t_tiled_plans_at_x3d_m_16_frames(stage):
     shape, want = T16_PINNED[stage]
     assert tuple(fb.plan_block(*shape, 2)) == want
     assert fb.plan_tiles(*shape, 2) == want[1:6]
+
+
+@pytest.mark.parametrize("stage", list(T16_STAGED))
+def test_staged_t_tiled_plans_at_16_frames(stage):
+    """The staged plan of each T-tiled shape, which the split design keeps
+    the tt, tiles and se-sums rows of (and the card tests run the staged
+    kernel at)."""
+    shape, want = T16_STAGED[stage]
+    assert tuple(fb._plan_bf16(*shape)) == want
+    split = fb.plan_block(*shape, 2)
+    assert (split.tt, split.tile, split.n_tiles) == (want[0], want[1], want[5])
 
 
 @pytest.mark.parametrize("itemsize", [2, 4], ids=["bf16", "fp32"])
@@ -181,8 +210,13 @@ def test_x3d_family_stages_plan_within_the_limits(stage, itemsize):
         assert tile in (16, 8, 4) and ck % 2 == 0 and (ck % 8 == 0 or ck == ci)
         m_tiles = -(-tt * tile * tile // 16)
         assert -(-m_tiles * (c // 8) // fb.WARPS) <= fb.MAX_ACC_TILES
-        assert (smem_fwd, smem_sums) == (fb._resident_smem(t, tile, c, ci, ck) if plan.resident
-                                         else fb._bf16_smem(tt, tile, c, ck, frames))
+        assert plan.split == (tt < t)
+        if plan.resident:
+            assert (smem_fwd, smem_sums) == fb._resident_smem(t, tile, c, ci, ck)
+        elif plan.split:
+            assert (smem_fwd, smem_sums) == fb._split_smem(tt, tile, c, ck, frames)
+        else:
+            assert (smem_fwd, smem_sums) == fb._bf16_smem(tt, tile, c, ck, frames)
     else:
         halo, core = frames * (tile + 2) ** 2, tt * tile * tile
         assert tile in (8, 4, 2, 1)
@@ -227,6 +261,7 @@ def test_plain_se_sums_follow_the_t_tiles(itemsize):
 X3D_L_SHAPES = {"stage1": (128, 24, 54), "stage2": (64, 48, 108), "stage3": (32, 96, 216),
                 "stage4": (16, 192, 432)}
 RESIDENT_ROUTE = {("stage3", 3), ("stage3", 4), ("stage3", 5)}
+SPLIT_ROUTE = {("stage3", 16), ("stage4", 16)}
 
 
 @pytest.mark.parametrize("t", [3, 4, 5, 16])
@@ -235,9 +270,14 @@ def test_route_at_every_x3d_l_stage(stage, t):
     hw, c, ci = X3D_L_SHAPES[stage]
     plan, staged = fb.plan_block(t, hw, hw, c, ci, 2), fb._plan_bf16(t, hw, hw, c, ci)
     assert plan.resident == ((stage, t) in RESIDENT_ROUTE)
+    assert plan.split == ((stage, t) in SPLIT_ROUTE) == (staged.tt < t)
     # The same tiles either way: the se-sums rows and the plain sums hold.
     assert (plan.tt, plan.tile, plan.n_tiles) == (staged.tt, staged.tile, staged.n_tiles)
-    assert not fb.plan_block(t, hw, hw, c, ci, 4).resident  # fp32 keeps its design
+    fp32 = fb.plan_block(t, hw, hw, c, ci, 4)
+    assert not fp32.resident and not fp32.split  # fp32 keeps its design
+    if plan.split:
+        assert plan == fb._plan_split(t, c, ci, staged)
+        return
     if not plan.resident:
         assert plan == staged
         return
@@ -270,10 +310,12 @@ def test_route_at_every_x3d_family_stage(stage):
     """X3D-XS's stage 3 (4 frames of 10 x 10) is the one resident shape of
     the family; X3D-M's and X3D-S's stage 3 take T-tiles and stay staged."""
     t, hw, c, ci = FAMILY_STAGES[stage]
-    plan = fb.plan_block(t, hw, hw, c, ci, 2)
+    plan, staged = fb.plan_block(t, hw, hw, c, ci, 2), fb._plan_bf16(t, hw, hw, c, ci)
     assert plan.resident == (stage == "xs_stage3")
-    if not plan.resident:
-        assert plan == fb._plan_bf16(t, hw, hw, c, ci)
+    assert plan.split == (staged.tt < t) == (stage in {"m_stage3", "m_stage4", "s_stage3",
+                                                       "s_stage4"})
+    if not plan.resident and not plan.split:
+        assert plan == staged
 
 
 def test_phase_clocks_read_every_fused_block_mark():
@@ -294,3 +336,103 @@ def test_phase_clocks_read_every_fused_block_mark():
     read = {m for _, a, b, _ in tool.FUSED_PHASES for m in (a, b)}
     read |= set(tool.RESIDENT_PHASE[1:])
     assert marks == read == set(range(15))
+
+
+# The split design (``_plan_split``) at every bf16 shape whose staged plan
+# takes T-tiles, over clip lengths and the X3D stage widths at two sides
+# each (T, stage): the shape alone decides.
+SPLIT_GRID = [(t, stage, side) for t in (6, 8, 13, 16, 32) for stage in X3D_L_SHAPES
+              for side in (X3D_L_SHAPES[stage][0] // 4, X3D_L_SHAPES[stage][0] // 8 + 1)]
+
+
+@pytest.mark.parametrize("t,stage,side", SPLIT_GRID)
+def test_every_t_tiled_bf16_plan_takes_the_split_design(t, stage, side):
+    _, c, ci = X3D_L_SHAPES[stage]
+    plan, staged = fb.plan_block(t, side, side, c, ci, 2), fb._plan_bf16(t, side, side, c, ci)
+    assert plan.split == (staged.tt < t)
+    if not plan.split:
+        assert plan == (fb._plan_resident(t, c, ci, staged) or staged)
+        return
+    assert not plan.resident
+    assert (plan.tt, plan.tile, plan.n_tiles) == (staged.tt, staged.tile, staged.n_tiles)
+    assert plan.ck % 16 == 0 or plan.ck == ci
+    frames = fb.halo_frames(t, plan.tt)
+    assert plan.smem_sums < plan.smem_fwd <= fb.SMEM_TARGET
+    assert (plan.smem_fwd, plan.smem_sums) == fb._split_smem(plan.tt, plan.tile, c, plan.ck,
+                                                             frames)
+    assert fb._xa_smem(c) <= fb.SMEM_TARGET
+    chunks = -(-ci // plan.ck)  # and one chunk fewer would not fit
+    if chunks > 1:
+        wider = min(ci, fb._pad16(-(-ci // (chunks - 1))))
+        assert fb._split_smem(plan.tt, plan.tile, c, wider, frames)[0] > fb.SMEM_TARGET
+    # The plain se-sums follow the same tiles as the staged plan's.
+    assert fb.plan_tiles(t, side, side, c, ci, 2)[0] == staged.tile
+
+
+# The one-T-tile plans of every cell that runs none of the split design:
+# BCD (T = 3), BDA (4), SCD (5) and CC (T = 3, stage 4 too) at 256^2, and
+# Kinetics stages 1 and 2 (16 x 78^2, 16 x 39^2).
+ONE_T_TILE = {**{f"t{t}_{stage}": (t, X3D_L_SHAPES[stage][0], *X3D_L_SHAPES[stage][1:])
+                 for t in (3, 4, 5) for stage in X3D_L_SHAPES},
+              "k400_stage1": (16, 78, 24, 54), "k400_stage2": (16, 39, 48, 108)}
+
+
+@pytest.mark.parametrize("shape", list(ONE_T_TILE))
+def test_one_t_tile_plans_keep_their_design(shape):
+    t, hw, c, ci = ONE_T_TILE[shape]
+    plan, staged = fb.plan_block(t, hw, hw, c, ci, 2), fb._plan_bf16(t, hw, hw, c, ci)
+    assert staged.tt == t and not plan.split and fb._plan_split(t, c, ci, staged) is None
+    assert plan == (fb._plan_resident(t, c, ci, staged) or staged)
+
+
+def test_xa_pass_layout():
+    """The xa pass's shared memory (XaLayout), counted by hand: 128 rows of
+    x (pad16(C) + 8), w_a's 64 columns as pad16(C) rows of 72 (9 16-byte
+    units), the 128 x 72 output tile."""
+    assert (fb.XA_ROWS, fb.XA_COLS) == (128, 64) and fb._odd16_stride(64) == 72
+    assert fb._xa_smem(96) == (128 * 104 + 96 * 72 + 128 * 72) * 2 == 58880
+    assert fb._xa_smem(192) == (128 * 200 + 192 * 72 + 128 * 72) * 2 == 97280
+    assert fb._xa_smem(24) == (128 * 40 + 32 * 72 + 128 * 72) * 2
+
+
+def test_phase_clocks_name_the_split_and_xa_phases():
+    """tools/phase_clocks.py --kinetics renames a split tail's phases that
+    have no conv_a or weight staging, and reads the xa pass's marks, which
+    csrc/fused_block.cu's fused_block_xa_kernel sets."""
+    import importlib.util
+    import re
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    source = (repo / "change3d_tpu_torch" / "csrc" / "fused_block.cu").read_text()
+    body = source[source.index("fused_block_xa_kernel(Params p) {"):]
+    body = body[:body.index("\n}\n")]
+    marks = {int(n) for n in re.findall(r"C3D_PHASE\((\d+)\);", body)}
+    spec = importlib.util.spec_from_file_location("phase_clocks", repo / "tools" / "phase_clocks.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    assert {m for _, a, b in tool.XA_PHASES for m in (a, b)} == marks == {0, 1, 2, 3}
+    assert set(tool.SPLIT_NAMES) <= {name for name, _, _, _ in tool.FUSED_PHASES}
+    assert [stage for stage, *_ in tool.KINETICS] == ["stage3", "stage4"]
+    for _, t, hw, c, ci, _ in tool.KINETICS:
+        assert fb.plan_block(t, hw, hw, c, ci, 2).split
+
+
+def test_split_tail_input_is_checked():
+    """``_launch_fwd`` / ``_launch_se_sums(..., xa=...)`` run a split tail on
+    a given xa only if it is the xa pass's output for these operands:
+    [B, T, H, W, Ci rounded up to 8] in x's dtype, contiguous; the other
+    designs read none."""
+    t, hw, c, ci = 16, 10, 192, 432
+    x = torch.zeros(2, t, hw, hw, c, dtype=torch.bfloat16)
+    args = (x, torch.zeros(c, ci, dtype=torch.bfloat16))
+    split, staged = fb.plan_block(t, hw, hw, c, ci, 2), fb._plan_bf16(t, hw, hw, c, ci)
+    xa = torch.zeros(2, t, hw, hw, ci, dtype=torch.bfloat16)
+    assert fb._split_input(split, args, xa) is xa
+    assert fb._split_input(staged, args, xa) is None
+    for bad in (xa[..., :-8], xa.float(), xa.transpose(2, 3)):
+        with pytest.raises(ValueError, match="xa pass"):
+            fb._split_input(split, args, bad)
+    ragged = (x, torch.zeros(c, 54, dtype=torch.bfloat16))  # Ci 54: rows of 56
+    assert fb._split_input(split, ragged, torch.zeros(2, t, hw, hw, 56, dtype=torch.bfloat16)) \
+        is not None

@@ -5,6 +5,7 @@ csrc/repros.cu or csrc/fused_block.cu.
 
     python3 tools/phase_clocks.py [--runs 20] [--seed 0]
     python3 tools/phase_clocks.py --fused [--batch 16] [--runs 20]
+    python3 tools/phase_clocks.py --fused --kinetics [--batch 30] [--runs 20]
 
 Builds csrc/repros.cu with -DC3D_PHASE_CLOCKS into a library of its own in
 change3d_tpu_torch/_build/ (thread 0 of each of the first 8 blocks records
@@ -26,7 +27,13 @@ of the wrapper's (``cuda_build.load``), and launches ``fused_block_fwd`` and
 and the staged ``_plan_bf16``): the marks of one tile of each of the first
 8 blocks of sample 0 (of a persistent block, its group 0's last tile), the
 phases of the first and of the last chunk of Ci, per design, kernel and
-clip. Writes chiprun_out/phase_clocks_fused.json.
+clip. Writes chiprun_out/phase_clocks_fused.json. With --kinetics it runs
+instead X3D-L's two T-tiled Kinetics shapes (stage 3, 16 x 20^2, and stage
+4, 16 x 10^2, both in T-tiles) for both kernels (--batch 30: one video's
+views): the staged T-tiled kernel (``_plan_bf16``), and ``plan_block``'s
+split design as its two launches apart, the xa pass (its marks 0-3) and
+the tail on the xa pass's output, each with its device ms, and the whole
+op (xa pass and tail). Writes chiprun_out/phase_clocks_kinetics.json.
 """
 
 from __future__ import annotations
@@ -80,8 +87,22 @@ FUSED_PHASES = (
     ("stores", 6, 7, True),
 )
 RESIDENT_PHASE = ("weights resident (once a block)", 8, 9)
+# A split tail has no conv_a and no weight staging: its chunk's copy has
+# landed at the barrier, and it issues the next chunk's copy where a staged
+# tile computes conv_a.
+SPLIT_NAMES = {"first chunk: weights staged, x landed, barrier":
+               "first chunk: x core and xa chunk landed, barrier",
+               "first chunk: conv_a": "first chunk: next chunk's copy issued",
+               "last chunk: weights staged, barrier": "last chunk: xa chunk landed, barrier",
+               "last chunk: conv_a": "last chunk: (no copy)"}
+# The xa pass (fused_block_xa_kernel): marks 0-3 of each of its first blocks.
+XA_PHASES = (("x rows and the first slab's w_a columns landed", 0, 1),
+             ("first slab's products", 1, 2),
+             ("first slab's epilogue and stores, then the other slabs", 2, 3))
 # Stage 3 of X3D-L at 256^2: (H = W, C, Ci, Cr).
 STAGE3 = (32, 96, 216, 16)
+# X3D-L's T-tiled Kinetics shapes (16 x 312^2 clips): (stage, T, H = W, C, Ci, Cr).
+KINETICS = (("stage3", 16, 20, 96, 216, 16), ("stage4", 16, 10, 192, 432, 32))
 
 
 def build(out_dir: str, name: str = "repros") -> str:
@@ -139,6 +160,61 @@ def marks(lib, launch, runs: int) -> np.ndarray:
     return np.stack(out)
 
 
+def kinetics_main(args, lib, plain_lib, card, fb, cuda_build, chip_smoke, dev) -> dict:
+    """--fused --kinetics: the staged kernel, the xa pass and the split tail
+    at X3D-L's T-tiled Kinetics shapes."""
+    result = {"card": card, "batch": args.batch, "rows": []}
+
+    def clocked(launch, phases, end):
+        cuda_build._LOADED["fused_block"] = lib
+        try:
+            clocks = marks(lib, launch, args.runs)
+            ms_instrumented = chip_smoke.device_ms(launch, 50)
+        finally:
+            cuda_build._LOADED["fused_block"] = plain_lib
+        return {"phases_median_cycles": {name: float(np.median(clocks[:, :, b] - clocks[:, :, a]))
+                                         for name, a, b in phases},
+                "tile_median_cycles": float(np.median(clocks[:, :, end] - clocks[:, :, 0])),
+                "samples": int(clocks.shape[0] * clocks.shape[1]),
+                "ms_instrumented": ms_instrumented, "ms_wrapper": chip_smoke.device_ms(launch, 50)}
+
+    for stage, t, hw, c, ci, cr in KINETICS:
+        ops, se = chip_smoke.operands(np.random.RandomState(args.seed + c), args.batch, t, hw, c,
+                                      ci, cr, torch.bfloat16, dev, True)
+        gate = fb.se_gate(fb.se_sums_reference(*ops[:7]).sum(1) / (t * hw * hw), *se)
+        staged, split = fb._plan_bf16(t, hw, hw, c, ci), fb.plan_block(t, hw, hw, c, ci, 2)
+        assert split.split and staged.tt == split.tt < t
+        front = fb._front_args(*ops[:7])
+        xa = fb._launch_xa(*front[:4])
+        row = {"kernel": "fused_block_xa", "stage": stage, "t": t, "hw": hw,
+               **clocked(lambda: fb._launch_xa(*front[:4]), XA_PHASES, 3)}
+        result["rows"].append(row)
+        print(f"fused_block_xa {stage} T={t} B={args.batch} ({card}): {json.dumps(row)}",
+              flush=True)
+        for kernel in ("fused_block_fwd", "fused_block_se_sums"):
+            fwd = kernel == "fused_block_fwd"
+            phases = [(name, a, b) for name, a, b, fwd_only in FUSED_PHASES if fwd or not fwd_only]
+            for design, plan, launch in (
+                ("staged", staged, (lambda: fb._launch_fwd(*ops, gate, plan=staged)) if fwd
+                 else (lambda: fb._launch_se_sums(*ops[:7], plan=staged))),
+                ("split tail", split, (lambda: fb._launch_fwd(*ops, gate, plan=split, xa=xa))
+                 if fwd else (lambda: fb._launch_se_sums(*ops[:7], plan=split, xa=xa))),
+            ):
+                named = [(SPLIT_NAMES.get(n, n) if plan.split else n, a, b) for n, a, b in phases]
+                row = {"kernel": kernel, "design": design, "stage": stage, "t": t, "hw": hw,
+                       "plan": plan._asdict(), **clocked(launch, named, 7 if fwd else 13)}
+                if plan.split:
+                    whole = ((lambda: fb._launch_fwd(*ops, gate, plan=split)) if fwd
+                             else (lambda: fb._launch_se_sums(*ops[:7], plan=split)))
+                    row["ms_xa_and_tail"] = chip_smoke.device_ms(whole, 50)
+                result["rows"].append(row)
+                print(f"{kernel} {design} {stage} T={t} B={args.batch} ({card}): "
+                      f"{json.dumps(row)}", flush=True)
+        del ops, xa, front
+        torch.cuda.empty_cache()
+    return result
+
+
 def fused_main(args) -> int:
     import chip_smoke
     from change3d_tpu_torch.device import resolve_device
@@ -152,7 +228,9 @@ def fused_main(args) -> int:
     smi_before = chip_smoke.smi_sample()
     hw, c, ci, cr = STAGE3
     result = {"card": card, "batch": args.batch, "stage": list(STAGE3), "rows": []}
-    for t in (3, 4, 5):
+    if args.kinetics:
+        result = kinetics_main(args, lib, plain_lib, card, fb, cuda_build, chip_smoke, dev)
+    for t in () if args.kinetics else (3, 4, 5):
         ops, se = chip_smoke.operands(np.random.RandomState(args.seed + t), args.batch, t, hw, c,
                                       ci, cr, torch.bfloat16, dev, True)
         gate = fb.se_gate(fb.se_sums_reference(*ops[:7]).sum(1) / (t * hw * hw), *se)
@@ -189,7 +267,8 @@ def fused_main(args) -> int:
     result["nvidia_smi"] = {"clocks_sm,power_draw,power_limit": {"before": smi_before,
                                                                  "after": chip_smoke.smi_sample()}}
     print(f"nvidia-smi: {json.dumps(result['nvidia_smi'])}")
-    out = args.out or os.path.join("chiprun_out", "phase_clocks_fused.json")
+    out = args.out or os.path.join(
+        "chiprun_out", "phase_clocks_kinetics.json" if args.kinetics else "phase_clocks_fused.json")
     os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
     with open(out, "w") as f:
         json.dump(result, f, indent=1)
@@ -201,12 +280,17 @@ def main(argv=None) -> int:
     ap.add_argument("--runs", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--fused", action="store_true", help="the fused block kernels at stage 3")
-    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--kinetics", action="store_true",
+                    help="with --fused: the staged kernel, the xa pass and the split tail at "
+                         "X3D-L's T-tiled Kinetics shapes")
+    ap.add_argument("--batch", type=int, default=None, help="16 (--fused), 30 (--kinetics)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("phase_clocks: CUDA is not available; this tool needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    if args.batch is None:
+        args.batch = 30 if args.kinetics else 16
     if args.fused:
         return fused_main(args)
     args.out = args.out or os.path.join("chiprun_out", "phase_clocks.json")
